@@ -1,0 +1,5 @@
+from dp_gp_lvm_tpu_torch.linalg.chol import (  # noqa: F401
+    logdet_from_chol,
+    safe_cholesky_spec,
+    tri_solve,
+)

@@ -1,0 +1,82 @@
+"""Safe Cholesky with scale-aware escalating jitter, plus solve helpers
+(counterpart of `dp_gp_lvm_tpu/linalg/chol.py`).
+
+JAX's Cholesky returns NaN on a non-PSD input and the reference tests the
+factor for finiteness. `torch.linalg.cholesky_ex` instead returns `info`
+beside a partial factor that need not hold a NaN, so failure is read from
+`info`, and a failed factor is filled with NaN so that callers (the
+optimizer's non-finite skip) see what the reference shows them.
+"""
+from __future__ import annotations
+
+import torch
+
+from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+
+
+def _cholesky(A):
+    """(L, info) with the lower triangle of every failed batch member set
+    to NaN, as JAX returns it."""
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L), info
+
+
+def _chol_ok(info):
+    return bool(torch.all(info == 0))
+
+
+def _scale(A):
+    """Mean |diag| floored at 1, shaped (..., 1, 1); carries no gradient."""
+    scale = torch.mean(torch.abs(torch.diagonal(A, dim1=-2, dim2=-1)), dim=-1)
+    return torch.clamp(scale, min=1.0)[..., None, None].detach()
+
+
+def _find_jitter(A_nograd, scale, policy: JitterPolicy):
+    """Smallest escalated relative jitter that factors every batch member
+    (one jitter shared over the whole batch), or the last one tried."""
+    eye = torch.eye(A_nograd.shape[-1], dtype=A_nograd.dtype,
+                    device=A_nograd.device)
+    jitter = policy.initial_for(A_nograd.dtype)
+    tries = 0
+    while tries < policy.max_tries:
+        _, info = torch.linalg.cholesky_ex(A_nograd + jitter * scale * eye)
+        if _chol_ok(info):
+            break
+        jitter *= policy.growth
+        tries += 1
+    return jitter
+
+
+def safe_cholesky_spec(A, policy: JitterPolicy = JitterPolicy()):
+    """Speculate-then-repair safe Cholesky over a whole batch.
+
+    Factors once at the initial jitter; only when some batch member fails
+    does it search for ONE shared jitter that factors every member. The
+    test of `info` is a host sync, once per call. Returns (L, jitter) with
+    jitter of shape A.shape[:-2].
+    """
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    scale = _scale(A)
+    init = policy.initial_for(A.dtype)
+    batch = A.shape[:-2]
+    L0, info = _cholesky(A + init * scale * eye)
+    if policy.max_tries == 0 or _chol_ok(info):
+        return L0, torch.full(batch, init, dtype=A.dtype, device=A.device)
+    jitter = _find_jitter(A.detach(), scale, policy)
+    L, _ = _cholesky(A + jitter * scale * eye)
+    return L, torch.full(batch, jitter, dtype=A.dtype, device=A.device)
+
+
+def tri_solve(L, B, lower: bool = True, trans: bool = False):
+    """Solve op(L) X = B for triangular L. Batched over leading dims."""
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=lower)
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def logdet_from_chol(L):
+    """log|A| = 2 * sum(log diag L) for A = L L^T."""
+    return 2.0 * torch.sum(
+        torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1
+    )

@@ -1,0 +1,302 @@
+r"""Fused psi-statistics kernels of the DP atom stack (counterpart of
+`dp_gp_lvm_tpu/ops/pallas/psi.py`).
+
+Two hand-written CUDA kernels carry the DP-GP-LVM training step:
+
+- K1 `suffstats_batched` (csrc/psi_suffstats.cu): per-atom Psi2 (T, M, M)
+  and Psi1^T Y (T, M, D) in one pass over the rows; Psi1 never reaches
+  device memory. Replaces `_suffstats_batched_kernel`.
+- K2 `psi2_bwd_batched` (csrc/psi2_bwd.cu): the analytic Psi2 pullback,
+  atoms looped inside the block. Replaces `_psi2_bwd_batched_kernel`.
+
+Beside each is its plain PyTorch version (`*_reference`), blocked over N.
+A wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel (float32 only) or raises. Each launch adds
+one to `LAUNCHES[<name>]`.
+
+`SuffstatsBatchedFused` pairs them as forward and backward, with the Psi1
+pullback in plain torch (it is pure JAX outside any kernel in the
+reference), and the n-independent E0 finish of K2 in plain torch.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
+    _e0_pulls,
+    _psi1_bwd,
+)
+
+LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0}
+MAX_M = 128          # K2 keeps V in registers for M <= 128
+MAX_ROWS_K2 = 64     # rows of a K2 block, held in shared memory
+_K1_STAGE = 16       # rows K1 stages at once (RS in psi_suffstats.cu)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _ones_weights(mu, weights):
+    if weights is None:
+        return torch.ones(mu.shape[0], dtype=mu.dtype, device=mu.device)
+    return weights
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path and the on-card oracle)
+# ---------------------------------------------------------------------------
+
+
+def suffstats_batched_reference(variances, ards, mu, s, Zs, Y, weights=None,
+                                block_n: int = 64):
+    """Plain K1: (Psi2 (T,M,M), Psi1^T Y (T,M,D)), blocked over N."""
+    T, M, _ = Zs.shape
+    N, D = Y.shape
+    w = _ones_weights(mu, weights)
+    log_e = ard_rbf._log_e(ards, Zs)
+    psi2 = torch.zeros(T, M, M, dtype=mu.dtype, device=mu.device)
+    p1y = torch.zeros(T, M, D, dtype=mu.dtype, device=mu.device)
+    v2 = (variances * variances)[:, None, None]
+    for i in range(0, N, block_n):
+        sl = slice(i, i + block_n)
+        mu_b, s_b, w_b = mu[sl], s[sl], w[sl]
+        _, _, expo = ard_rbf._forward_pieces(variances, ards, mu_b, s_b,
+                                             Zs, log_e)
+        contrib = torch.sum(
+            torch.exp(torch.clamp(expo, max=0.0)) * w_b[None, :, None, None],
+            dim=1,
+        )
+        psi2 = psi2 + v2 * contrib
+        psi1 = ard_rbf.psi1(variances, ards, mu_b, s_b, Zs, w_b)
+        p1y = p1y + psi1.mT @ Y[sl]
+    return psi2, p1y
+
+
+def psi2_bwd_batched_reference(variances, ards, mu, s, Zs, G, weights=None,
+                               block_n: int = 64):
+    """Plain K2: the raw kernel outputs
+    (gvar_m (T,M), gard (T,Q), gz (T,M,Q), V (T,M,M), gmu, gs (N,Q), gw (N,)),
+    gard and gz without the E0 pull (`finish_psi2_bwd` adds it)."""
+    T, M, Q = Zs.shape
+    N = mu.shape[0]
+    w = _ones_weights(mu, weights)
+    log_e = ard_rbf._log_e(ards, Zs)
+    kw = dict(dtype=mu.dtype, device=mu.device)
+    gvar_m = torch.zeros(T, M, **kw)
+    gard = torch.zeros(T, Q, **kw)
+    gz = torch.zeros(T, M, Q, **kw)
+    V = torch.zeros(T, M, M, **kw)
+    gmu, gs, gw = [], [], []
+    v2 = (variances * variances)[:, None, None, None]
+    for i in range(0, N, block_n):
+        sl = slice(i, i + block_n)
+        mu_b, s_b, w_b = mu[sl], s[sl], w[sl]
+        u, b, expo = ard_rbf._forward_pieces(variances, ards, mu_b, s_b, Zs,
+                                             log_e)
+        e_raw = torch.exp(torch.clamp(expo, max=0.0))
+        e = e_raw * w_b[None, :, None, None]
+        Gb = G[:, None]
+        gvar_m = gvar_m + torch.sum(e * Gb, dim=(1, 3))
+        gw.append(torch.sum(v2 * e_raw * Gb, dim=(0, 2, 3)))
+        W = v2 * e * (expo < 0.0).to(mu.dtype) * Gb          # (T,B,M,M)
+        WS = W + W.transpose(-1, -2)
+        A = torch.sum(W, dim=(-2, -1))                          # (T,B)
+        rsum = torch.sum(WS, dim=-1)                            # (T,B,M)
+        wsz = torch.einsum("tbml,tlq->tbmq", WS, Zs)
+        U = 0.5 * torch.einsum("tbmq,tmq->tbq", wsz, Zs)
+        rz = rsum @ Zs
+        rz2 = rsum @ (Zs * Zs)
+        V = V + torch.sum(W, dim=1)
+        gb = (-mu_b * mu_b * A[..., None] + mu_b * rz - 0.25 * rz2
+              - 0.5 * U)
+        gmu.append(torch.sum(b * (-2.0 * mu_b * A[..., None] + rz), dim=0))
+        gs.append(torch.sum(gb * (-2.0 * b * b) - A[..., None] * b, dim=0))
+        gard = gard + torch.sum(gb / (u * u), dim=1) - torch.sum(
+            A[..., None] * s_b / u, dim=1
+        )
+        bz_t = torch.einsum("tbm,tbq->tmq", rsum, b * mu_b)
+        bz_p = torch.einsum("tbm,tbq->tmq", rsum, b)
+        bz_c = torch.einsum("tbmq,tbq->tmq", wsz, b)
+        gz = gz + bz_t - 0.5 * Zs * bz_p - 0.5 * bz_c
+    return (gvar_m, gard, gz, V, torch.cat(gmu), torch.cat(gs),
+            torch.cat(gw))
+
+
+def finish_psi2_bwd(variances, ards, Zs, raw):
+    """K2's raw outputs -> (gvar, gard, gmu, gs, gz, gw), adding the
+    n-independent E0 pulls from V (plain torch, as in the reference)."""
+    gvar_m, gard, gz, V, gmu, gs, gw = raw
+    gard, gz = _e0_pulls(ards, Zs, V, gard, gz)
+    return 2.0 * variances * torch.sum(gvar_m, dim=1), gard, gmu, gs, gz, gw
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name, tensors, shapes):
+    for key, x in tensors.items():
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {x.device}, expected cuda")
+        if x.dtype != torch.float32:
+            raise TypeError(
+                f"{name}: {key} is {x.dtype}, the kernel takes float32")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+        if tuple(x.shape) != shapes[key]:
+            raise ValueError(
+                f"{name}: {key} has shape {tuple(x.shape)}, "
+                f"expected {shapes[key]}"
+            )
+    devices = {x.device for x in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+
+
+def _is_cpu(*xs):
+    return all(x.device.type == "cpu" for x in xs if x is not None)
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _rows_per_chunk(n, target_blocks, multiple):
+    rows = max(1, math.ceil(n / max(1, target_blocks)))
+    return multiple * math.ceil(rows / multiple)
+
+
+def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
+                      block_n: int = 64):
+    """K1: (Psi2 (T,M,M), Psi1^T Y (T,M,D)). `block_n` sizes the plain
+    version's blocks; the kernel picks its own chunking."""
+    if _is_cpu(variances, ards, mu, s, Zs, Y, weights):
+        return suffstats_batched_reference(variances, ards, mu, s, Zs, Y,
+                                           weights, block_n)
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    T, M, Q = Zs.shape
+    N, D = Y.shape
+    if M > MAX_M:
+        raise ValueError(f"suffstats_batched: M={M} > {MAX_M} not supported")
+    w = _ones_weights(mu, weights)
+    _check_cuda(
+        "suffstats_batched",
+        dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, Y=Y, w=w),
+        dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
+             Y=(N, D), w=(N,)),
+    )
+    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
+    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K1_STAGE)
+    chunks = math.ceil(N / rows)
+    part = torch.empty(chunks, T * M * (M + D), dtype=mu.dtype,
+                       device=mu.device)
+    psi2 = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)
+    p1y = torch.empty(T, M, D, dtype=mu.dtype, device=mu.device)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    err = build.function("psi_suffstats")(
+        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
+        w.data_ptr(), Zs.data_ptr(), Y.data_ptr(), part.data_ptr(),
+        psi2.data_ptr(), p1y.data_ptr(), T, N, M, Q, D, rows, chunks, stream,
+    )
+    _raise_on(err, "suffstats_batched")
+    LAUNCHES["suffstats_batched"] += 1
+    return psi2, p1y
+
+
+def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
+                     block_n: int = 64):
+    """K2: raw outputs (gvar_m, gard, gz, V, gmu, gs, gw); see
+    `psi2_bwd_batched_reference` and `finish_psi2_bwd`."""
+    if _is_cpu(variances, ards, mu, s, Zs, G, weights):
+        return psi2_bwd_batched_reference(variances, ards, mu, s, Zs, G,
+                                          weights, block_n)
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    T, M, Q = Zs.shape
+    N = mu.shape[0]
+    if M > MAX_M:
+        raise ValueError(f"psi2_bwd_batched: M={M} > {MAX_M} not supported")
+    w = _ones_weights(mu, weights)
+    _check_cuda(
+        "psi2_bwd_batched",
+        dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, G=G, w=w),
+        dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
+             G=(T, M, M), w=(N,)),
+    )
+    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
+    rows = min(MAX_ROWS_K2, _rows_per_chunk(N, sms, 1))
+    chunks = math.ceil(N / rows)
+    kw = dict(dtype=mu.dtype, device=mu.device)
+    part = torch.empty(chunks, T * (M + Q + M * Q + M * M), **kw)
+    gvar_m = torch.empty(T, M, **kw)
+    gard = torch.empty(T, Q, **kw)
+    gz = torch.empty(T, M, Q, **kw)
+    V = torch.empty(T, M, M, **kw)
+    gmu = torch.empty(N, Q, **kw)
+    gs = torch.empty(N, Q, **kw)
+    gw = torch.empty(N, **kw)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    err = build.function("psi2_bwd")(
+        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
+        w.data_ptr(), Zs.data_ptr(), G.data_ptr(), part.data_ptr(),
+        gvar_m.data_ptr(), gard.data_ptr(), gz.data_ptr(), V.data_ptr(),
+        gmu.data_ptr(), gs.data_ptr(), gw.data_ptr(),
+        T, N, M, Q, rows, chunks, stream,
+    )
+    _raise_on(err, "psi2_bwd_batched")
+    LAUNCHES["psi2_bwd_batched"] += 1
+    return gvar_m, gard, gz, V, gmu, gs, gw
+
+
+# ---------------------------------------------------------------------------
+# the pair as one differentiable op
+# ---------------------------------------------------------------------------
+
+
+class SuffstatsBatchedFused(torch.autograd.Function):
+    """(Psi2 (T,M,M), Psi1^T Y (T,M,D)): K1 forward; backward K2 for the
+    Psi2 pullback plus the plain-torch Psi1 pullback. Row weights are
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, variances, ards, mu, s, Zs, Y, weights, block_n):
+        ctx.save_for_backward(variances, ards, mu, s, Zs, Y, weights)
+        ctx.block_n = block_n
+        return suffstats_batched(variances, ards, mu, s, Zs, Y, weights,
+                                 block_n)
+
+    @staticmethod
+    def backward(ctx, G2, G1Y):
+        variances, ards, mu, s, Zs, Y, weights = ctx.saved_tensors
+        raw = psi2_bwd_batched(variances, ards, mu, s, Zs,
+                               G2.contiguous(), weights, ctx.block_n)
+        gvar2, gard2, gmu2, gs2, gz2, gw2 = finish_psi2_bwd(
+            variances, ards, Zs, raw)
+        # P1Y = (w . psi1)^T Y  =>  dL/dpsi1 = w (Y G1Y^T);
+        # dL/dY = w (psi1 G1Y);  dL/dw_n = <psi1_n, (Y G1Y^T)_n>
+        yg = Y @ G1Y.mT                                        # (T,N,M)
+        g_psi1 = yg if weights is None else yg * weights[:, None]
+        gv1, ga1, gm1, gs1, gz1 = _psi1_bwd(variances, ards, mu, s, Zs,
+                                            g_psi1)
+        psi1 = ard_rbf.psi1(variances, ards, mu, s, Zs)
+        gy = torch.sum(psi1 @ G1Y, dim=0)
+        if weights is not None:
+            gy = gy * weights[:, None]
+        gw = None if weights is None else gw2 + torch.sum(psi1 * yg,
+                                                          dim=(0, 2))
+        return (gvar2 + gv1, gard2 + ga1, gmu2 + torch.sum(gm1, dim=0),
+                gs2 + torch.sum(gs1, dim=0), gz2 + gz1, gy, gw, None)
+
+
+def suffstats_batched_fused(variances, ards, mu, s, Zs, Y, weights=None,
+                            block_n: int = 64):
+    return SuffstatsBatchedFused.apply(variances, ards, mu, s, Zs, Y,
+                                       weights, block_n)

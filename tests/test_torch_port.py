@@ -1,0 +1,106 @@
+"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX
+package, its entry points run on the card unless told otherwise, and its
+small pure functions agree with the JAX package in f64."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dp_gp_lvm_tpu.core import transforms as jtr
+from dp_gp_lvm_tpu.distributions import stick_breaking as jsb
+from dp_gp_lvm_tpu_torch.core import transforms
+from dp_gp_lvm_tpu_torch.core.params import params_from_jax
+from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+from dp_gp_lvm_tpu_torch.distributions import stick_breaking
+from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import dp_gp_lvm_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "dp_gp_lvm_tpu" or m.startswith("dp_gp_lvm_tpu."))
+print(len([m for m in sys.modules if m.startswith("dp_gp_lvm_tpu_torch")]))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.splitlines()
+    assert int(out[0]) >= 20, out     # every module was imported
+    assert out[1] == "", f"port pulled in {out[1]}"
+
+
+def test_entry_points_without_a_card_raise(monkeypatch):
+    """With no CUDA device and no `device`, entry points refuse instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mocap_like(gen, n=16, d=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"z": np.zeros((2, 3, 1))})
+    Y, X = mocap_like(gen, n=16, d=3, device="cpu")
+    assert Y.device.type == "cpu" and Y.shape == (16, 3) and X.shape == (16, 4)
+
+
+def test_init_params_layout_on_cpu():
+    gen = torch.Generator().manual_seed(1)
+    Y, _ = mocap_like(gen, n=40, d=7, device="cpu")
+    cfg = dp_gp_lvm.Config(num_latent=3, num_inducing=5, truncation=4,
+                           learn_alpha=True)
+    p = dp_gp_lvm.init_params(gen, Y, cfg)
+    shapes = {k: tuple(v.shape) for k, v in p.items()}
+    assert shapes == {
+        "qx_mean": (40, 3), "raw_qx_var": (40, 3), "z": (4, 5, 3),
+        "raw_variance": (4,), "raw_ard": (4, 3), "raw_noise": (4,),
+        "phi_logits": (7, 4), "raw_gamma1": (3,), "raw_gamma2": (3,),
+        "raw_alpha": (),
+    }
+    assert all(v.dtype == torch.float64 and v.requires_grad
+               for v in p.values())
+    np.testing.assert_allclose(Y.mean(0).numpy(), 0.0, atol=1e-12)
+
+
+def test_transforms_match_jax_beyond_softplus_threshold():
+    """softplus is logaddexp(raw, 0) everywhere, also above torch's
+    F.softplus threshold of 20."""
+    raw = np.array([-40.0, -3.0, 0.0, 2.5, 19.0, 21.0, 35.0])
+    for name in ("positive", "positive_noise", "positive_variational_var"):
+        got = getattr(transforms, name)(torch.as_tensor(raw)).numpy()
+        want = np.asarray(getattr(jtr, name)(jnp.asarray(raw)))
+        np.testing.assert_allclose(got, want, rtol=1e-15, atol=0)
+    val = np.array([1e-3, 0.1, 1.0, 7.0])
+    np.testing.assert_allclose(
+        transforms.positive_inverse(torch.as_tensor(val)).numpy(),
+        np.asarray(jtr.positive_inverse(jnp.asarray(val))), rtol=1e-13)
+
+
+def test_dp_kl_terms_match_jax():
+    r = np.random.default_rng(3)
+    logits = r.normal(size=(9, 5))
+    phi = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    g1, g2 = r.uniform(0.5, 3.0, 4), r.uniform(0.5, 3.0, 4)
+    for lg in (None, logits):
+        want = jsb.dp_kl_terms(jnp.asarray(phi), jnp.asarray(g1),
+                               jnp.asarray(g2), 1.3,
+                               None if lg is None else jnp.asarray(lg))
+        got = stick_breaking.dp_kl_terms(
+            torch.as_tensor(phi), torch.as_tensor(g1), torch.as_tensor(g2),
+            1.3, None if lg is None else torch.as_tensor(lg))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
+    np.testing.assert_allclose(
+        float(stick_breaking.alpha_log_prior(torch.tensor(2.0))),
+        float(jsb.alpha_log_prior(2.0)), rtol=1e-15)
