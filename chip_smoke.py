@@ -4,25 +4,45 @@
     python3 chip_smoke.py [--seed S]
 
 Needs one CUDA card and nvcc. Drives the port (`dp_gp_lvm_tpu_torch`,
-never JAX) through its main path, the full-batch DP-GP-LVM training step
-at the c4_dp_mocap widths (N=1024, D=59, Q=10, M=64, T=20), in phases
-that each print one JSON line:
+never JAX) through its main paths at full width: the DP-GP-LVM training
+step (c4_dp_mocap: N=1024, D=59, Q=10, M=64, T=20), the Bayesian GP-LVM
+training step (c2_sparse_oil: N=1000, D=12, Q=10, M=50) and the two
+imputation servers built on them. Phases, each printing one JSON line:
 
-  build  nvcc-builds the CUDA kernels K1 and K2 from csrc/ (in parallel)
+  build  nvcc-builds the CUDA kernels from csrc/ (in parallel)
   k1     K1 (fused Psi2 + Psi1^T Y) against its plain version in f64
-  k2     K2 (fused Psi2 pullback) against its plain version in f64
-  train  mocap_like -> init_params -> gp_optimizer; fused-path ELBO at
-         init against the plain path in f64; 10 optimizer steps whose
-         losses must be finite and which must launch K1 and K2 once each
+  k2     K2 (fused Psi2 pullback) against its plain version in f64, at the
+         c4 shape and at the T=1 c2 shape the Bayesian GP-LVM step gives it
+  k6     K6 (Psi1) and
+  k5     K5 (single-kernel Psi2) at the c2 widths, weighted and not,
+         against their plain versions in f64; also timed at N=8192, M=128
+  k4     K4 (Psi2 stack) at the c4 shape, the same way
+  gate   value and gradient of sum Psi2^2 through Psi2BatchedFused (K4
+         forward, K2 backward, weighted) against the plain path in f64
+  train  mocap_like -> init_params -> gp_optimizer; fused-path ELBO and
+         its gradient at init against the plain path in f64; 10 optimizer
+         steps whose losses must be finite and which must launch K1 and K2
+         once each
   scale  one forward and backward of SuffstatsBatchedFused at N=8192,
          M=128 (timing only)
+  train_bgplvm  oil_flow_like -> bgplvm.init_params -> gp_optimizer; the
+         same checks; each step must launch K6, K5 and K2 once
+  serve_bgplvm  make_bgplvm_imputer on those parameters answers requests
+         of batch 1, 8, 32 with the second half of the dims masked; the
+         posterior build must launch K6 and K5 once
+  serve_dp  make_dp_imputer on the c4 parameters (the c5_dp_missing
+         widths), batches 1, 8, 32, 128; the build must launch K1 once
 
 then the card's name and power limit again, a `kernels` JSON line, and as
 its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Any failure raises and exits non-zero. Kernel times are medians of CUDA
-event timings after warm-up; `bound_ms` is the least time the card could
-take for the same work (see `_bound_ms`).
+Any failure raises and exits non-zero. A kernel's `ms` is the median of
+CUDA-event timings around one call of its wrapper after warm-up, so it
+holds the wrapper's host work (argument checks, allocations, the ctypes
+call) wherever that outlasts the kernel. `device_ms` is the kernel's time
+on the card alone: 20 launches captured in one CUDA graph and replayed
+(see `_device_ms`). `bound_ms` is the least time the card could take for
+the same work (see `_bound_ms`).
 """
 from __future__ import annotations
 
@@ -45,10 +65,25 @@ FP32_FLOP_PER_S = 67e12
 SFU_OP_PER_S = 16 * 132 * 1.98e9
 
 C4 = dict(T=20, N=1024, M=64, Q=10, D=59)
+C2 = dict(N=1000, M=50, Q=10, D=12)
 SCALE = dict(T=20, N=8192, M=128, Q=10, D=60)
 TOL_K1 = 1e-4   # scaled by max|ref| per output: f32 sums over 1024 rows
 TOL_K2 = 5e-4   # of exp of a quadratic form; the pullback adds cancellation
+TOL_K4 = TOL_K5 = TOL_K1   # the same f32 sums as K1's Psi2 half
+TOL_K6 = 1e-4   # one f32 exp of a Q-term sum per element, no sum over rows
+TOL_GATE = TOL_K2
 TOL_ELBO = 1e-4
+# gradient of the loss at init, f32 fused against f64 plain, each leaf
+# scaled by its max|ref|: the pullback runs through two Cholesky factors
+# at a 1e-4 relative jitter, which amplifies f32 rounding (worst leaf on
+# an H100: z of c2_sparse_oil at 6.7e-4, of c4_dp_mocap phi_logits at 3e-5)
+TOL_GRAD = 5e-3
+# predictive mean/var in f32 against f64, scaled by max|ref|, and the
+# cached weights w = K_uu^{-1} m_u the same way: both go through those
+# two Cholesky factors (on an H100 at most 3.3e-5 and 1.9e-4)
+TOL_PRED = 1e-3
+TOL_CACHE_W = 2e-3
+SERVE_STEPS = 150
 
 
 def emit(obj) -> None:
@@ -70,6 +105,19 @@ def _timed(fn, torch, reps=20, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, torch, launches=20, replays=5) -> float:
+    """ms of one call of `fn` on the card with the host's share taken out:
+    `launches` calls captured in one CUDA graph, the graph replayed, the
+    median replay divided by `launches`."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _timed(graph.replay, torch, reps=replays, warmup=2) / launches
 
 
 def _bound_ms(bytes_moved, flops, exps):
@@ -106,6 +154,26 @@ def k2_work(T, N, M, Q):
     return bytes_moved, flops, exps
 
 
+def k4_work(T, N, M, Q):
+    """K4: K1's work without the Psi1 rows, the Y read and the Psi1^T Y
+    contraction and write."""
+    pairs = M * (M + 1) // 2
+    bytes_moved = 4 * (T + T * Q + 2 * N * Q + N + T * M * Q + T * M * M)
+    return bytes_moved, T * N * pairs * (2 * Q + 6), T * N * pairs
+
+
+def k5_work(N, M, Q):
+    """K5: one kernel's Psi2, the T = 1 case of K4."""
+    return k4_work(1, N, M, Q)
+
+
+def k6_work(N, M, Q):
+    """K6: per row M exponentials of a Q-term exponent (3Q+2 flops); every
+    input read once and the (N, M) output written once."""
+    bytes_moved = 4 * (1 + Q + 2 * N * Q + N + M * Q + N * M)
+    return bytes_moved, N * M * (3 * Q + 2), N * M
+
+
 def _inputs(torch, gen, T, N, M, Q, D):
     """The same random inputs in f64 (for the plain version) and f32."""
     kw = dict(generator=gen, device="cuda", dtype=torch.float64)
@@ -137,13 +205,15 @@ def phase_k1(torch, psi, gen):
     per_out = [float((g.double() - w).abs().max() / w.abs().max())
                for g, w in zip(got, want)]
     ms = _timed(lambda: psi.suffstats_batched(*args32), torch)
+    device_ms = _device_ms(lambda: psi.suffstats_batched(*args32), torch)
     plain_ms = _timed(lambda: psi.suffstats_batched_reference(*args32), torch,
                       reps=5, warmup=1)
     bound_ms, bound_by = _bound_ms(*k1_work(**C4))
     row = dict(phase="k1", shape=C4, max_abs_err=abs_err,
                launches_in_phase=psi.LAUNCHES["suffstats_batched"],
                scaled_err_psi2=per_out[0], scaled_err_p1y=per_out[1],
-               tol=TOL_K1, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               tol=TOL_K1, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None,
                library_note="no single PyTorch call computes Psi2/Psi1^T Y")
     emit(row)
@@ -167,19 +237,220 @@ def phase_k2(torch, psi, gen):
     per_out = {n: float((g.double() - w).abs().max() / w.abs().max())
                for n, g, w in zip(names, got, want)}
     ms = _timed(lambda: psi.psi2_bwd_batched(*args32), torch)
+    device_ms = _device_ms(lambda: psi.psi2_bwd_batched(*args32), torch)
+    c2 = _k2_at_c2(torch, psi, gen)
     plain_ms = _timed(lambda: psi.psi2_bwd_batched_reference(*args32), torch,
                       reps=5, warmup=1)
     bound_ms, bound_by = _bound_ms(*k2_work(T, C4["N"], M, C4["Q"]))
     row = dict(phase="k2", shape=C4, max_abs_err=abs_err,
                launches_in_phase=psi.LAUNCHES["psi2_bwd_batched"],
-               scaled_err=per_out, tol=TOL_K2, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               scaled_err=per_out, tol=TOL_K2, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               c2=c2, library_ms=None,
                library_note="no single PyTorch call computes the Psi2 "
                             "pullback")
     emit(row)
     if not scaled <= TOL_K2:
         raise AssertionError(f"K2 disagrees with its plain version: {per_out}")
+    if not max(c2["scaled_err"].values()) <= TOL_K2:
+        raise AssertionError(f"K2 disagrees at the c2 shape: {c2}")
     return row
+
+
+def _k2_at_c2(torch, psi, gen):
+    """K2 as the backward of K5: one atom at the c2 widths (M not a
+    multiple of the 4x4 tile, N of no block size), weighted and not."""
+    N, M, Q = C2["N"], C2["M"], C2["Q"]
+    f64, f32 = _inputs(torch, gen, T=1, **C2)
+    G64 = torch.randn(1, M, M, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    w64 = _weights(torch, gen, N)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    args32 = tuple(f32[k] for k in names) + (G64.float(),)
+    errs = {}
+    for label, w in (("unweighted", None), ("weighted", w64)):
+        got = psi.psi2_bwd_batched(*args32, None if w is None else w.float())
+        want = psi.psi2_bwd_batched_reference(*(f64[k] for k in names), G64,
+                                              w)
+        errs[label] = _errors(got, want)
+    bound_ms, bound_by = _bound_ms(*k2_work(1, N, M, Q))
+    return dict(shape=dict(T=1, N=N, M=M, Q=Q),
+                max_abs_err=max(e[0] for e in errs.values()),
+                scaled_err={k: e[1] for k, e in errs.items()},
+                ms=_timed(lambda: psi.psi2_bwd_batched(*args32), torch),
+                device_ms=_device_ms(lambda: psi.psi2_bwd_batched(*args32),
+                                     torch),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _weights(torch, gen, n):
+    """Mask-style row weights (zeros included), f64 on the card."""
+    kw = dict(generator=gen, device="cuda", dtype=torch.float64)
+    return ((torch.rand(n, **kw) > 0.3).double()
+            * (0.5 + torch.rand(n, **kw)))
+
+
+def _single(tensors):
+    """The T = 1 inputs of `_inputs` without their atom dim."""
+    return dict(v=tensors["vs"][0], ard=tensors["ards"][0].contiguous(),
+                mu=tensors["mu"], s=tensors["s"],
+                Z=tensors["Zs"][0].contiguous())
+
+
+def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol):
+    """A single-kernel forward (K5 or K6) at the c2 widths against its
+    plain version in f64, weighted and not; timed there and at N=8192,
+    M=128."""
+    N, M, Q = C2["N"], C2["M"], C2["Q"]
+    f64, f32 = _inputs(torch, gen, T=1, **C2)
+    a64, a32 = _single(f64), _single(f32)
+    w64 = _weights(torch, gen, N)
+    errs = {}
+    for label, w in (("unweighted", None), ("weighted", w64)):
+        w32 = None if w is None else w.float()
+        got = fn(a32["v"], a32["ard"], a32["mu"], a32["s"], a32["Z"], w32)
+        want = ref(a64["v"], a64["ard"], a64["mu"], a64["s"], a64["Z"], w)
+        torch.cuda.synchronize()
+        errs[label] = _errors([got], [want])
+    args32 = (a32["v"], a32["ard"], a32["mu"], a32["s"], a32["Z"])
+    ms = _timed(lambda: fn(*args32), torch)
+    device_ms = _device_ms(lambda: fn(*args32), torch)
+    plain_ms = _timed(lambda: ref(*args32), torch, reps=5, warmup=1)
+    big = dict(N=SCALE["N"], M=SCALE["M"], Q=SCALE["Q"])
+    _, b32 = _inputs(torch, gen, T=1, D=1, **big)
+    b32 = _single(b32)
+    big_args = (b32["v"], b32["ard"], b32["mu"], b32["s"], b32["Z"])
+    big_ms = _timed(lambda: fn(*big_args), torch)
+    big_device_ms = _device_ms(lambda: fn(*big_args), torch)
+    bound_ms, bound_by = _bound_ms(*work(N, M, Q))
+    big_bound_ms, big_bound_by = _bound_ms(*work(**big))
+    row = dict(phase=name, shape=dict(N=N, M=M, Q=Q),
+               max_abs_err=max(e[0] for e in errs.values()),
+               scaled_err={k: e[1] for k, e in errs.items()}, tol=tol,
+               launches_in_phase=psi.LAUNCHES[launches_key], ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, scale_shape=big, scale_ms=big_ms,
+               scale_device_ms=big_device_ms, scale_bound_ms=big_bound_ms,
+               scale_bound_by=big_bound_by, library_ms=None,
+               library_note="no single PyTorch call computes Psi1 or Psi2")
+    emit(row)
+    if not max(e[1] for e in errs.values()) <= tol:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{errs}")
+    return row
+
+
+def phase_k6(torch, psi, gen):
+    return _phase_single(torch, gen, "k6", psi.psi1, psi.psi1_reference,
+                         "psi1", psi, k6_work, TOL_K6)
+
+
+def phase_k5(torch, psi, gen):
+    return _phase_single(torch, gen, "k5", psi.psi2_single,
+                         psi.psi2_single_reference, "psi2_single", psi,
+                         k5_work, TOL_K5)
+
+
+def phase_k4(torch, psi, gen):
+    f64, f32 = _inputs(torch, gen, **C4)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    w64 = _weights(torch, gen, C4["N"])
+    errs = {}
+    for label, w in (("unweighted", None), ("weighted", w64)):
+        got = psi.psi2_batched(*(f32[k] for k in names),
+                               None if w is None else w.float())
+        want = psi.psi2_batched_reference(*(f64[k] for k in names), w)
+        torch.cuda.synchronize()
+        errs[label] = _errors([got], [want])
+    args32 = tuple(f32[k] for k in names)
+    ms = _timed(lambda: psi.psi2_batched(*args32), torch)
+    device_ms = _device_ms(lambda: psi.psi2_batched(*args32), torch)
+    plain_ms = _timed(lambda: psi.psi2_batched_reference(*args32), torch,
+                      reps=5, warmup=1)
+    shape = {k: C4[k] for k in "TNMQ"}
+    bound_ms, bound_by = _bound_ms(*k4_work(**shape))
+    row = dict(phase="k4", shape=shape,
+               max_abs_err=max(e[0] for e in errs.values()),
+               scaled_err={k: e[1] for k, e in errs.items()}, tol=TOL_K4,
+               launches_in_phase=psi.LAUNCHES["psi2_batched"], ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None,
+               library_note="no single PyTorch call computes Psi2")
+    emit(row)
+    if not max(e[1] for e in errs.values()) <= TOL_K4:
+        raise AssertionError(f"K4 disagrees with its plain version: {errs}")
+    return row
+
+
+def phase_gate(torch, psi, gen):
+    """Value and gradient of sum Psi2^2 over the weighted atom stack:
+    Psi2BatchedFused (K4 forward, K2 backward) in f32 against the plain
+    non-fused path in f64."""
+    from dp_gp_lvm_tpu_torch.ops import dispatch
+
+    f64, f32 = _inputs(torch, gen, **C4)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    w64 = _weights(torch, gen, C4["N"])
+
+    def run(tensors, w, use_fused):
+        leaves = [tensors[k].detach().clone().requires_grad_()
+                  for k in names] + [w.detach().clone().requires_grad_()]
+        p2 = dispatch.psi2_batched(*leaves, use_fused=use_fused)
+        val = torch.sum(p2 * p2)
+        return val.detach(), torch.autograd.grad(val, leaves)
+
+    psi.reset_launch_counts()
+    val32, g32 = run(f32, w64.float(), True)
+    torch.cuda.synchronize()
+    launches = dict(psi.LAUNCHES)
+    val64, g64 = run(f64, w64, False)
+    rel_val = float((val32.double() - val64).abs() / val64.abs())
+    scaled = {n: float((g.double() - w).abs().max() / w.abs().max())
+              for n, g, w in zip(names + ("w",), g32, g64)}
+    row = dict(phase="gate", shape={k: C4[k] for k in "TNMQ"},
+               value_f32=float(val32), value_f64=float(val64),
+               value_rel_err=rel_val, grad_scaled_err=scaled, tol=TOL_GATE,
+               launches=launches)
+    emit(row)
+    if not (rel_val <= TOL_GATE and max(scaled.values()) <= TOL_GATE):
+        raise AssertionError(f"gate: fused disagrees with plain: {row}")
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi2_batched=1, psi2_bwd_batched=1)
+    if launches != expected:
+        raise AssertionError(f"gate launched {launches}")
+    return row
+
+
+def _ten_steps(torch, psi, loss_fn, params, opt):
+    """Ten training steps with the launch counts set to 0 just before:
+    (losses, CUDA-event ms per step, launch counts just after)."""
+    keys = list(params)
+    losses, step_ms = [], []
+    psi.reset_launch_counts()
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        opt.step(dict(zip(keys, grads)))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss.detach()))
+    return losses, step_ms, dict(psi.LAUNCHES)
+
+
+def _init_grad_err(torch, loss32, loss64, params, p64):
+    """The loss gradient at init: fused f32 (`loss32` on `params`) against
+    the plain path in f64 (`loss64` on `p64`), per leaf scaled by
+    max|ref|."""
+    keys = list(params)
+    g32 = torch.autograd.grad(loss32(), [params[k] for k in keys])
+    leaves64 = [p64[k].requires_grad_() for k in keys]
+    g64 = torch.autograd.grad(loss64(), leaves64)
+    return {k: float((a.double() - b).abs().max() / b.abs().max())
+            for k, a, b in zip(keys, g32, g64)}
 
 
 def phase_train(torch, seed):
@@ -209,35 +480,242 @@ def phase_train(torch, seed):
         elbo_plain = float(dp_gp_lvm.elbo(p64, Y.double(), cfg_plain,
                                           same_jitter))
     rel = abs(elbo_fused - elbo_plain) / abs(elbo_plain)
+    grad_err = _init_grad_err(
+        torch, lambda: dp_gp_lvm.loss(params, Y, cfg),
+        lambda: -dp_gp_lvm.elbo(p64, Y.double(), cfg_plain, same_jitter),
+        params, p64)
 
     opt = gp_optimizer(params, lr=c4.lr, ngd_lr=c4.ngd_lr)
-    keys = list(params)
-    losses, step_ms = [], []
-    psi.reset_launch_counts()
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = dp_gp_lvm.loss(params, Y, cfg)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        opt.step(dict(zip(keys, grads)))
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss.detach()))
-    launches = dict(psi.LAUNCHES)
+    losses, step_ms, launches = _ten_steps(
+        torch, psi, lambda: dp_gp_lvm.loss(params, Y, cfg), params, opt)
     row = dict(phase="train", config="c4_dp_mocap", shape=C4,
                elbo_init_fused_f32=elbo_fused, elbo_init_plain_f64=elbo_plain,
-               elbo_rel_err=rel, tol=TOL_ELBO, losses=losses,
+               elbo_rel_err=rel, tol=TOL_ELBO, grad_scaled_err=grad_err,
+               tol_grad=TOL_GRAD, losses=losses,
                ms_per_step_median=statistics.median(step_ms),
                ms_per_step=step_ms, launches=launches)
     emit(row)
     if not rel <= TOL_ELBO:
         raise AssertionError(f"fused ELBO {elbo_fused} vs plain {elbo_plain}")
+    if not max(grad_err.values()) <= TOL_GRAD:
+        raise AssertionError(f"fused gradient off the plain one: {grad_err}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss in {losses}")
-    if launches != {"suffstats_batched": 10, "psi2_bwd_batched": 10}:
-        raise AssertionError(f"main path launched {launches}, expected 10 each")
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=10, psi2_bwd_batched=10)
+    if launches != expected:
+        raise AssertionError(f"main path launched {launches}, expected K1 "
+                             "and K2 10 times each")
+    return row, params, Y, cfg
+
+
+def phase_train_bgplvm(torch, seed):
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.data.synthetic import oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    c2 = CONFIGS["c2_sparse_oil"]
+    if (c2.n, c2.m, c2.q, c2.d) != tuple(C2[k] for k in "NMQD"):
+        raise AssertionError("C2 no longer matches core/config.py")
+    gen = torch.Generator().manual_seed(seed)
+    Y, _, _ = oil_flow_like(gen, n=c2.n, d=c2.d, dtype=torch.float32)
+    cfg = bgplvm.Config(num_latent=c2.q, num_inducing=c2.m)
+    params = bgplvm.init_params(gen, Y, cfg)
+
+    policy32 = JitterPolicy()
+    same_jitter = JitterPolicy(initial=policy32.initial_for(torch.float32))
+    with torch.no_grad():
+        elbo_fused = float(bgplvm.elbo(params, Y, cfg))
+        p64 = {k: v.double() for k, v in params.items()}
+        cfg_plain = cfg._replace(use_fused=False)
+        elbo_plain = float(bgplvm.elbo(p64, Y.double(), cfg_plain,
+                                       same_jitter))
+    rel = abs(elbo_fused - elbo_plain) / abs(elbo_plain)
+    grad_err = _init_grad_err(
+        torch, lambda: bgplvm.loss(params, Y, cfg),
+        lambda: -bgplvm.elbo(p64, Y.double(), cfg_plain, same_jitter),
+        params, p64)
+
+    opt = gp_optimizer(params, lr=c2.lr, ngd_lr=c2.ngd_lr)
+    losses, step_ms, launches = _ten_steps(
+        torch, psi, lambda: bgplvm.loss(params, Y, cfg), params, opt)
+    row = dict(phase="train_bgplvm", config="c2_sparse_oil", shape=C2,
+               elbo_init_fused_f32=elbo_fused, elbo_init_plain_f64=elbo_plain,
+               elbo_rel_err=rel, tol=TOL_ELBO, grad_scaled_err=grad_err,
+               tol_grad=TOL_GRAD, losses=losses,
+               ms_per_step_median=statistics.median(step_ms),
+               ms_per_step=step_ms, launches=launches)
+    emit(row)
+    if not rel <= TOL_ELBO:
+        raise AssertionError(f"fused ELBO {elbo_fused} vs plain {elbo_plain}")
+    if not max(grad_err.values()) <= TOL_GRAD:
+        raise AssertionError(f"fused gradient off the plain one: {grad_err}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in {losses}")
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi1=10, psi2_single=10, psi2_bwd_batched=10)
+    if launches != expected:
+        raise AssertionError(f"c2 path launched {launches}, expected K6, K5 "
+                             "and K2 10 times each")
+    return row, params, Y, cfg
+
+
+def _steps_from_trace(trace):
+    """Steps the latent inference took: the trace repeats its last value
+    once early stopping has converged."""
+    changed = (trace[1:] != trace[:-1]).nonzero()
+    return int(changed[-1]) + 2 if changed.numel() else 1
+
+
+def _serve(torch, seed, name, impute, infer, predict64, predict32, w64, w32,
+           d, batches):
+    """Answer requests of each batch size through `impute`; check the
+    outputs, the objective trace of the same inference, and the f32
+    predictive against f64 at a fixed q(x*); compare the posterior
+    cache's weights (`w32` through the kernels, `w64` plain)."""
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows = []
+    for b in batches:
+        def request():
+            y = torch.randn(b, d, generator=gen, device="cuda")
+            mask = torch.ones(b, d, device="cuda")
+            mask[:, d // 2:] = 0.0
+            return y, mask
+
+        times = []
+        for i in range(4):                       # one warm call, then 3
+            y, mask = request()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = impute(y, mask)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            if not (mean.shape == var.shape == (b, d)
+                    and bool(torch.isfinite(mean).all())
+                    and bool(torch.isfinite(var).all())
+                    and bool((var > 0).all())):
+                raise AssertionError(f"{name}: bad answer at batch {b}")
+        tol, steps = serving._resolve("auto", SERVE_STEPS, b)
+        trace = infer(y, mask, steps, tol)
+        if not float(trace[-1]) > float(trace[0]):
+            raise AssertionError(f"{name}: objective fell at batch {b}: "
+                                 f"{float(trace[0])} -> {float(trace[-1])}")
+        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
+                         step_cap=steps,
+                         steps_taken=_steps_from_trace(trace),
+                         ms_per_request=statistics.median(times),
+                         objective_first=float(trace[0]),
+                         objective_last=float(trace[-1])))
+    (m64, v64), (m32, v32) = predict64(), predict32()
+    pred_err = dict(
+        mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
+        var=float((v32.double() - v64).abs().max() / v64.abs().max()),
+        cache_w=float((w32.double() - w64).abs().max() / w64.abs().max()))
+    return rows, pred_err
+
+
+def _check_serve(name, pred_err):
+    if not max(pred_err["mean"], pred_err["var"]) <= TOL_PRED:
+        raise AssertionError(f"{name}: f32 predictive off: {pred_err}")
+    if not pred_err["cache_w"] <= TOL_CACHE_W:
+        raise AssertionError(f"{name}: f32 posterior cache off: {pred_err}")
+
+
+def phase_serve_bgplvm(torch, seed, params, Y, cfg):
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    psi.reset_launch_counts()
+    impute = serving.make_bgplvm_imputer(params, Y, cfg,
+                                         num_steps=SERVE_STEPS)
+    launches = dict(psi.LAUNCHES)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi1=1, psi2_single=1)
+    if launches != expected:
+        raise AssertionError(f"bgplvm_posterior launched {launches}, "
+                             "expected K6 and K5 once each")
+    cache32 = prediction.bgplvm_posterior(params, Y, cfg)
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+    cache64 = prediction.bgplvm_posterior(
+        {k: v.detach().double() for k, v in params.items()}, Y.double(),
+        cfg._replace(use_fused=False), same_jitter)
+    qx = params["qx_mean"].detach()
+    m_fix, s_fix = qx[:32], torch.full_like(qx[:32], 0.1)
+
+    def infer(y, mask, steps, tol):
+        m0 = prediction.init_latent_from_nearest(qx, Y, y, mask)
+        return prediction.infer_latent(cache32, y, mask, m0, steps,
+                                       tol=tol)[2]
+
+    with torch.no_grad():
+        rows, pred_err = _serve(
+            torch, seed, "serve_bgplvm", impute, infer,
+            lambda: prediction.predict_from_latent(
+                cache64, m_fix.double(), s_fix.double()),
+            lambda: prediction.predict_from_latent(cache32, m_fix, s_fix),
+            cache64.w, cache32.w, Y.shape[1], (1, 8, 32))
+    row = dict(phase="serve_bgplvm", config="c2_sparse_oil", shape=C2,
+               num_steps=SERVE_STEPS, build_launches=launches,
+               requests=rows, predict_f32_vs_f64_scaled_err=pred_err,
+               tol=TOL_PRED, tol_cache_w=TOL_CACHE_W)
+    emit(row)
+    _check_serve("serve_bgplvm", pred_err)
+    return row
+
+
+def phase_serve_dp(torch, seed, params, Y, cfg):
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    c5 = CONFIGS["c5_dp_missing"]
+    if (c5.t, c5.n, c5.m, c5.q, c5.d) != tuple(C4[k] for k in "TNMQD"):
+        raise AssertionError("c5_dp_missing no longer has the c4 widths")
+    psi.reset_launch_counts()
+    impute = serving.make_dp_imputer(params, Y, cfg, num_steps=SERVE_STEPS)
+    launches = dict(psi.LAUNCHES)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=1)
+    if launches != expected:
+        raise AssertionError(f"dp_posterior launched {launches}, expected "
+                             "K1 once")
+    caches32, phi32 = prediction.dp_posterior(params, Y, cfg)
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+    caches64, phi64 = prediction.dp_posterior(
+        {k: v.detach().double() for k, v in params.items()}, Y.double(),
+        cfg._replace(use_fused=False), same_jitter)
+    qx = params["qx_mean"].detach()
+    m_fix, s_fix = qx[:32], torch.full_like(qx[:32], 0.1)
+
+    def infer(y, mask, steps, tol):
+        m0 = prediction.init_latent_from_nearest(qx, Y, y, mask)
+        return prediction.dp_infer_latent(caches32, phi32, y, mask, m0,
+                                          steps, tol=tol)[2]
+
+    with torch.no_grad():
+        rows, pred_err = _serve(
+            torch, seed, "serve_dp", impute, infer,
+            lambda: prediction.dp_predict_from_latent(
+                caches64, phi64, m_fix.double(), s_fix.double()),
+            lambda: prediction.dp_predict_from_latent(caches32, phi32,
+                                                      m_fix, s_fix),
+            caches64.w, caches32.w, Y.shape[1], (1, 8, 32, 128))
+    row = dict(phase="serve_dp", config="c5_dp_missing", shape=C4,
+               num_steps=SERVE_STEPS, build_launches=launches,
+               requests=rows, predict_f32_vs_f64_scaled_err=pred_err,
+               tol=TOL_PRED, tol_cache_w=TOL_CACHE_W)
+    emit(row)
+    _check_serve("serve_dp", pred_err)
     return row
 
 
@@ -305,26 +783,50 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k1 = phase_k1(torch, psi, gen)
     k2 = phase_k2(torch, psi, gen)
-    train = phase_train(torch, args.seed)
+    k6 = phase_k6(torch, psi, gen)
+    k5 = phase_k5(torch, psi, gen)
+    k4 = phase_k4(torch, psi, gen)
+    gate = phase_gate(torch, psi, gen)
+    train, dp_params, dp_Y, dp_cfg = phase_train(torch, args.seed)
     phase_scale(torch, psi, gen)
+    train2, bg_params, bg_Y, bg_cfg = phase_train_bgplvm(torch, args.seed)
+    serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
+    serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
+    # `launches` of a kernel is its count over the path named in
+    # `launches_of`; `launches_by_phase` lists every driven path, the
+    # server builds (one posterior each) included
+    paths = dict(train="10 training steps of c4_dp_mocap",
+                 train_bgplvm="10 training steps of c2_sparse_oil",
+                 gate="one value and gradient of sum Psi2^2")
+    phases = dict(train=train["launches"], train_bgplvm=train2["launches"],
+                  gate=gate["launches"],
+                  serve_bgplvm_build=serve2["build_launches"],
+                  serve_dp_build=serve5["build_launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
+    pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
+
+    def kernel_row(name, source, line, main, res):
+        return dict(name=name, route="cuda", source=f"{csrc}/{source}",
+                    replaces=f"{pallas}:{line}",
+                    launches=phases[main][name], launches_of=paths[main],
+                    launches_by_phase={ph: c[name] for ph, c in phases.items()
+                                       if c[name]},
+                    max_abs_err=res["max_abs_err"], ms=res["ms"],
+                    device_ms=res["device_ms"],
+                    device_over_bound=res["device_ms"] / res["bound_ms"],
+                    plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                    bound_by=res["bound_by"], library_ms=None)
+
     kernels = [
-        dict(name="suffstats_batched", route="cuda",
-             source=f"{csrc}/psi_suffstats.cu",
-             replaces="dp_gp_lvm_tpu/ops/pallas/psi.py:610",
-             launches=train["launches"]["suffstats_batched"],
-             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="psi2_bwd_batched", route="cuda",
-             source=f"{csrc}/psi2_bwd.cu",
-             replaces="dp_gp_lvm_tpu/ops/pallas/psi.py:359",
-             launches=train["launches"]["psi2_bwd_batched"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+        kernel_row("suffstats_batched", "psi_suffstats.cu", 610, "train", k1),
+        kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
+        kernel_row("psi2_batched", "psi2_fwd.cu", 244, "gate", k4),
+        kernel_row("psi2_single", "psi2_fwd.cu", 66, "train_bgplvm", k5),
+        kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
     ]
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel was never launched: {kernels}")
     print(card.splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

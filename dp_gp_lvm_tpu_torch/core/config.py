@@ -1,6 +1,7 @@
 """Named experiment configurations (counterpart of
-`dp_gp_lvm_tpu/core/config.py`). Only the configuration this slice of the
-port trains is copied: `c4_dp_mocap`, the DP-GP-LVM on mocap-shaped data.
+`dp_gp_lvm_tpu/core/config.py`). Only the configurations whose models the
+port runs are copied: the Bayesian GP-LVM's `c1_bgplvm_toy` and
+`c2_sparse_oil`, and the DP-GP-LVM's `c4_dp_mocap` and `c5_dp_missing`.
 """
 from __future__ import annotations
 
@@ -39,8 +40,21 @@ class ExperimentConfig:
 
 
 CONFIGS: dict[str, ExperimentConfig] = {
+    "c1_bgplvm_toy": ExperimentConfig(
+        name="c1_bgplvm_toy", model="bgplvm", dataset="toy_gplvm",
+        n=100, d=10, q=6, m=20, steps=6000, lr=2e-2,
+    ),
+    "c2_sparse_oil": ExperimentConfig(
+        name="c2_sparse_oil", model="bgplvm", dataset="oil_flow",
+        n=1000, d=12, q=10, m=50, steps=3000, lr=1e-2, ngd_lr=1.0,
+    ),
     "c4_dp_mocap": ExperimentConfig(
         name="c4_dp_mocap", model="dp_gp_lvm", dataset="mocap",
         n=1024, d=59, q=10, m=64, t=20, steps=8000, lr=3e-3, ngd_lr=1.0,
+    ),
+    "c5_dp_missing": ExperimentConfig(
+        name="c5_dp_missing", model="dp_gp_lvm", dataset="mocap",
+        n=1024, d=59, q=10, m=64, t=20, steps=8000, lr=3e-3, ngd_lr=1.0,
+        missing_fraction=0.5,
     ),
 }

@@ -3,7 +3,9 @@
 `jax.random` and `torch.Generator` draw different numbers from the same
 seed, and the PCA sign depends on the SVD backend, so a comparison of the
 two packages hands the JAX package's parameters (as numpy arrays, same
-keys and layouts) to this one instead of regenerating them.
+keys and layouts) to this one instead of regenerating them. Any of the
+packages' parameter dicts goes across: the DP-GP-LVM's, or the Bayesian
+GP-LVM's with its 0-d `raw_variance` and `raw_noise`.
 """
 from __future__ import annotations
 

@@ -83,3 +83,24 @@ def collapsed_bound(kuu, stats: SuffStats, noise_var,
     return BoundTerms(per_dim=shared[..., None] + quad, shared=shared,
                       quad=quad, logdet_b=logdet_b, trace_a=trace_a,
                       jitter=jit_used)
+
+
+def optimal_qu(kuu, stats: SuffStats, noise_var,
+               policy: JitterPolicy = JitterPolicy()):
+    """Optimal collapsed q(u_d) for prediction: (w, L, LB) with
+    w = K_uu^{-1} m_d = beta (K_uu + beta Psi2)^{-1} Psi1^T y_d (..., M, D),
+    L = chol(K_uu) and LB = chol(I + A). Batch-polymorphic like
+    `collapsed_bound`: pass the whole atom stack."""
+    noise_var = torch.as_tensor(noise_var, dtype=kuu.dtype, device=kuu.device)
+    beta_mm = (1.0 / noise_var)[..., None, None]
+    m = kuu.shape[-1]
+    L, _ = safe_cholesky_spec(kuu, policy)
+    half = tri_solve(L, stats.psi2)
+    A = beta_mm * tri_solve(L, half.mT)
+    B = torch.eye(m, dtype=kuu.dtype, device=kuu.device) + 0.5 * (A + A.mT)
+    LB, _ = safe_cholesky_spec(B, policy)
+    # w = beta L^{-T} B^{-1} L^{-1} Psi1^T Y
+    tmp = tri_solve(L, stats.psi1T_y)
+    tmp = tri_solve(LB, tmp)
+    tmp = tri_solve(LB, tmp, trans=True)
+    return beta_mm * tri_solve(L, tmp, trans=True), L, LB

@@ -1,0 +1,330 @@
+r"""Test-time latent inference and missing-data prediction (counterpart of
+`dp_gp_lvm_tpu/models/prediction.py`, without its MRD part).
+
+Given a trained model and test points y* with only a subset of output dims
+observed (mask = 1 where observed):
+
+  1. hold the model fixed and fit q(x*) = N(m*, diag(s*)) per test point by
+     Adam on the uncollapsed variational objective (expected log-likelihood
+     of the observed dims under the trained optimal q(u), minus
+     KL[q(x*) || N(0, I)]);
+  2. predict every dim from the psi-statistic moments of q(x*):
+
+        E[y*_d]   = psi1* w_d
+        Var[y*_d] = sigma^2 + psi0* - tr(K^{-1} psi2*) + tr(Sigma_B psi2*)
+                    + w_d^T psi2* w_d - (psi1* w_d)^2.
+
+For DP-GP-LVM the cache carries a leading atom dim T and the predictions
+mix over atoms with the assignment posterior phi. Every function below is
+batch-polymorphic over that leading dim instead of vmapped: one
+broadcasting call serves the (T, N*, M, M) stack.
+
+The posterior caches are built once per served model and go through the
+fused CUDA kernels on the card (K6 and K5 for the Bayesian GP-LVM, K1 for
+the DP stack). The per-request psi statistics of the test points are plain
+torch, as they are plain JAX outside any kernel in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from dp_gp_lvm_tpu_torch.core.transforms import positive, positive_inverse
+from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+from dp_gp_lvm_tpu_torch.distributions import gaussian
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.linalg import tri_solve
+from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
+from dp_gp_lvm_tpu_torch.models.bound import (
+    SuffStats,
+    optimal_qu,
+    suff_stats_from_psi,
+)
+from dp_gp_lvm_tpu_torch.ops import dispatch
+
+B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam defaults
+
+
+class PosteriorCache(NamedTuple):
+    """Trained-model quantities reused across all test-time computation
+    (detached); a DP cache carries a leading atom dim T on every field."""
+
+    w: torch.Tensor         # (M, D) K_uu^{-1} m_u per dim
+    L: torch.Tensor         # (M, M) chol(K_uu)
+    LB: torch.Tensor        # (M, M) chol(I + beta L^{-1} Psi2 L^{-T})
+    variance: torch.Tensor  # ()
+    ard: torch.Tensor       # (Q,)
+    z: torch.Tensor         # (M, Q)
+    noise: torch.Tensor     # ()
+
+
+@torch.no_grad()
+def bgplvm_posterior(params, Y, config: bgplvm.Config,
+                     policy: JitterPolicy = JitterPolicy()) -> PosteriorCache:
+    hyp = bgplvm.constrain(params)
+    p0, p1, p2 = dispatch.psi_stats(
+        hyp["variance"], hyp["ard"], hyp["qx_mean"], hyp["qx_var"],
+        hyp["z"], block_n=config.psi2_block, use_fused=config.use_fused,
+        kernel=config.kernel,
+    )
+    kuu = dispatch.gram(hyp["variance"], hyp["ard"], hyp["z"],
+                        kernel=config.kernel)
+    stats = suff_stats_from_psi(p0, p1, p2, Y)
+    w, L, LB = optimal_qu(kuu, stats, hyp["noise"], policy)
+    return PosteriorCache(
+        w=w, L=L, LB=LB, variance=hyp["variance"], ard=hyp["ard"],
+        z=hyp["z"].detach(), noise=hyp["noise"],
+    )
+
+
+def _test_psi(cache: PosteriorCache, m_star, s_star, kernel="ard_rbf"):
+    """Per-point psi statistics of the test points (no sum over n):
+    psi0* (..., N*), psi1* (..., N*, M), psi2* (..., N*, M, M)."""
+    dispatch._kernel(kernel)
+    p1 = ard_rbf.psi1(cache.variance, cache.ard, m_star, s_star, cache.z)
+    # per-point psi2: the block formulation with each point its own block
+    _, _, expo = ard_rbf._forward_pieces(
+        cache.variance, cache.ard, m_star, s_star, cache.z,
+        ard_rbf._log_e(cache.ard, cache.z),
+    )
+    v2 = (cache.variance * cache.variance)[..., None, None, None]
+    p2 = v2 * torch.exp(torch.clamp(expo, max=0.0))
+    p0 = cache.variance[..., None] * torch.ones(
+        m_star.shape[0], dtype=m_star.dtype, device=m_star.device)
+    return p0, p1, p2
+
+
+def _trace_terms(cache: PosteriorCache, p2_star):
+    """tr(K^{-1} psi2*) and tr(Sigma_B psi2*) per test point (..., N*):
+    four triangular solves that broadcast the (..., 1, M, M) factors
+    against the (..., N*, M, M) stack."""
+    L, LB = cache.L[..., None, :, :], cache.LB[..., None, :, :]
+    half = tri_solve(L, p2_star)                    # L^{-1} psi2*
+    a = tri_solve(L, half.mT)                       # L^{-1} psi2* L^{-T}
+    b = tri_solve(LB, a)
+    c = tri_solve(LB, b.mT)                         # LB^{-1} . LB^{-T}
+    return (torch.diagonal(a, dim1=-2, dim2=-1).sum(-1),
+            torch.diagonal(c, dim1=-2, dim2=-1).sum(-1))
+
+
+def _moments(cache: PosteriorCache, m_star, s_star, kernel):
+    """(mean, quad, common): psi1* w (..., N*, D), w^T psi2* w (..., N*, D)
+    and psi0* - tr(K^{-1} psi2*) + tr(Sigma_B psi2*) (..., N*, 1)."""
+    p0, p1, p2 = _test_psi(cache, m_star, s_star, kernel)
+    mean = p1 @ cache.w
+    tr_kinv, tr_sigma_b = _trace_terms(cache, p2)
+    quad = torch.einsum("...nij,...id,...jd->...nd", p2, cache.w, cache.w)
+    return mean, quad, (p0 - tr_kinv + tr_sigma_b)[..., None]
+
+
+def predict_from_latent(cache: PosteriorCache, m_star, s_star,
+                        kernel="ard_rbf"):
+    """Predictive mean (..., N*, D) and per-dim variance incl. noise."""
+    mean, quad, common = _moments(cache, m_star, s_star, kernel)
+    var = cache.noise[..., None, None] + common + quad - mean * mean
+    return mean, torch.clamp(var, min=1e-12)
+
+
+def _expected_loglik_terms(cache: PosteriorCache, y, m_star, s_star,
+                           kernel="ard_rbf"):
+    """E_{q(x*) q(u)}[log N(y_d | f_d, noise)] per (point, dim):
+    (..., N*, D)."""
+    mean, quad, common = _moments(cache, m_star, s_star, kernel)
+    noise = cache.noise[..., None, None]
+    # E[(y - a(x)^T u)^2] = y^2 - 2 y psi1 w + w^T psi2 w + tr(Sigma_B psi2)
+    # + the conditional-GP variance correction (psi0 - tr(K^{-1} psi2))
+    sq = y * y - 2.0 * y * mean + quad + common
+    return -0.5 * (math.log(2.0 * math.pi) + torch.log(noise)
+                   + (1.0 / noise) * sq)
+
+
+def _expected_loglik(cache: PosteriorCache, y, mask, m_star, s_star,
+                     kernel="ard_rbf"):
+    """The expected log-likelihood summed over the observed dims."""
+    return torch.sum(
+        _expected_loglik_terms(cache, y, m_star, s_star, kernel) * mask)
+
+
+def init_latent_from_nearest(qx_mean, Y, y_star, mask):
+    """m* init: latent mean of the masked-nearest training point."""
+    d2 = torch.sum(
+        mask[:, None, :] * (y_star[:, None, :] - Y[None, :, :]) ** 2, dim=-1
+    )  # (N*, N)
+    return qx_mean[torch.argmin(d2, dim=-1)]
+
+
+def _fit_variational(objective, var_params, num_steps, lr, tol=None,
+                     patience: int = 5, anneal: bool = False):
+    """Adam (optax's, no clip) on a test-time variational objective.
+
+    tol=None: exactly num_steps steps, no host sync.
+    tol=r: early stopping once the relative objective change stays <= r
+    for `patience` CONSECUTIVE steps. The reference freezes the state
+    under `lax.cond`; this loop leaves instead, and reading the converged
+    flag is ONE HOST SYNC PER STEP. What it returns is the reference's:
+    the trace repeats the last value after convergence.
+
+    anneal=True: cosine-decay the rate lr -> 0 over num_steps.
+
+    Returns (fitted_params, objective_trace (num_steps,), steps_taken).
+    """
+    keys = list(var_params)
+    vp = {k: v.detach().clone().requires_grad_() for k, v in var_params.items()}
+    mu = {k: torch.zeros_like(v) for k, v in vp.items()}
+    nu = {k: torch.zeros_like(v) for k, v in vp.items()}
+    any_p = vp[keys[0]]
+    prev = torch.full((), math.inf, dtype=any_p.dtype, device=any_p.device)
+    trace, streak, k = [], 0, 0
+    for step in range(num_steps):
+        with torch.enable_grad():
+            val = objective(vp)
+            grads = torch.autograd.grad(val, [vp[key] for key in keys])
+        val = val.detach()
+        rate = lr
+        if anneal:
+            rate = lr * 0.5 * (1.0 + math.cos(
+                math.pi * step / max(num_steps, 1)))
+        bc1, bc2 = 1.0 - B1 ** (step + 1), 1.0 - B2 ** (step + 1)
+        with torch.no_grad():
+            for key, g in zip(keys, grads):
+                mu[key] = (1.0 - B1) * g + B1 * mu[key]
+                nu[key] = (1.0 - B2) * (g * g) + B2 * nu[key]
+                vp[key] -= rate * (mu[key] / bc1) / (
+                    torch.sqrt(nu[key] / bc2) + EPS)
+        trace.append(val)
+        k += 1
+        if tol is not None:
+            small = torch.abs(prev - val) <= tol * (torch.abs(prev) + 1.0)
+            streak = streak + 1 if bool(small) else 0   # the host sync
+            prev = val
+            if streak >= patience:
+                break
+    if trace:
+        trace_t = torch.stack(trace + [trace[-1]] * (num_steps - len(trace)))
+    else:
+        trace_t = torch.zeros(0, dtype=any_p.dtype, device=any_p.device)
+    return {key: v.detach() for key, v in vp.items()}, trace_t, k
+
+
+def _latent_var_params(m_init, dtype):
+    return {
+        "m": m_init.to(dtype),
+        "raw_s": positive_inverse(0.1 * torch.ones_like(m_init)).to(dtype),
+    }
+
+
+def infer_latent(cache: PosteriorCache, y_star, mask, m_init,
+                 num_steps: int = 200, lr: float = 0.05,
+                 kernel: str = "ard_rbf", tol: float | None = None):
+    """Optimize q(x*) = N(m*, diag(s*)) by Adam; `tol` enables early
+    stopping on the relative objective change, num_steps stays the cap.
+    Returns (m*, s*, objective trace)."""
+
+    def objective(vp):
+        s = positive(vp["raw_s"])
+        ell = _expected_loglik(cache, y_star, mask, vp["m"], s, kernel)
+        return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
+
+    vp, trace, _ = _fit_variational(
+        objective, _latent_var_params(m_init, y_star.dtype), num_steps, lr,
+        tol)
+    return vp["m"], positive(vp["raw_s"]), -trace
+
+
+def impute_bgplvm(params, Y, config: bgplvm.Config, y_star, mask,
+                  num_steps: int = 200, lr: float = 0.05,
+                  tol: float | None = None):
+    """Config-5 pipeline for the Bayesian GP-LVM: infer q(x*), predict all
+    dims; returns (mean, var, m*, s*, objective trace)."""
+    cache = bgplvm_posterior(params, Y, config)
+    m0 = init_latent_from_nearest(params["qx_mean"].detach(), Y, y_star, mask)
+    m_s, s_s, trace = infer_latent(cache, y_star, mask, m0, num_steps, lr,
+                                   kernel=config.kernel, tol=tol)
+    mean, var = predict_from_latent(cache, m_s, s_s, kernel=config.kernel)
+    return mean, var, m_s, s_s, trace
+
+
+# ---------------------------------------------------------------------------
+# DP-GP-LVM: per-atom caches, phi-mixed predictions
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def dp_posterior(params, Y, config: dp_gp_lvm.Config,
+                 policy: JitterPolicy = JitterPolicy()):
+    """PosteriorCache batched over atoms (leading dim T) and phi (D, T).
+    The per-atom Psi2 and Psi1^T Y are K1's outputs on the card."""
+    hyp = dp_gp_lvm.constrain(params)
+    p0, p1y, p2, yty, n = dispatch.dp_batched_suffstats(
+        hyp["variance"], hyp["ard"], hyp["qx_mean"], hyp["qx_var"], hyp["z"],
+        Y, block_n=config.psi2_block, use_fused=config.use_fused,
+        kernel=config.kernel,
+    )
+    kuu = dispatch.gram(hyp["variance"], hyp["ard"], hyp["z"],
+                        kernel=config.kernel)
+    stats = SuffStats(psi0=p0, psi1T_y=p1y, psi2=p2, yty=yty, n=n)
+    # one batched optimal_qu: the safe Cholesky repairs the whole stack
+    w, L, LB = optimal_qu(kuu, stats, hyp["noise"], policy)
+    caches = PosteriorCache(
+        w=w, L=L, LB=LB, variance=hyp["variance"], ard=hyp["ard"],
+        z=hyp["z"].detach(), noise=hyp["noise"],
+    )
+    return caches, hyp["phi"]
+
+
+def dp_predict_from_latent(caches: PosteriorCache, phi, m_star, s_star,
+                           kernel="ard_rbf"):
+    """Mixture predictive: mean/var (N*, D) mixing atoms by phi (D, T)."""
+    means, vars_ = predict_from_latent(caches, m_star, s_star, kernel)
+    w = phi.T[:, None, :]                                # (T, 1, D)
+    mean = torch.sum(w * means, dim=0)
+    # cancellation-free mixture variance (not E[m^2] - mean^2): every term
+    # is non-negative by construction
+    dev = means - mean[None]
+    return mean, torch.clamp(torch.sum(w * (vars_ + dev * dev), dim=0),
+                             min=1e-12)
+
+
+def dp_infer_latent(caches: PosteriorCache, phi, y_star, mask, m_init,
+                    num_steps: int = 200, lr: float = 0.05,
+                    kernel: str = "ard_rbf", tol: float | None = None):
+    """q(x*) inference under the DP mixture: phi-weighted expected
+    log-likelihood. Returns (m*, s*, objective trace)."""
+    phi_t = phi.T[:, None, :]
+
+    def objective(vp):
+        s = positive(vp["raw_s"])
+        ll_t = _expected_loglik_terms(caches, y_star, vp["m"], s, kernel)
+        ell = torch.sum(torch.sum(ll_t * phi_t, dim=0) * mask)
+        return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
+
+    vp, trace, _ = _fit_variational(
+        objective, _latent_var_params(m_init, m_init.dtype), num_steps, lr,
+        tol)
+    return vp["m"], positive(vp["raw_s"]), -trace
+
+
+def impute_dp(params, Y, config: dp_gp_lvm.Config, y_star, mask,
+              num_steps: int = 200, lr: float = 0.05,
+              tol: float | None = None):
+    """Config-5 pipeline for DP-GP-LVM."""
+    caches, phi = dp_posterior(params, Y, config)
+    m0 = init_latent_from_nearest(params["qx_mean"].detach(), Y, y_star, mask)
+    m_s, s_s, trace = dp_infer_latent(caches, phi, y_star, mask, m0,
+                                      num_steps, lr, kernel=config.kernel,
+                                      tol=tol)
+    mean, var = dp_predict_from_latent(caches, phi, m_s, s_s,
+                                       kernel=config.kernel)
+    return mean, var, m_s, s_s, trace
+
+
+def gaussian_predictive_loglik(y_true, mean, var, mask):
+    """Moment-matched per-dim predictive log-likelihood, summed over the
+    entries selected by mask (mask = 1 - observed_mask for imputation)."""
+    var = torch.clamp(var, min=1e-10)   # a non-positive variance upstream
+    #   must never turn the metric into NaN silently
+    ll = -0.5 * (math.log(2.0 * math.pi) + torch.log(var)
+                 + (y_true - mean) ** 2 / var)
+    return torch.sum(ll * mask)

@@ -24,10 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C signature of each source's entry point: (function name, argtypes)
+# C entry points of each source: {function name: argtypes}; every one
+# returns the CUDA error of its launches as an int
 SIGNATURES = {
-    "psi_suffstats": ("psi_suffstats_f32", [P] * 10 + [I] * 7 + [P]),
-    "psi2_bwd": ("psi2_bwd_f32", [P] * 15 + [I] * 6 + [P]),
+    "psi_suffstats": {"psi_suffstats_f32": [P] * 10 + [I] * 7 + [P]},
+    "psi2_bwd": {"psi2_bwd_f32": [P] * 15 + [I] * 6 + [P]},
+    "psi2_fwd": {"psi2_batched_f32": [P] * 8 + [I] * 6 + [P],
+                 "psi2_single_f32": [P] * 8 + [I] * 5 + [P]},
+    "psi1": {"psi1_f32": [P] * 7 + [I] * 3 + [P]},
 }
 
 _lock = threading.Lock()
@@ -59,10 +63,10 @@ def _start(name: str):
 
 def _load(name: str, path: pathlib.Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -86,8 +90,9 @@ def build_all(names=tuple(SIGNATURES)) -> None:
             _libs[name] = _load(name, _target(name))
 
 
-def function(name: str):
-    """The C entry point of `csrc/<name>.cu`, built on first use."""
+def function(name: str, entry: str | None = None):
+    """C entry point `entry` (default `<name>_f32`) of `csrc/<name>.cu`,
+    built on first use."""
     if name not in _libs:
         build_all((name,))
-    return getattr(_libs[name], SIGNATURES[name][0])
+    return getattr(_libs[name], entry or f"{name}_f32")

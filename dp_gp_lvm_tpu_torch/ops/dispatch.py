@@ -3,8 +3,8 @@
 
 Only the ARD-RBF kernel is ported. `use_fused` (True | False | "auto")
 takes the meaning of the reference's `use_pallas`: "auto" takes the fused
-CUDA kernels K1/K2 for tensors on the card, and the non-fused plain path
-on the CPU. The reference's M >= 96 and 5e8 cut-overs were measured
+CUDA kernels (`ops/psi.py`) for tensors on the card, and the non-fused
+plain path on the CPU. The reference's M >= 96 and 5e8 cut-overs were measured
 against XLA on a TPU and are not carried over.
 """
 from __future__ import annotations
@@ -32,15 +32,27 @@ def gram(variance, ard, X1, X2=None, kernel: str = "ard_rbf"):
 
 
 def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
-              kernel: str = "ard_rbf"):
-    """(Psi0, Psi1, Psi2) on the non-fused path: plain forward plus the
-    hand-derived backward."""
+              use_fused=False, kernel: str = "ard_rbf"):
+    """(Psi0, Psi1, Psi2) of one kernel. Non-fused: plain forward plus the
+    hand-derived backward. Fused: K6 and K5 forward (`ops/psi.py`).
+    `use_fused` defaults to False as the reference's `use_pallas` does
+    here; the model configs pass their own "auto"."""
     _kernel(kernel)
-    return (
-        ard_rbf.psi0(variance, mu, weights),
-        psi1_weighted(variance, ard, mu, s, Z, weights),
-        psi2_analytic(variance, ard, mu, s, Z, weights, block_n),
-    )
+    p0 = ard_rbf.psi0(variance, mu, weights)
+    if not resolve_fused(use_fused, kernel, mu.device):
+        return (
+            p0,
+            psi1_weighted(variance, ard, mu, s, Z, weights),
+            psi2_analytic(variance, ard, mu, s, Z, weights, block_n),
+        )
+    # Psi1: the fused forward is unweighted and the row weight a rescale
+    # outside it, which keeps its pullback exact for the weights; Psi2's
+    # weights thread through the fused forward and its pullback
+    p1 = psi_ops.psi1_fused(variance, ard, mu, s, Z)
+    if weights is not None:
+        p1 = p1 * weights[:, None]
+    return p0, p1, psi_ops.psi2_fused(variance, ard, mu, s, Z, weights,
+                                      block_n or 64)
 
 
 def resolve_fused(use_fused, kernel: str, device: torch.device) -> bool:
@@ -50,6 +62,20 @@ def resolve_fused(use_fused, kernel: str, device: torch.device) -> bool:
     if use_fused == "auto":
         return torch.device(device).type == "cuda"
     return bool(use_fused)
+
+
+def psi2_batched(variance, ard, mu, s, Zs, weights=None, block_n=None,
+                 use_fused="auto", kernel: str = "ard_rbf"):
+    """Per-atom Psi2 stack (T, M, M): K4 with the K2 pullback when fused,
+    else the non-fused path atom by atom."""
+    _kernel(kernel)
+    if resolve_fused(use_fused, kernel, mu.device):
+        return psi_ops.psi2_batched_fused(variance, ard, mu, s, Zs, weights,
+                                          block_n or 64)
+    return torch.stack([
+        psi2_analytic(variance[t], ard[t], mu, s, Zs[t], weights, block_n)
+        for t in range(Zs.shape[0])
+    ])
 
 
 def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,

@@ -1,22 +1,26 @@
-r"""Fused psi-statistics kernels of the DP atom stack (counterpart of
-`dp_gp_lvm_tpu/ops/pallas/psi.py`).
-
-Two hand-written CUDA kernels carry the DP-GP-LVM training step:
+r"""Fused psi-statistics kernels (counterpart of
+`dp_gp_lvm_tpu/ops/pallas/psi.py`), hand-written in CUDA:
 
 - K1 `suffstats_batched` (csrc/psi_suffstats.cu): per-atom Psi2 (T, M, M)
   and Psi1^T Y (T, M, D) in one pass over the rows; Psi1 never reaches
   device memory. Replaces `_suffstats_batched_kernel`.
 - K2 `psi2_bwd_batched` (csrc/psi2_bwd.cu): the analytic Psi2 pullback,
   atoms looped inside the block. Replaces `_psi2_bwd_batched_kernel`.
+- K4 `psi2_batched` and K5 `psi2_single` (csrc/psi2_fwd.cu, one kernel
+  body, two entry points): the Psi2 stack (T, M, M) and one kernel's
+  Psi2 (M, M). Replace `_psi2_batched_kernel` and `_psi2_kernel`.
+- K6 `psi1` (csrc/psi1.cu): Psi1 (N, M). Replaces `_psi1_kernel`.
 
 Beside each is its plain PyTorch version (`*_reference`), blocked over N.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel (float32 only) or raises. Each launch adds
-one to `LAUNCHES[<name>]`.
+tensor it launches the kernel (float32 only, M <= 128) or raises. Each
+launch adds one to `LAUNCHES[<name>]`.
 
-`SuffstatsBatchedFused` pairs them as forward and backward, with the Psi1
-pullback in plain torch (it is pure JAX outside any kernel in the
-reference), and the n-independent E0 finish of K2 in plain torch.
+The differentiable ops pair them as in the reference:
+`SuffstatsBatchedFused` (K1, K2 + plain Psi1 pullback),
+`Psi2BatchedFused` (K4, K2), `Psi2Fused` (K5, K2 at T = 1) and
+`Psi1Fused` (K6, plain pullback). The n-independent E0 finish of K2 is
+plain torch, as it is pure JAX outside any kernel in the reference.
 """
 from __future__ import annotations
 
@@ -30,10 +34,11 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
     _psi1_bwd,
 )
 
-LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0}
+LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
+            "psi2_batched": 0, "psi2_single": 0, "psi1": 0}
 MAX_M = 128          # K2 keeps V in registers for M <= 128
 MAX_ROWS_K2 = 64     # rows of a K2 block, held in shared memory
-_K1_STAGE = 16       # rows K1 stages at once (RS in psi_suffstats.cu)
+_K1_STAGE = 16       # rows K1, K4 and K5 stage at once (RS in their sources)
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +80,41 @@ def suffstats_batched_reference(variances, ards, mu, s, Zs, Y, weights=None,
         psi1 = ard_rbf.psi1(variances, ards, mu_b, s_b, Zs, w_b)
         p1y = p1y + psi1.mT @ Y[sl]
     return psi2, p1y
+
+
+def psi2_batched_reference(variances, ards, mu, s, Zs, weights=None,
+                           block_n: int = 64):
+    """Plain K4: the per-atom Psi2 stack (T, M, M), blocked over N."""
+    T, M, _ = Zs.shape
+    w = _ones_weights(mu, weights)
+    log_e = ard_rbf._log_e(ards, Zs)
+    psi2 = torch.zeros(T, M, M, dtype=mu.dtype, device=mu.device)
+    v2 = (variances * variances)[:, None, None]
+    for i in range(0, mu.shape[0], block_n):
+        sl = slice(i, i + block_n)
+        _, _, expo = ard_rbf._forward_pieces(variances, ards, mu[sl], s[sl],
+                                             Zs, log_e)
+        psi2 = psi2 + v2 * torch.sum(
+            torch.exp(torch.clamp(expo, max=0.0)) * w[sl][None, :, None, None],
+            dim=1,
+        )
+    return psi2
+
+
+def psi2_single_reference(variance, ard, mu, s, Z, weights=None,
+                          block_n: int = 64):
+    """Plain K5: one kernel's Psi2 (M, M), blocked over N."""
+    return ard_rbf.psi2(variance, ard, mu, s, Z, weights, block_n)
+
+
+def psi1_reference(variance, ard, mu, s, Z, weights=None,
+                   block_n: int = 128):
+    """Plain K6: Psi1 (N, M), blocked over N."""
+    return torch.cat([
+        ard_rbf.psi1(variance, ard, mu[i:i + block_n], s[i:i + block_n], Z,
+                     None if weights is None else weights[i:i + block_n])
+        for i in range(0, mu.shape[0], block_n)
+    ])
 
 
 def psi2_bwd_batched_reference(variances, ards, mu, s, Zs, G, weights=None,
@@ -256,8 +296,87 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
     return gvar_m, gard, gz, V, gmu, gs, gw
 
 
+def _psi2_forward(entry, name, variances, ards, mu, s, Zs, weights, T):
+    """Launch csrc/psi2_fwd.cu through `entry`; inputs carry the atom dim."""
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    _, M, Q = Zs.shape
+    N = mu.shape[0]
+    if M > MAX_M:
+        raise ValueError(f"{name}: M={M} > {MAX_M} not supported")
+    w = _ones_weights(mu, weights)
+    _check_cuda(
+        name,
+        dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, w=w),
+        dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
+             w=(N,)),
+    )
+    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
+    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K1_STAGE)
+    chunks = math.ceil(N / rows)
+    part = torch.empty(chunks, T * M * M, dtype=mu.dtype, device=mu.device)
+    out = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    dims = (T, N, M, Q) if entry == "psi2_batched_f32" else (N, M, Q)
+    err = build.function("psi2_fwd", entry)(
+        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
+        w.data_ptr(), Zs.data_ptr(), part.data_ptr(), out.data_ptr(),
+        *dims, rows, chunks, stream,
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def psi2_batched(variances, ards, mu, s, Zs, weights=None, block_n: int = 64):
+    """K4: the per-atom Psi2 stack (T, M, M). `block_n` sizes the plain
+    version's blocks; the kernel picks its own chunking."""
+    if _is_cpu(variances, ards, mu, s, Zs, weights):
+        return psi2_batched_reference(variances, ards, mu, s, Zs, weights,
+                                      block_n)
+    return _psi2_forward("psi2_batched_f32", "psi2_batched", variances, ards,
+                         mu, s, Zs, weights, Zs.shape[0])
+
+
+def psi2_single(variance, ard, mu, s, Z, weights=None, block_n: int = 64):
+    """K5: Psi2 (M, M) of one kernel: variance (), ard (Q,), Z (M, Q)."""
+    if _is_cpu(variance, ard, mu, s, Z, weights):
+        return psi2_single_reference(variance, ard, mu, s, Z, weights,
+                                     block_n)
+    return _psi2_forward("psi2_single_f32", "psi2_single",
+                         variance.reshape(1), ard[None], mu, s, Z[None],
+                         weights, 1)[0]
+
+
+def psi1(variance, ard, mu, s, Z, weights=None, block_n: int = 128):
+    """K6: Psi1 (N, M) of one kernel, optionally row-weighted."""
+    if _is_cpu(variance, ard, mu, s, Z, weights):
+        return psi1_reference(variance, ard, mu, s, Z, weights, block_n)
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    M, Q = Z.shape
+    N = mu.shape[0]
+    if M > MAX_M:
+        raise ValueError(f"psi1: M={M} > {MAX_M} not supported")
+    tensors = dict(variance=variance, ard=ard, mu=mu, s=s, Z=Z)
+    shapes = dict(variance=(), ard=(Q,), mu=(N, Q), s=(N, Q), Z=(M, Q))
+    if weights is not None:
+        tensors["w"], shapes["w"] = weights, (N,)
+    _check_cuda("psi1", tensors, shapes)
+    out = torch.empty(N, M, dtype=mu.dtype, device=mu.device)
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    err = build.function("psi1")(
+        variance.data_ptr(), ard.data_ptr(), mu.data_ptr(), s.data_ptr(),
+        None if weights is None else weights.data_ptr(), Z.data_ptr(),
+        out.data_ptr(), N, M, Q, stream,
+    )
+    _raise_on(err, "psi1")
+    LAUNCHES["psi1"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# the pair as one differentiable op
+# forward and backward paired as differentiable ops
 # ---------------------------------------------------------------------------
 
 
@@ -300,3 +419,73 @@ def suffstats_batched_fused(variances, ards, mu, s, Zs, Y, weights=None,
                             block_n: int = 64):
     return SuffstatsBatchedFused.apply(variances, ards, mu, s, Zs, Y,
                                        weights, block_n)
+
+
+class Psi2BatchedFused(torch.autograd.Function):
+    """Psi2 stack (T, M, M): K4 forward, K2 backward. Row weights are
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, variances, ards, mu, s, Zs, weights, block_n):
+        ctx.save_for_backward(variances, ards, mu, s, Zs, weights)
+        ctx.block_n = block_n
+        return psi2_batched(variances, ards, mu, s, Zs, weights, block_n)
+
+    @staticmethod
+    def backward(ctx, G):
+        variances, ards, mu, s, Zs, weights = ctx.saved_tensors
+        raw = psi2_bwd_batched(variances, ards, mu, s, Zs, G.contiguous(),
+                               weights, ctx.block_n)
+        gvar, gard, gmu, gs, gz, gw = finish_psi2_bwd(variances, ards, Zs,
+                                                      raw)
+        return (gvar, gard, gmu, gs, gz, None if weights is None else gw,
+                None)
+
+
+def psi2_batched_fused(variances, ards, mu, s, Zs, weights=None,
+                       block_n: int = 64):
+    return Psi2BatchedFused.apply(variances, ards, mu, s, Zs, weights,
+                                  block_n)
+
+
+class Psi2Fused(torch.autograd.Function):
+    """Psi2 (M, M) of one kernel: K5 forward; backward K2 with the atom
+    dim set to one. Row weights are differentiable."""
+
+    @staticmethod
+    def forward(ctx, variance, ard, mu, s, Z, weights, block_n):
+        ctx.save_for_backward(variance, ard, mu, s, Z, weights)
+        ctx.block_n = block_n
+        return psi2_single(variance, ard, mu, s, Z, weights, block_n)
+
+    @staticmethod
+    def backward(ctx, G):
+        variance, ard, mu, s, Z, weights = ctx.saved_tensors
+        vs, ards, Zs = variance.reshape(1), ard[None], Z[None]
+        raw = psi2_bwd_batched(vs, ards, mu, s, Zs, G.contiguous()[None],
+                               weights, ctx.block_n)
+        gvar, gard, gmu, gs, gz, gw = finish_psi2_bwd(vs, ards, Zs, raw)
+        return (gvar.reshape(variance.shape), gard[0], gmu, gs, gz[0],
+                None if weights is None else gw, None)
+
+
+def psi2_fused(variance, ard, mu, s, Z, weights=None, block_n: int = 64):
+    return Psi2Fused.apply(variance, ard, mu, s, Z, weights, block_n)
+
+
+class Psi1Fused(torch.autograd.Function):
+    """Psi1 (N, M) of one kernel, unweighted: K6 forward, the hand-derived
+    plain-torch pullback backward (as in the reference)."""
+
+    @staticmethod
+    def forward(ctx, variance, ard, mu, s, Z):
+        ctx.save_for_backward(variance, ard, mu, s, Z)
+        return psi1(variance, ard, mu, s, Z)
+
+    @staticmethod
+    def backward(ctx, G):
+        return _psi1_bwd(*ctx.saved_tensors, G)
+
+
+def psi1_fused(variance, ard, mu, s, Z):
+    return Psi1Fused.apply(variance, ard, mu, s, Z)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 and K2 on the card, against their plain
-versions in f64. Marked `cuda`; they skip on a host without a CUDA device.
+"""The port's CUDA kernels (K1, K2, K4, K5, K6) and the fused ops built
+on them, on the card, against their plain versions in f64. Marked `cuda`;
+they skip on a host without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so on the GPU machine
 (which has no JAX) it runs on its own:
@@ -13,6 +14,10 @@ import torch
 from dp_gp_lvm_tpu_torch.ops import psi
 
 T, N, M, Q, D = 3, 37, 6, 3, 4
+TINY = dict(T=T, N=N, M=M, Q=Q, D=D)
+# the c2_sparse_oil widths: neither M nor N is a multiple of the kernels'
+# 4x4 tile, 16-row stage or 64-row block
+C2 = dict(T=1, N=1000, M=50, Q=10, D=12)
 TOL_K1, TOL_K2 = 1e-4, 5e-4   # scaled by max|ref|, as in chip_smoke.py
 
 
@@ -23,7 +28,7 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(card, weighted):
+def _inputs(card, weighted, T=T, N=N, M=M, Q=Q, D=D):
     r = np.random.default_rng(7)
     arrs = dict(
         vs=r.uniform(0.5, 1.5, T), ards=r.uniform(0.3, 2.0, (T, Q)),
@@ -45,10 +50,15 @@ def _scaled_errors(got, want):
             for g, w in zip(got, want)]
 
 
+def _launched(**counts):
+    return {**dict.fromkeys(psi.LAUNCHES, 0), **counts}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [TINY, C2], ids=["tiny", "c2"])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_kernels_match_plain_on_card(card, weighted):
-    a, f = _inputs(card, weighted)
+def test_kernels_match_plain_on_card(card, weighted, shape):
+    a, f = _inputs(card, weighted, **shape)
     psi.reset_launch_counts()
     got = psi.suffstats_batched(f["vs"], f["ards"], f["mu"], f["s"], f["Zs"],
                                 f["Y"], f["w"])
@@ -60,7 +70,35 @@ def test_kernels_match_plain_on_card(card, weighted):
     want = psi.psi2_bwd_batched_reference(a["vs"], a["ards"], a["mu"],
                                           a["s"], a["Zs"], a["G"], a["w"])
     assert max(_scaled_errors(got, want)) <= TOL_K2
-    assert psi.LAUNCHES == {"suffstats_batched": 1, "psi2_bwd_batched": 1}
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_bwd_batched=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [TINY, C2], ids=["tiny", "c2"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_psi2_and_psi1_forwards_match_plain_on_card(card, weighted, shape):
+    """K4 on the stack, K5 and K6 on its first atom."""
+    a, f = _inputs(card, weighted, **shape)
+    psi.reset_launch_counts()
+    got = psi.psi2_batched(f["vs"], f["ards"], f["mu"], f["s"], f["Zs"],
+                           f["w"])
+    want = psi.psi2_batched_reference(a["vs"], a["ards"], a["mu"], a["s"],
+                                      a["Zs"], a["w"])
+    assert max(_scaled_errors([got], [want])) <= TOL_K1
+
+    def one(t):
+        return (t["vs"][0], t["ards"][0].contiguous(), t["mu"], t["s"],
+                t["Zs"][0].contiguous(), t["w"])
+
+    got = psi.psi2_single(*one(f))
+    want = psi.psi2_single_reference(*one(a))
+    assert got.shape == want.shape
+    assert max(_scaled_errors([got], [want])) <= TOL_K1
+    got = psi.psi1(*one(f))
+    want = psi.psi1_reference(*one(a))
+    assert got.shape == want.shape
+    assert max(_scaled_errors([got], [want])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(psi2_batched=1, psi2_single=1, psi1=1)
 
 
 @pytest.mark.cuda
@@ -84,8 +122,44 @@ def test_fused_op_gradients_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("op", ["psi2_batched", "psi2", "psi1"])
+def test_single_output_fused_op_gradients_on_card(card, op):
+    """Psi2BatchedFused (K4, K2), Psi2Fused (K5, K2 at T = 1) and Psi1Fused
+    (K6, plain pullback) on the card against the same op on the CPU in f64
+    (plain versions), row weights included where the op takes them."""
+    a, f = _inputs(card, weighted=True)
+
+    def run(t):
+        if op == "psi2_batched":
+            leaves = [t[k] for k in ("vs", "ards", "mu", "s", "Zs", "w")]
+            fn = psi.psi2_batched_fused
+        else:
+            leaves = [t["vs"][0], t["ards"][0], t["mu"], t["s"], t["Zs"][0]]
+            leaves += [t["w"]] if op == "psi2" else []
+            fn = psi.psi2_fused if op == "psi2" else psi.psi1_fused
+        leaves = [x.detach().clone().contiguous().requires_grad_()
+                  for x in leaves]
+        out = fn(*leaves)
+        return torch.autograd.grad(torch.sum(out ** 2) + torch.sum(
+            torch.sin(out)), leaves)
+
+    got = run(f)
+    want = run({k: v.cpu() for k, v in a.items()})
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu().double() - w).abs().max()) <= TOL_K2 * float(
+            w.abs().max())
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_float64_on_card(card):
     a, _ = _inputs(card, weighted=False)
     with pytest.raises(TypeError, match="float32"):
         psi.suffstats_batched(a["vs"], a["ards"], a["mu"], a["s"], a["Zs"],
                               a["Y"])
+    with pytest.raises(TypeError, match="float32"):
+        psi.psi2_batched(a["vs"], a["ards"], a["mu"], a["s"], a["Zs"])
+    with pytest.raises(TypeError, match="float32"):
+        psi.psi2_single(a["vs"][0], a["ards"][0], a["mu"], a["s"], a["Zs"][0])
+    with pytest.raises(TypeError, match="float32"):
+        psi.psi1(a["vs"][0], a["ards"][0], a["mu"], a["s"], a["Zs"][0])

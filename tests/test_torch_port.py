@@ -15,9 +15,13 @@ from dp_gp_lvm_tpu.core import transforms as jtr
 from dp_gp_lvm_tpu.distributions import stick_breaking as jsb
 from dp_gp_lvm_tpu_torch.core import transforms
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
-from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+from dp_gp_lvm_tpu_torch.data.synthetic import (
+    mocap_like,
+    oil_flow_like,
+    toy_gplvm,
+)
 from dp_gp_lvm_tpu_torch.distributions import stick_breaking
-from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, serving
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -29,7 +33,8 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "dp_gp_lvm_tpu" or m.startswith("dp_gp_lvm_tpu."))
-print(len([m for m in sys.modules if m.startswith("dp_gp_lvm_tpu_torch")]))
+mods = sorted(m for m in sys.modules if m.startswith("dp_gp_lvm_tpu_torch"))
+print(",".join(mods))
 print(",".join(bad))
 """
 
@@ -39,7 +44,16 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120, check=True).stdout.splitlines()
-    assert int(out[0]) >= 20, out     # every module was imported
+    walked = set(out[0].split(","))
+    on_disk = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "dp_gp_lvm_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py"
+    }
+    assert on_disk <= walked, on_disk - walked   # every module was imported
+    assert {"dp_gp_lvm_tpu_torch.models.prediction",
+            "dp_gp_lvm_tpu_torch.models.serving",
+            "dp_gp_lvm_tpu_torch.models.bgplvm"} <= walked
     assert out[1] == "", f"port pulled in {out[1]}"
 
 
@@ -52,8 +66,28 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         mocap_like(gen, n=16, d=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"z": np.zeros((2, 3, 1))})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oil_flow_like(gen, n=16, d=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        toy_gplvm(gen, n=16, d=3)
     Y, X = mocap_like(gen, n=16, d=3, device="cpu")
     assert Y.device.type == "cpu" and Y.shape == (16, 3) and X.shape == (16, 4)
+    bg_cfg = bgplvm.Config(num_latent=2, num_inducing=4)
+    bg = bgplvm.init_params(gen, Y, bg_cfg)
+    dp_cfg = dp_gp_lvm.Config(num_latent=2, num_inducing=4, truncation=3)
+    dp = dp_gp_lvm.init_params(gen, Y, dp_cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.make_bgplvm_imputer(bg, Y, bg_cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.make_dp_imputer(dp, Y, dp_cfg)
+    mask = torch.ones(2, 3, dtype=Y.dtype)
+    for impute in (
+            serving.make_bgplvm_imputer(bg, Y, bg_cfg, num_steps=2,
+                                        device="cpu"),
+            serving.make_dp_imputer(dp, Y, dp_cfg, num_steps=2,
+                                    device="cpu")):
+        mean, var = impute(Y[:2], mask)
+        assert mean.device.type == "cpu" and mean.shape == var.shape == (2, 3)
 
 
 def test_init_params_layout_on_cpu():
