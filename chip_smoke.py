@@ -12,7 +12,9 @@ imputation servers built on them. Phases, each printing one JSON line:
   build  nvcc-builds the CUDA kernels from csrc/ (in parallel)
   k1     K1 (fused Psi2 + Psi1^T Y) against its plain version in f64
   k2     K2 (fused Psi2 pullback) against its plain version in f64, at the
-         c4 shape and at the T=1 c2 shape the Bayesian GP-LVM step gives it
+         c4 shape, at the T=1 c2 shape the Bayesian GP-LVM step gives it
+         and at the N=8192, M=128 scale shape; two launches on the same
+         inputs must give the same bits
   k6     K6 (Psi1) and
   k5     K5 (single-kernel Psi2) at the c2 widths, weighted and not,
          against their plain versions in f64; also timed at N=8192, M=128
@@ -230,6 +232,8 @@ def phase_k2(torch, psi, gen):
     G32 = G64.float()
     args32 = (f32["vs"], f32["ards"], f32["mu"], f32["s"], f32["Zs"], G32)
     got = psi.psi2_bwd_batched(*args32)
+    repeat = psi.psi2_bwd_batched(*args32)
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(got, repeat))
     want = psi.psi2_bwd_batched_reference(
         f64["vs"], f64["ards"], f64["mu"], f64["s"], f64["Zs"], G64)
     abs_err, scaled = _errors(got, want)
@@ -239,22 +243,57 @@ def phase_k2(torch, psi, gen):
     ms = _timed(lambda: psi.psi2_bwd_batched(*args32), torch)
     device_ms = _device_ms(lambda: psi.psi2_bwd_batched(*args32), torch)
     c2 = _k2_at_c2(torch, psi, gen)
+    scale = _k2_at_scale(torch, psi, gen)
     plain_ms = _timed(lambda: psi.psi2_bwd_batched_reference(*args32), torch,
                       reps=5, warmup=1)
     bound_ms, bound_by = _bound_ms(*k2_work(T, C4["N"], M, C4["Q"]))
     row = dict(phase="k2", shape=C4, max_abs_err=abs_err,
                launches_in_phase=psi.LAUNCHES["psi2_bwd_batched"],
-               scaled_err=per_out, tol=TOL_K2, ms=ms, device_ms=device_ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               c2=c2, library_ms=None,
+               geometry=_k2_geometry(psi, C4),
+               scaled_err=per_out, tol=TOL_K2, repeat_bitwise_equal=bitwise,
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, c2=c2, scale=scale,
+               library_ms=None,
                library_note="no single PyTorch call computes the Psi2 "
                             "pullback")
     emit(row)
     if not scaled <= TOL_K2:
         raise AssertionError(f"K2 disagrees with its plain version: {per_out}")
+    if not bitwise:
+        raise AssertionError("two K2 launches on the same inputs differ")
     if not max(c2["scaled_err"].values()) <= TOL_K2:
         raise AssertionError(f"K2 disagrees at the c2 shape: {c2}")
+    if not scale["scaled_err"] <= TOL_K2:
+        raise AssertionError(f"K2 disagrees at the scale shape: {scale}")
     return row
+
+
+def _k2_geometry(psi, shape):
+    """How the K2 wrapper launches at `shape` on this card."""
+    geo = psi.k2_launch_geometry("cuda", *(shape[k] for k in "TNMQ"))
+    return geo._asdict()
+
+
+def _k2_at_scale(torch, psi, gen):
+    """K2 at N=8192, M=128, T=20 against its plain version in f64."""
+    T, N, M, Q = (SCALE[k] for k in "TNMQ")
+    f64, f32 = _inputs(torch, gen, **SCALE)
+    G64 = torch.randn(T, M, M, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    args32 = tuple(f32[k] for k in names) + (G64.float(),)
+    got = psi.psi2_bwd_batched(*args32)
+    want = psi.psi2_bwd_batched_reference(*(f64[k] for k in names), G64)
+    abs_err, scaled = _errors(got, want)
+    del want
+    bound_ms, bound_by = _bound_ms(*k2_work(T, N, M, Q))
+    return dict(shape=dict(T=T, N=N, M=M, Q=Q), max_abs_err=abs_err,
+                scaled_err=scaled, geometry=_k2_geometry(psi, SCALE),
+                ms=_timed(lambda: psi.psi2_bwd_batched(*args32), torch,
+                          reps=5, warmup=1),
+                device_ms=_device_ms(lambda: psi.psi2_bwd_batched(*args32),
+                                     torch, launches=5, replays=3),
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _k2_at_c2(torch, psi, gen):
@@ -275,6 +314,7 @@ def _k2_at_c2(torch, psi, gen):
         errs[label] = _errors(got, want)
     bound_ms, bound_by = _bound_ms(*k2_work(1, N, M, Q))
     return dict(shape=dict(T=1, N=N, M=M, Q=Q),
+                geometry=_k2_geometry(psi, dict(T=1, **C2)),
                 max_abs_err=max(e[0] for e in errs.values()),
                 scaled_err={k: e[1] for k, e in errs.items()},
                 ms=_timed(lambda: psi.psi2_bwd_batched(*args32), torch),
@@ -820,7 +860,11 @@ def main(argv=None) -> int:
 
     kernels = [
         kernel_row("suffstats_batched", "psi_suffstats.cu", 610, "train", k1),
-        kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
+        dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
+             redesigned_in="fourth slice of the port",
+             c2_device_ms=k2["c2"]["device_ms"],
+             scale_device_ms=k2["scale"]["device_ms"],
+             scale_bound_ms=k2["scale"]["bound_ms"]),
         kernel_row("psi2_batched", "psi2_fwd.cu", 244, "gate", k4),
         kernel_row("psi2_single", "psi2_fwd.cu", 66, "train_bgplvm", k5),
         kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),

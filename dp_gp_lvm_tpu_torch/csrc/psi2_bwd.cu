@@ -2,322 +2,618 @@
 //
 // Replaces dp_gp_lvm_tpu/ops/pallas/psi.py:_psi2_bwd_batched_kernel
 // (wrapper psi2_bwd_batched_pallas); the derivation is in
-// dp_gp_lvm_tpu/kernels/ard_rbf_vjp.py. With
-//   W_tnml = var_t^2 w_n exp(min(expo,0)) 1[expo<0] G_tml
+// dp_gp_lvm_tpu/kernels/ard_rbf_vjp.py. Per atom t and row n, with
+//   expo_ml = ln_n - (le_ml + quad_ml) / 4,   E = exp(min(expo, 0)),
+//   W_ml = var_t^2 w_n E_ml 1[expo_ml < 0] G_ml,
 // it returns, per atom (summed over rows):
-//   gvar_m (T,M)  = sum_n sum_l w_n exp(min(expo,0)) G      (unmasked)
+//   gvar_m (T,M)  = sum_n w_n sum_l E G      (unmasked)
 //   gard   (T,Q), gz (T,M,Q)   without the E0 pull, V (T,M,M) = sum_n W
 // and, per row (summed over atoms): gmu, gs (N,Q) and gw (N,)
-//   gw_n = sum_t var_t^2 <exp(min(expo_tn,0)), G_t>.
+//   gw_n = sum_t var_t^2 <E_tn, G_t>       (unmasked, unweighted).
 // The n-independent E0 pulls are finished outside from V, in plain torch,
 // as the JAX package does.
 //
-// Bound on the H100: operations. Per (atom, row) the M x M exponent tile
-// costs M^2 exponentials and ~2Q M^2 FLOPs, and its pullback another
-// ~2Q M^2 FLOPs (the (M,M) x (M,Q) contraction W_sym Z). What the design
-// does about it:
-//   * Atoms are looped inside the block, as on the TPU, so the per-row
-//     outputs gmu, gs, gw have one owner and need no cross-block sum.
-//   * A block works one row at a time (the TPU held a (B, M, M) tile in
-//     64 MB of VMEM; a block here has 227 KB). The row's W tile lives in
-//     shared memory with a padded stride (M+1) so that row and column
-//     reads are free of bank conflicts; V is summed in registers.
-//   * Reductions over the tile (row sums via warp shuffles, column sums,
-//     W_sym Z, per-q sums) run in a fixed order: no atomics anywhere.
-//   * The exponent is taken in its direct form (see psi_suffstats.cu),
-//     all products in full f32, no tensor cores.
-//   * Per-atom accumulators are written per N-chunk to part[c] and a
-//     second kernel sums the chunks in chunk order.
+// Bound on the H100: FP32 operations. Per (atom, row) the M x M tile costs
+// M^2 exponentials, ~2Q FLOPs each for the exponent and ~Q more for the
+// (W + W^T) Z contraction; the bytes are the inputs and outputs once. What
+// the design does about it:
+//   * Atoms are on the grid, (chunks, T): block (c, t) loads G_t, Z_t and
+//     alpha_t once into shared memory and builds le_ml = sum_q alpha_q
+//     (z_mq - z_lq)^2 there, then walks its chunk of rows.
+//   * The exponent is symmetric bit for bit: quad_ml = sum_q (c_mq +
+//     c_lq)^2 with c_lq = sqrt(b_q) (mu_q - z_lq) staged per row, and
+//     le_ml is built from +-(z_m - z_l). So E_ml and E_lm are the same
+//     bits, and W_ml + W_lm = var^2 w_n (E o mask)_ml (G_ml + G_lm): the
+//     thread that owns row m of the tile has it without reading any other
+//     thread's W, and V = G o S with S = var^2 sum_n w_n (E o mask).
+//   * Thread (m, j) owns row m of the tile and a slice of LC columns: its
+//     S entries live in registers across rows, and per row it sums p_m,
+//     the row sum of W + W^T and its Z contraction. It walks RN = 2 rows
+//     at once (1 where Q > QF), so each load of z_l, le_ml and G serves
+//     two exponents. The 3Q+2 per-row scalars that cross threads (A, U_q,
+//     rz_q, rz2_q, the gw term) are summed by a recursive-halving warp
+//     shuffle (31 shuffles for 32 values) and one shared-memory stage per
+//     batch of B rows: two block barriers per B rows, none per row.
+//   * LC = 16 columns at M <= 64 (256 threads, 2 blocks and 16 warps per
+//     SM at ~125 registers), 32 at M <= 128 (512 threads, one block).
+//   * Q <= QF = 10 (every configuration) runs in one pass with a row's
+//     Q-vectors in registers. A larger Q runs one generic instantiation:
+//     the exponent sums its Q terms from shared memory, and the block walks
+//     its rows once per QC = 8 columns of the gradients, holding only those
+//     in registers. Shared memory bounds Q (at M = 128, Q <= 40).
+//   * Partials: per (chunk, atom) [gvar_m | gard | gz | S], per (atom, row)
+//     [gmu | gs | gw]. A second kernel sums the chunks (PARTS contiguous
+//     chunk ranges per element, then the ranges in order), forms V = G o S,
+//     and sums the atoms of each row in atom order. No atomics: the same
+//     bits on every run.
+//   * The exponent is taken in its direct form (the expanded form cancels
+//     in f32), all products in full f32 on the CUDA cores, no tensor cores.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 512;        // 16 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_M = 128;          // V registers: (MAX_M/WARPS) x (MAX_M/32)
-constexpr int VK = MAX_M / WARPS;
-constexpr int VJ = MAX_M / 32;
+constexpr int MAX_M = 128;
+constexpr int PARTS = 8;            // chunk ranges per element, second pass
+constexpr int FIN_THREADS = 32 * PARTS;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int QF = 10;              // largest Q of the one-pass kernels
+constexpr int QC = 8;               // gradient columns per pass, Q > QF
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int round32(int x) { return (x + 31) & ~31; }
+
+// rows between two block barriers: the row stage must fit beside the tiles
+// at M = 128
+template <bool CH>
+__host__ __device__ constexpr int batch_rows() {
+  return CH ? 2 : 8;
+}
+
+// rows of the chunk a thread walks at once: two share each load of the
+// tiles; one where Q > QF keeps the passes within 128 registers
+template <bool CH>
+__host__ __device__ constexpr int rows_at_once() {
+  return CH ? 1 : 2;
+}
 
 struct Dims {
   int T, N, M, Q, rows_per_chunk;
 };
 
-struct Segments {
-  float* out[4];
-  long long off[5];
+// shared-memory layout of the main kernel, offsets in floats (16-byte
+// aligned): Q-vector stride QP, tile row stride MP, row-info stride RI,
+// tile-row slices L, warps NW
+struct Layout {
+  int QP, MP, RI, L, NW;
+  int g, le, z, al, c, ri, st, ga, cb, total;
 };
 
-__global__ void __launch_bounds__(THREADS)
+// QT: gradient columns a pass holds in registers; CH: Q > QT, in passes
+template <int QT, int LC, bool CH>
+__host__ __device__ Layout layout(int M, int Q) {
+  constexpr int B = batch_rows<CH>();
+  // per-row scalars padded to whole warps
+  constexpr int NV = round32(3 * QT + 2);
+  Layout s;
+  // Q-vectors padded to float4s, and to whole passes where CH
+  s.QP = CH ? QT * ((Q + QT - 1) / QT) : round4(QT);
+  s.MP = M | 1;  // odd: row and column reads of a tile are conflict-free
+  s.RI = round4(5 * s.QP + 2);
+  s.L = (M + LC - 1) / LC;
+  s.NW = round32(M * s.L) / 32;
+  s.g = 0;
+  s.le = s.g + round4(M * s.MP);
+  s.z = s.le + round4(M * s.MP);
+  s.al = s.z + M * s.QP;
+  s.c = s.al + s.QP;
+  s.ri = s.c + B * M * s.QP;
+  s.st = s.ri + 3 * B * s.RI;
+  s.ga = s.st + B * s.NW * NV;
+  s.total = s.ga + round4(B * QT);
+  // the slices' [gvar | gz] partials of a pass: from le on in one pass,
+  // after everything where later passes read the tiles again
+  const int comb = s.L * M * (QT + 1);
+  s.cb = CH ? s.total : s.le;
+  if (s.cb + comb > s.total) s.total = s.cb + comb;
+  return s;
+}
+
+// v[o + i] += v[o + i + W] of the partner lane (lane ^ W), for i < W, after
+// the halves were swapped on lanes with bit W set: one step of a
+// recursive-halving sum, the same order on every run
+template <int W, int NV>
+__device__ __forceinline__ void halve(float (&v)[NV], int o, bool up) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = up ? v[o + i] : v[o + i + W];
+    const float keep = up ? v[o + i + W] : v[o + i];
+    v[o + i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// dst[k] = sum over the warp of v[k] for k < NV (a multiple of 32): lane i
+// writes dst[32 h + i]; 31 shuffles per 32 values
+template <int NV>
+__device__ __forceinline__ void warp_scatter_sum(float (&v)[NV], int lane,
+                                                 float* dst) {
+#pragma unroll
+  for (int o = 0; o < NV; o += 32) {
+    halve<16>(v, o, lane & 16);
+    halve<8>(v, o, lane & 8);
+    halve<4>(v, o, lane & 4);
+    halve<2>(v, o, lane & 2);
+    halve<1>(v, o, lane & 1);
+    dst[o + lane] = v[o];
+  }
+}
+
+// dst = src[0, QS) from 16-byte-aligned shared memory, into registers
+template <int QS>
+__device__ __forceinline__ void load_vec(const float* src, float (&dst)[QS]) {
+#pragma unroll
+  for (int q = 0; q < QS; q += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src + q);
+    dst[q] = x.x;
+    dst[q + 1] = x.y;
+    dst[q + 2] = x.z;
+    dst[q + 3] = x.w;
+  }
+}
+
+// sum_q (a_q + b_q)^2 over [0, QP), QP a multiple of 4, in q order
+__device__ __forceinline__ float quad_sum(const float* a, const float* b,
+                                          int QP) {
+  float quad = 0.f;
+  for (int q = 0; q < QP; q += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + q);
+    const float4 y = *reinterpret_cast<const float4*>(b + q);
+    const float t0 = x.x + y.x, t1 = x.y + y.y;
+    const float t2 = x.z + y.z, t3 = x.w + y.w;
+    quad = fmaf(t0, t0, quad);
+    quad = fmaf(t1, t1, quad);
+    quad = fmaf(t2, t2, quad);
+    quad = fmaf(t3, t3, quad);
+  }
+  return quad;
+}
+
+// 256-thread blocks, two per SM (~125 registers); 512-thread blocks, one
+template <int QT, int LC, bool CH>
+__global__ void __launch_bounds__(LC == 16 ? 256 : 512, LC == 16 ? 2 : 1)
 psi2_bwd_kernel(const float* __restrict__ var, const float* __restrict__ ard,
                 const float* __restrict__ mu, const float* __restrict__ s,
                 const float* __restrict__ w, const float* __restrict__ z,
                 const float* __restrict__ g, float* __restrict__ part,
-                float* __restrict__ gmu, float* __restrict__ gs,
-                float* __restrict__ gw, Dims d) {
-  extern __shared__ float sm[];
-  const int chunk = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int T = d.T, M = d.M, Q = d.Q, RC = d.rows_per_chunk;
-  const int MP = M + 1;  // padded stride
+                float* __restrict__ rowpart, Dims d) {
+  constexpr int B = batch_rows<CH>(), RN = rows_at_once<CH>();
+  extern __shared__ __align__(16) float sm[];
+  const int T = d.T, N = d.N, M = d.M, Q = d.Q;
+  const Layout lay = layout<QT, LC, CH>(M, Q);
+  const int QP = lay.QP, MP = lay.MP, RI = lay.RI, NW = lay.NW;
+  constexpr int QS = round4(QT), NV = round32(3 * QT + 2);
+  float* g_sh = sm + lay.g;    // [M][MP] G_t; S of the block at the end
+  float* le_sh = sm + lay.le;  // [M][MP] sum_q alpha (z_m - z_l)^2
+  float* z_sh = sm + lay.z;    // [M][QP] z_t, zero-padded
+  float* al_sh = sm + lay.al;  // [QP] alpha_t, zero-padded
+  float* c_sh = sm + lay.c;    // [B][M][QP] c of the batch's rows
+  float* ri_sh = sm + lay.ri;  // [3][B][RI] b | sqrt b | mu | s | u | ln | w
+  float* st_sh = sm + lay.st;  // [B][NW][NV] per-warp sums of row scalars
+  float* ga_sh = sm + lay.ga;  // [B][QT] gard terms of the last batch
 
-  float* z_sh = sm;                 // [Q][MP]  z_t transposed
-  float* le_sh = z_sh + Q * MP;     // [M][MP]  sum_q alpha (z_m - z_l)^2
-  float* w_sh = le_sh + M * MP;     // [M][MP]  W tile of the current row
-  float* pz_sh = w_sh + M * MP;     // [M][Q]   sqrt(b) (2 mu - z_m)
-  float* sz_sh = pz_sh + M * Q;     // [Q][MP]  sqrt(b) z_l
-  float* p_sh = sz_sh + Q * MP;     // [M] sum_l exp(min(expo,0)) G
-  float* wr_sh = p_sh + M;          // [M] sum_l W_ml
-  float* r_sh = wr_sh + M;          // [M] sum_l (W_ml + W_lm)
-  float* gv_sh = r_sh + M;          // [M] gvar partial of the atom
-  float* wsz_sh = gv_sh + M;        // [M][Q] sum_l (W_ml + W_lm) z_lq
-  float* gz_sh = wsz_sh + M * Q;    // [M][Q] gz partial of the atom
-  float* al_sh = gz_sh + M * Q;     // [Q]
-  float* ga_sh = al_sh + Q;         // [Q] gard partial of the atom
-  float* mu_r = ga_sh + Q;          // [RC][Q]
-  float* s_r = mu_r + RC * Q;       // [RC][Q]
-  float* b_r = s_r + RC * Q;        // [RC][Q] b of the current atom
-  float* u_r = b_r + RC * Q;        // [RC][Q] u of the current atom
-  float* gmu_r = u_r + RC * Q;      // [RC][Q]
-  float* gs_r = gmu_r + RC * Q;     // [RC][Q]
-  float* w_r = gs_r + RC * Q;       // [RC]
-  float* ln_r = w_r + RC;           // [RC]
-  float* gw_r = ln_r + RC;          // [RC]
+  const int chunk = blockIdx.x, t = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int row0 = chunk * d.rows_per_chunk;
+  const int nrows = min(d.rows_per_chunk, N - row0);
+  const int nbatch = (nrows + B - 1) / B;
+  const float v = var[t], v2 = v * v;
 
-  const int row0 = chunk * RC;
-  const int nrows = min(RC, d.N - row0);
-  for (int i = tid; i < nrows * Q; i += THREADS) {
-    mu_r[i] = mu[(long long)row0 * Q + i];
-    s_r[i] = s[(long long)row0 * Q + i];
-    gmu_r[i] = 0.f;
-    gs_r[i] = 0.f;
+  for (int i = tid; i < M * M; i += nthreads)
+    g_sh[(i / M) * MP + i % M] = g[(long long)t * M * M + i];
+  for (int i = tid; i < M * QP; i += nthreads) {
+    const int l = i / QP, q = i % QP;
+    z_sh[i] = q < Q ? z[((long long)t * M + l) * Q + q] : 0.f;
   }
-  for (int r = tid; r < nrows; r += THREADS) {
-    w_r[r] = w[row0 + r];
-    gw_r[r] = 0.f;
+  for (int q = tid; q < QP; q += nthreads)
+    al_sh[q] = q < Q ? ard[(long long)t * Q + q] : 0.f;
+  __syncthreads();
+
+  for (int i = tid; i < M * M; i += nthreads) {
+    const int m = i / M, l = i % M;
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < (CH ? Q : QT); ++q) {
+      const float df = z_sh[m * QP + q] - z_sh[l * QP + q];
+      acc = fmaf(al_sh[q] * df, df, acc);
+    }
+    le_sh[m * MP + l] = acc;
   }
 
-  const long long P = (long long)T * (M + Q + M * Q + M * M);
-  float* part_c = part + chunk * P;
-
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();  // previous atom's readers are done
-    const float v = var[t], v2 = v * v;
-    for (int i = tid; i < Q * M; i += THREADS) {
-      const int q = i / M, m = i % M;
-      z_sh[q * MP + m] = z[((long long)t * M + m) * Q + q];
+  // row info of batch k into ri_sh[k % 3]
+  auto prep_rows = [&](int k) {
+    const int r0 = k * B, nb = min(B, nrows - r0);
+    float* ri = ri_sh + (k % 3) * B * RI;
+    for (int i = tid; i < nb * QP; i += nthreads) {
+      const int b = i / QP, q = i % QP;
+      const long long n = row0 + r0 + b;
+      const float a = al_sh[q];
+      const float sv = q < Q ? s[n * Q + q] : 0.f;
+      const float u = fmaf(2.f * a, sv, 1.f);
+      const float bq = a / u;
+      float* r = ri + b * RI;
+      r[q] = bq;
+      r[QP + q] = sqrtf(bq);
+      r[2 * QP + q] = q < Q ? mu[n * Q + q] : 0.f;
+      r[3 * QP + q] = sv;
+      r[4 * QP + q] = u;
     }
-    for (int q = tid; q < Q; q += THREADS) {
-      al_sh[q] = ard[(long long)t * Q + q];
-      ga_sh[q] = 0.f;
-    }
-    for (int i = tid; i < M * Q; i += THREADS) gz_sh[i] = 0.f;
-    for (int m = tid; m < M; m += THREADS) gv_sh[m] = 0.f;
-    __syncthreads();
-    for (int r = tid; r < nrows; r += THREADS) {
+    for (int b = tid; b < nb; b += nthreads) {
+      const long long n = row0 + r0 + b;
       float ln = 0.f;
-      for (int q = 0; q < Q; ++q) {
-        const float a = al_sh[q];
-        const float u = 2.f * a * s_r[r * Q + q] + 1.f;
-        u_r[r * Q + q] = u;
-        b_r[r * Q + q] = a / u;
-        ln -= 0.5f * logf(u);
-      }
-      ln_r[r] = ln;
+      for (int q = 0; q < Q; ++q)
+        ln -= 0.5f * logf(fmaf(2.f * al_sh[q], s[n * Q + q], 1.f));
+      ri[b * RI + 5 * QP] = ln * LOG2E;
+      ri[b * RI + 5 * QP + 1] = w[n];
     }
-    for (int i = tid; i < M * M; i += THREADS) {
-      const int m = i / M, l = i % M;
-      float acc = 0.f;
-      for (int q = 0; q < Q; ++q) {
-        const float df = z_sh[q * MP + m] - z_sh[q * MP + l];
-        acc = fmaf(al_sh[q] * df, df, acc);
-      }
-      le_sh[m * MP + l] = acc;
-    }
-    float vacc[VK][VJ];
-#pragma unroll
-    for (int k = 0; k < VK; ++k)
-#pragma unroll
-      for (int j = 0; j < VJ; ++j) vacc[k][j] = 0.f;
+  };
 
-    for (int r = 0; r < nrows; ++r) {
-      __syncthreads();  // le_sh / row scalars ready; last row's readers done
-      const float wn = w_r[r], ln = ln_r[r];
-      for (int i = tid; i < M * Q; i += THREADS) {
-        const int m = i / Q, q = i % Q;
-        const float sb = sqrtf(b_r[r * Q + q]);
-        const float zq = z_sh[q * MP + m];
-        pz_sh[i] = sb * (2.f * mu_r[r * Q + q] - zq);
-        sz_sh[q * MP + m] = sb * zq;
+  const bool active = tid < M * lay.L;
+  const int m = active ? tid % M : 0;
+  const int l0 = active ? (tid / M) * LC : 0;
+  const int lc = active ? min(LC, M - l0) : 0;
+  const long long P = (long long)T * (M + Q + M * Q + M * M);
+  float* pc = part + chunk * P;
+  float S[LC];
+#pragma unroll
+  for (int k = 0; k < LC; ++k) S[k] = 0.f;
+
+  // one pass per QT gradient columns [q0, q0 + qn) where CH, else one;
+  // S, gvar and gw in the first
+  for (int q0 = 0; q0 < (CH ? Q : 1); q0 += QT) {
+    const bool first = !CH || q0 == 0;
+    const int qn = CH ? min(QT, Q - q0) : Q;
+    float gz[QT];
+#pragma unroll
+    for (int q = 0; q < QT; ++q) gz[q] = 0.f;
+    float gvacc = 0.f, gard_acc = 0.f;
+    if (nbatch > 0) prep_rows(0);
+    __syncthreads();
+
+    for (int bt = 0; bt <= nbatch; ++bt) {
+      // (1) the last batch's row scalars -> its rows' gmu, gs, gw and gard
+      if (bt > 0) {
+        const int pr0 = (bt - 1) * B, pnb = min(B, nrows - pr0);
+        const int per = qn + (first ? 1 : 0);
+        const float* ri = ri_sh + ((bt - 1) % 3) * B * RI;
+        for (int i = tid; i < pnb * per; i += nthreads) {
+          const int b = i / per, q = i % per;
+          const float* st = st_sh + b * NW * NV;
+          const float* r = ri + b * RI;
+          float* rp =
+              rowpart + ((long long)t * N + row0 + pr0 + b) * (2 * Q + 1);
+          if (q == qn) {
+            float ps = 0.f;
+            for (int wi = 0; wi < NW; ++wi) ps += st[wi * NV + 3 * QT + 1];
+            rp[2 * Q] = v2 * ps;
+            continue;
+          }
+          float A = 0.f, rz = 0.f, rz2 = 0.f, U = 0.f;
+          for (int wi = 0; wi < NW; ++wi) {
+            const float* sw = st + wi * NV;
+            A += sw[0];
+            rz += sw[1 + q];
+            rz2 += sw[1 + QT + q];
+            U += sw[1 + 2 * QT + q];
+          }
+          const float f = v2 * r[5 * QP + 1];
+          A *= 0.5f * f;
+          rz *= f;
+          rz2 *= f;
+          U *= 0.5f * f;
+          const int qq = q0 + q;
+          const float bq = r[qq], mq = r[2 * QP + qq];
+          const float sq = r[3 * QP + qq], uq = r[4 * QP + qq];
+          const float gb = -mq * mq * A + mq * rz - 0.25f * rz2 - 0.5f * U;
+          rp[qq] = bq * (-2.f * mq * A + rz);
+          rp[Q + qq] = gb * (-2.f * bq * bq) - A * bq;
+          ga_sh[b * QT + q] = gb / (uq * uq) - A * sq / uq;
+        }
+      }
+      // (2) stage c of batch bt, row info of batch bt + 1
+      if (bt < nbatch) {
+        const int nb = min(B, nrows - bt * B);
+        const float* ri = ri_sh + (bt % 3) * B * RI;
+        for (int i = tid; i < nb * M; i += nthreads) {
+          const int b = i / M, l = i - b * M;
+          const float* r = ri + b * RI;
+#pragma unroll
+          for (int q = 0; q < (CH ? QP : QS); ++q)
+            c_sh[i * QP + q] = r[QP + q] * (r[2 * QP + q] - z_sh[l * QP + q]);
+        }
+        if (bt + 1 < nbatch) prep_rows(bt + 1);
       }
       __syncthreads();
+      if (bt > 0 && tid < qn) {
+        const int pnb = min(B, nrows - (bt - 1) * B);
+        for (int b = 0; b < pnb; ++b) gard_acc += ga_sh[b * QT + tid];
+      }
+      if (bt == nbatch) break;
 
-      // W tile: warp owns rows m = warp + k*WARPS, lane owns l = lane + 32 j
+      // (3) the rows of batch bt; no block barrier between them
+      const int nb = min(B, nrows - bt * B);
+      const float* ri = ri_sh + (bt % 3) * B * RI;
+      for (int b = 0; b < nb; b += RN) {
+        // RN rows at once share the loads of z_l, le and G; a missing last
+        // row repeats the one before it at weight 0 and is not written
+        const float* cr[RN];
+        const float* rr[RN];
+        float ln2[RN], wn[RN], cm[RN][QS];
 #pragma unroll
-      for (int k = 0; k < VK; ++k) {
-        const int m = warp + k * WARPS;
-        if (m < M) {
-          float psum = 0.f, wsum = 0.f;
+        for (int j = 0; j < RN; ++j) {
+          const int bj = min(b + j, nb - 1);
+          cr[j] = c_sh + bj * M * QP;
+          rr[j] = ri + bj * RI;
+          ln2[j] = rr[j][5 * QP];
+          wn[j] = b + j < nb ? rr[j][5 * QP + 1] : 0.f;
+          if (!CH) load_vec(cr[j] + m * QP, cm[j]);
+        }
+        float p[RN], rsum[RN], wsz[RN][QT];
 #pragma unroll
-          for (int j = 0; j < VJ; ++j) {
-            const int l = lane + 32 * j;
-            if (l < M) {
+        for (int j = 0; j < RN; ++j) {
+          p[j] = rsum[j] = 0.f;
+#pragma unroll
+          for (int q = 0; q < QT; ++q) wsz[j][q] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < LC; ++k) {
+          if (k < lc) {
+            const int l = l0 + k;
+            float zl[QS];
+            load_vec(z_sh + l * QP + q0, zl);
+            const float le = le_sh[m * MP + l];
+            const float g1 = g_sh[m * MP + l];
+            const float gsum = g1 + g_sh[l * MP + m];
+#pragma unroll
+            for (int j = 0; j < RN; ++j) {
               float quad = 0.f;
-              for (int q = 0; q < Q; ++q) {
-                const float df = pz_sh[m * Q + q] - sz_sh[q * MP + l];
-                quad = fmaf(df, df, quad);
+              if (CH) {
+                quad = quad_sum(cr[j] + m * QP, cr[j] + l * QP, QP);
+              } else {
+                float cl[QS];
+                load_vec(cr[j] + l * QP, cl);
+#pragma unroll
+                for (int q = 0; q < QT; ++q) {
+                  const float tq = cm[j][q] + cl[q];
+                  quad = fmaf(tq, tq, quad);
+                }
               }
-              const float expo = ln - 0.25f * (le_sh[m * MP + l] + quad);
-              const float e = expf(fminf(expo, 0.f));
-              const float gg = g[((long long)t * M + m) * M + l];
-              const float wv = expo < 0.f ? v2 * wn * e * gg : 0.f;
-              w_sh[m * MP + l] = wv;
-              vacc[k][j] += wv;
-              psum = fmaf(e, gg, psum);
-              wsum += wv;
+              const float ex = fmaf(-0.25f * LOG2E, le + quad, ln2[j]);
+              const float e = exp2f(fminf(ex, 0.f));
+              p[j] = fmaf(e, g1, p[j]);
+              const float em = ex < 0.f ? e : 0.f;
+              if (first) S[k] = fmaf(wn[j], em, S[k]);
+              const float ws = em * gsum;
+              rsum[j] += ws;
+#pragma unroll
+              for (int q = 0; q < QT; ++q)
+                wsz[j][q] = fmaf(ws, zl[q], wsz[j][q]);
             }
           }
+        }
+        // this thread's share of each row: gvar, gz and the row scalars
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            psum += __shfl_xor_sync(0xffffffffu, psum, o);
-            wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+        for (int j = 0; j < RN; ++j) {
+          if (b + j >= nb) break;
+          const float* r = rr[j];
+          const float f = v2 * wn[j];
+          if (first) gvacc = fmaf(wn[j], p[j], gvacc);
+          float vals[NV];
+          vals[0] = rsum[j];
+#pragma unroll
+          for (int q = 0; q < QT; ++q) {
+            const int qq = q0 + q;
+            const float zq = z_sh[m * QP + qq];
+            gz[q] = fmaf(f * r[qq], rsum[j] * (r[2 * QP + qq] - 0.5f * zq) -
+                                        0.5f * wsz[j][q], gz[q]);
+            vals[1 + q] = rsum[j] * zq;
+            vals[1 + QT + q] = rsum[j] * zq * zq;
+            vals[1 + 2 * QT + q] = wsz[j][q] * zq;
           }
-          if (lane == 0) {
-            p_sh[m] = psum;
-            wr_sh[m] = wsum;
-          }
+          vals[3 * QT + 1] = p[j];
+#pragma unroll
+          for (int k = 3 * QT + 2; k < NV; ++k) vals[k] = 0.f;
+          warp_scatter_sum<NV>(vals, lane, st_sh + ((b + j) * NW + warp) * NV);
         }
       }
       __syncthreads();
+    }
 
-      // R = row + column sums of W; W_sym Z; gvar partial
-      for (int i = tid; i < M * Q + M; i += THREADS) {
-        if (i < M * Q) {
-          const int m = i / Q, q = i % Q;
-          float a = 0.f;
-          for (int l = 0; l < M; ++l)
-            a = fmaf(w_sh[m * MP + l] + w_sh[l * MP + m], z_sh[q * MP + l], a);
-          wsz_sh[i] = a;
-        } else {
-          const int m = i - M * Q;
-          float col = 0.f;
-          for (int l = 0; l < M; ++l) col += w_sh[l * MP + m];
-          r_sh[m] = wr_sh[m] + col;
-          gv_sh[m] = fmaf(wn, p_sh[m], gv_sh[m]);
-        }
-      }
-      __syncthreads();
-
-      // per-q pulls of the row, gz pulls, gw
-      for (int i = tid; i < Q + M * Q + 1; i += THREADS) {
-        if (i < Q) {
-          const int q = i;
-          float A = 0.f, U = 0.f, rz = 0.f, rz2 = 0.f;
-          for (int m = 0; m < M; ++m) {
-            const float zq = z_sh[q * MP + m];
-            A += wr_sh[m];
-            U = fmaf(wsz_sh[m * Q + q], zq, U);
-            rz = fmaf(r_sh[m], zq, rz);
-            rz2 = fmaf(r_sh[m] * zq, zq, rz2);
-          }
-          U *= 0.5f;
-          const float mq = mu_r[r * Q + q], b = b_r[r * Q + q];
-          const float u = u_r[r * Q + q], sq = s_r[r * Q + q];
-          const float gb = -mq * mq * A + mq * rz - 0.25f * rz2 - 0.5f * U;
-          gmu_r[r * Q + q] += b * (-2.f * mq * A + rz);
-          gs_r[r * Q + q] += gb * (-2.f * b * b) - A * b;
-          ga_sh[q] += gb / (u * u) - A * sq / u;
-        } else if (i < Q + M * Q) {
-          const int j = i - Q, m = j / Q, q = j % Q;
-          const float b = b_r[r * Q + q], mq = mu_r[r * Q + q];
-          const float rm = r_sh[m];
-          gz_sh[j] += rm * b * mq - 0.5f * z_sh[q * MP + m] * rm * b -
-                      0.5f * wsz_sh[j] * b;
-        } else {
-          float ps = 0.f;
-          for (int m = 0; m < M; ++m) ps += p_sh[m];
-          gw_r[r] += v2 * ps;
-        }
-      }
+    // slices -> block partials of the pass, [gvar | gz] summed in slice
+    // order, once every thread has read its last gard terms
+    __syncthreads();
+    float* comb = sm + lay.cb;
+    if (active) {
+      float* cp = comb + (tid / M * M + m) * (QT + 1);
+      cp[0] = gvacc;
+#pragma unroll
+      for (int q = 0; q < QT; ++q) cp[1 + q] = gz[q];
     }
     __syncthreads();
-
-    // this atom's partials: [gvar_m (T,M) | gard (T,Q) | gz (T,M,Q) | V]
-    float* pv = part_c + (long long)t * M;
-    float* pa = part_c + (long long)T * M + (long long)t * Q;
-    float* pz = part_c + (long long)T * (M + Q) + (long long)t * M * Q;
-    float* pV = part_c + (long long)T * (M + Q + M * Q) + (long long)t * M * M;
-    for (int m = tid; m < M; m += THREADS) pv[m] = gv_sh[m];
-    for (int q = tid; q < Q; q += THREADS) pa[q] = ga_sh[q];
-    for (int i = tid; i < M * Q; i += THREADS) pz[i] = gz_sh[i];
-#pragma unroll
-    for (int k = 0; k < VK; ++k) {
-      const int m = warp + k * WARPS;
-#pragma unroll
-      for (int j = 0; j < VJ; ++j) {
-        const int l = lane + 32 * j;
-        if (m < M && l < M) pV[m * M + l] = vacc[k][j];
-      }
+    for (int i = tid; i < M * (qn + 1); i += nthreads) {
+      const int mm = i / (qn + 1), k = i % (qn + 1);
+      if (k == 0 && !first) continue;
+      float a = 0.f;
+      for (int j = 0; j < lay.L; ++j) a += comb[(j * M + mm) * (QT + 1) + k];
+      if (k == 0)
+        pc[(long long)t * M + mm] = a;
+      else
+        pc[(long long)T * (M + Q) + ((long long)t * M + mm) * Q + q0 + k - 1] =
+            a;
     }
+    if (tid < qn) pc[(long long)T * M + t * Q + q0 + tid] = gard_acc;
+  }
+
+  // S into g_sh: every read of G is done
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < LC; ++k)
+      if (k < lc) g_sh[m * MP + l0 + k] = S[k];
   }
   __syncthreads();
-  for (int i = tid; i < nrows * Q; i += THREADS) {
-    gmu[(long long)row0 * Q + i] = gmu_r[i];
-    gs[(long long)row0 * Q + i] = gs_r[i];
-  }
-  for (int r = tid; r < nrows; r += THREADS) gw[row0 + r] = gw_r[r];
+  float* pS = pc + (long long)T * (M + Q + M * Q) + (long long)t * M * M;
+  for (int i = tid; i < M * M; i += nthreads)
+    pS[i] = g_sh[(i / M) * MP + i % M];
 }
 
-__global__ void reduce_chunks(const float* __restrict__ part, int chunks,
-                              long long P, Segments seg) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < P;
-       i += (long long)gridDim.x * blockDim.x) {
+struct Outputs {
+  float *gvar_m, *gard, *gz, *V, *gmu, *gs, *gw;
+};
+
+// blocks [0, atom_blocks): element e of [gvar_m | gard | gz | S] summed over
+// the chunks, V = var^2 G o S; the rest: row i of [gmu | gs | gw] summed
+// over the atoms in atom order
+__global__ void __launch_bounds__(FIN_THREADS)
+finish_kernel(const float* __restrict__ part,
+              const float* __restrict__ rowpart, const float* __restrict__ var,
+              const float* __restrict__ g, Outputs o, Dims d, int chunks,
+              int atom_blocks) {
+  const int T = d.T, N = d.N, M = d.M, Q = d.Q;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if ((int)blockIdx.x < atom_blocks) {
+    __shared__ float red[PARTS][32];
+    const long long off1 = (long long)T * M, off2 = off1 + (long long)T * Q;
+    const long long off3 = off2 + (long long)T * M * Q;
+    const long long P = off3 + (long long)T * M * M;
+    const long long e = (long long)blockIdx.x * 32 + lane;
+    const int per = (chunks + PARTS - 1) / PARTS;
+    const int c0 = warp * per, c1 = min(chunks, c0 + per);
     float a = 0.f;
-    for (int c = 0; c < chunks; ++c) a += part[c * P + i];
-    int k = 0;
-    while (i >= seg.off[k + 1]) ++k;
-    seg.out[k][i - seg.off[k]] = a;
+    if (e < P)
+      for (int c = c0; c < c1; ++c) a += part[c * P + e];
+    red[warp][lane] = a;
+    __syncthreads();
+    if (warp != 0 || e >= P) return;
+    float tot = 0.f;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) tot += red[p][lane];
+    if (e < off1) {
+      o.gvar_m[e] = tot;
+    } else if (e < off2) {
+      o.gard[e - off1] = tot;
+    } else if (e < off3) {
+      o.gz[e - off2] = tot;
+    } else {
+      const long long r = e - off3;
+      const float vt = var[r / ((long long)M * M)];
+      o.V[r] = vt * vt * g[r] * tot;
+    }
+    return;
   }
+  const int R = 2 * Q + 1;
+  const long long i =
+      (long long)(blockIdx.x - atom_blocks) * FIN_THREADS + tid;
+  if (i >= (long long)N * R) return;
+  float a = 0.f;
+  for (int t = 0; t < T; ++t) a += rowpart[(long long)t * N * R + i];
+  const long long n = i / R;
+  const int k = (int)(i % R);
+  if (k < Q)
+    o.gmu[n * Q + k] = a;
+  else if (k < 2 * Q)
+    o.gs[n * Q + k - Q] = a;
+  else
+    o.gw[n] = a;
+}
+
+// one instantiation of the main kernel
+template <int QT_, int LC_, bool CH_>
+struct Variant {
+  static constexpr int QT = QT_, LC = LC_;
+  static constexpr bool CH = CH_;
+};
+
+// f(Variant) for the instantiation that serves Q in slices of lc columns:
+// one pass at Q <= QF (lc 16 or 32), passes of QC columns beyond (lc 32)
+template <class F>
+int dispatch(int Q, int lc, F&& f) {
+  if (Q < 1 || (lc != 16 && lc != 32) || (Q > QF && lc != 32))
+    return -(int)cudaErrorInvalidValue;
+  if (Q > QF) return f(Variant<QC, 32, true>{});
+  return lc == 16 ? f(Variant<QF, 16, false>{}) : f(Variant<QF, 32, false>{});
+}
+
+template <class V>
+size_t smem_bytes(int M, int Q) {
+  return (size_t)layout<V::QT, V::LC, V::CH>(M, Q).total * sizeof(float);
+}
+
+// threads of a block, or 0 where they exceed the kernel's launch bounds
+template <class V>
+int block_threads(int M, int Q) {
+  const int threads = layout<V::QT, V::LC, V::CH>(M, Q).NW * 32;
+  return threads <= (V::LC == 16 ? 256 : 512) ? threads : 0;
 }
 
 }  // namespace
 
+// blocks of the main kernel that fit on one SM at (M, Q, lc), or minus a
+// CUDA error
+extern "C" int psi2_bwd_blocks_per_sm(int M, int Q, int lc) {
+  if (M < 1 || M > MAX_M) return -(int)cudaErrorInvalidValue;
+  return dispatch(Q, lc, [&](auto variant) {
+    using V = decltype(variant);
+    const auto kernel = psi2_bwd_kernel<V::QT, V::LC, V::CH>;
+    const size_t smem = smem_bytes<V>(M, Q);
+    const int threads = block_threads<V>(M, Q);
+    if (threads == 0) return -(int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
+}
+
+// part: chunks x T (M + Q + MQ + M^2) floats; rowpart: T x N x (2Q + 1)
 extern "C" int psi2_bwd_f32(const float* var, const float* ard,
                             const float* mu, const float* s, const float* w,
                             const float* z, const float* g, float* part,
-                            float* gvar_m, float* gard, float* gz, float* V,
-                            float* gmu, float* gs, float* gw, int T, int N,
-                            int M, int Q, int rows_per_chunk, int chunks,
+                            float* rowpart, float* gvar_m, float* gard,
+                            float* gz, float* V, float* gmu, float* gs,
+                            float* gw, int T, int N, int M, int Q, int lc,
+                            int rows_per_chunk, int chunks,
                             cudaStream_t stream) {
-  if (M > MAX_M) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > MAX_M || T < 1 || N < 1 || chunks < 1 ||
+      (long long)rows_per_chunk * chunks < N)
+    return (int)cudaErrorInvalidValue;
   Dims d;
   d.T = T; d.N = N; d.M = M; d.Q = Q; d.rows_per_chunk = rows_per_chunk;
-  const int MP = M + 1;
-  const size_t floats = (size_t)Q * MP + 2 * (size_t)M * MP + (size_t)M * Q +
-                        (size_t)Q * MP + 4 * (size_t)M + 2 * (size_t)M * Q +
-                        2 * (size_t)Q + (size_t)rows_per_chunk * (6 * Q + 3);
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      psi2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  psi2_bwd_kernel<<<chunks, THREADS, smem, stream>>>(var, ard, mu, s, w, z, g,
-                                                     part, gmu, gs, gw, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = dispatch(Q, lc, [&](auto variant) {
+    using Var = decltype(variant);
+    const auto kernel = psi2_bwd_kernel<Var::QT, Var::LC, Var::CH>;
+    const size_t smem = smem_bytes<Var>(M, Q);
+    const int threads = block_threads<Var>(M, Q);
+    if (threads == 0) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(chunks, T), threads, smem, stream>>>(
+        var, ard, mu, s, w, z, g, part, rowpart, d);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err < 0 ? -err : err;
 
-  Segments seg;
-  seg.out[0] = gvar_m;
-  seg.out[1] = gard;
-  seg.out[2] = gz;
-  seg.out[3] = V;
-  seg.off[0] = 0;
-  seg.off[1] = (long long)T * M;
-  seg.off[2] = seg.off[1] + (long long)T * Q;
-  seg.off[3] = seg.off[2] + (long long)T * M * Q;
-  seg.off[4] = seg.off[3] + (long long)T * M * M;
-  const long long P = seg.off[4];
-  const int rthreads = 256;
-  long long rblocks = (P + rthreads - 1) / rthreads;
-  if (rblocks > 4096) rblocks = 4096;
-  reduce_chunks<<<(int)rblocks, rthreads, 0, stream>>>(part, chunks, P, seg);
+  Outputs o;
+  o.gvar_m = gvar_m; o.gard = gard; o.gz = gz; o.V = V;
+  o.gmu = gmu; o.gs = gs; o.gw = gw;
+  const long long P = (long long)T * (M + Q + M * Q + M * M);
+  const long long atom_blocks = (P + 31) / 32;
+  const long long row_blocks =
+      ((long long)N * (2 * Q + 1) + FIN_THREADS - 1) / FIN_THREADS;
+  finish_kernel<<<(unsigned)(atom_blocks + row_blocks), FIN_THREADS, 0,
+                  stream>>>(part, rowpart, var, g, o, d, chunks,
+                            (int)atom_blocks);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ r"""Fused psi-statistics kernels (counterpart of
   and Psi1^T Y (T, M, D) in one pass over the rows; Psi1 never reaches
   device memory. Replaces `_suffstats_batched_kernel`.
 - K2 `psi2_bwd_batched` (csrc/psi2_bwd.cu): the analytic Psi2 pullback,
-  atoms looped inside the block. Replaces `_psi2_bwd_batched_kernel`.
+  atoms on the grid, per-chunk partials summed by a second kernel; its
+  launch geometry is `k2_geometry`. Replaces `_psi2_bwd_batched_kernel`.
 - K4 `psi2_batched` and K5 `psi2_single` (csrc/psi2_fwd.cu, one kernel
   body, two entry points): the Psi2 stack (T, M, M) and one kernel's
   Psi2 (M, M). Replace `_psi2_batched_kernel` and `_psi2_kernel`.
@@ -24,7 +25,9 @@ plain torch, as it is pure JAX outside any kernel in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +39,9 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
 
 LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
             "psi2_batched": 0, "psi2_single": 0, "psi1": 0}
-MAX_M = 128          # K2 keeps V in registers for M <= 128
-MAX_ROWS_K2 = 64     # rows of a K2 block, held in shared memory
+MAX_M = 128          # the kernels hold an M x M tile in shared memory
+K2_MIN_ROWS = 4      # fewest rows a K2 block walks
+_K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
 _K1_STAGE = 16       # rows K1, K4 and K5 stage at once (RS in their sources)
 
 
@@ -251,6 +255,80 @@ def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
     return psi2, p1y
 
 
+class K2Geometry(NamedTuple):
+    """How `psi2_bwd_batched` launches csrc/psi2_bwd.cu: `threads` per
+    block, each owning one row of the M x M tile and `slice_width` of its
+    columns, `blocks_per_sm` resident; `chunks` x T blocks of `rows` rows
+    each; the float counts of the per-(chunk, atom) and per-(atom, row)
+    partials."""
+    slice_width: int
+    threads: int
+    blocks_per_sm: int
+    rows: int
+    chunks: int
+    part_floats: int
+    row_floats: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * (self.part_floats + self.row_floats)
+
+
+def k2_slice_width(M, Q) -> int:
+    """Tile columns a K2 thread owns: 16 keeps a block at M <= 64 within 256
+    threads, 32 one at M <= 128 within 512 (the generic instantiation for
+    Q > 10 serves only 32). On an H100 16 beat 32 at M=64 (PERF.md)."""
+    return 32 if M > 64 or Q > _K2_ONE_PASS_Q else 16
+
+
+def k2_geometry(T, N, M, Q, sms, blocks_per_sm) -> K2Geometry:
+    """K2's launch geometry for `sms` SMs that hold `blocks_per_sm` of its
+    blocks each: the fewest waves (up to 4) whose blocks fill at least 95%
+    of their slots, each block walking at least `K2_MIN_ROWS` rows."""
+    width = k2_slice_width(M, Q)
+    threads = 32 * math.ceil(M * math.ceil(M / width) / 32)
+    slots = max(1, sms * blocks_per_sm)
+    cap = math.ceil(N / K2_MIN_ROWS)
+    best = None
+    for waves in range(1, 5):
+        chunks = max(1, min(cap, waves * slots // T))
+        rows = math.ceil(N / chunks)
+        chunks = math.ceil(N / rows)
+        fill = chunks * T / (math.ceil(chunks * T / slots) * slots)
+        if best is None or fill > best[0]:
+            best = (fill, rows, chunks)
+        if fill >= 0.95 or chunks == cap:
+            break
+    _, rows, chunks = best
+    return K2Geometry(width, threads, blocks_per_sm, rows, chunks,
+                      chunks * T * (M + Q + M * Q + M * M),
+                      T * N * (2 * Q + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_blocks_per_sm(device_index, M, Q, width):
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        blocks = build.function("psi2_bwd", "psi2_bwd_blocks_per_sm")(
+            M, Q, width)
+    if blocks < 1:
+        raise RuntimeError(f"psi2_bwd_batched: no block fits an SM at "
+                           f"M={M}, Q={Q} (CUDA error {-blocks})")
+    return blocks
+
+
+def k2_launch_geometry(device, T, N, M, Q) -> K2Geometry:
+    """The geometry `psi2_bwd_batched` launches with on CUDA `device`, from
+    its SM count and the kernel's occupancy there."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    per_sm = _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q))
+    return k2_geometry(T, N, M, Q, sms, per_sm)
+
+
 def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
                      block_n: int = 64):
     """K2: raw outputs (gvar_m, gard, gz, V, gmu, gs, gw); see
@@ -271,11 +349,10 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
         dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
              G=(T, M, M), w=(N,)),
     )
-    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
-    rows = min(MAX_ROWS_K2, _rows_per_chunk(N, sms, 1))
-    chunks = math.ceil(N / rows)
+    geo = k2_launch_geometry(mu.device, T, N, M, Q)
     kw = dict(dtype=mu.dtype, device=mu.device)
-    part = torch.empty(chunks, T * (M + Q + M * Q + M * M), **kw)
+    part = torch.empty(geo.part_floats, **kw)
+    rowpart = torch.empty(geo.row_floats, **kw)
     gvar_m = torch.empty(T, M, **kw)
     gard = torch.empty(T, Q, **kw)
     gz = torch.empty(T, M, Q, **kw)
@@ -287,9 +364,10 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
     err = build.function("psi2_bwd")(
         variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
         w.data_ptr(), Zs.data_ptr(), G.data_ptr(), part.data_ptr(),
-        gvar_m.data_ptr(), gard.data_ptr(), gz.data_ptr(), V.data_ptr(),
-        gmu.data_ptr(), gs.data_ptr(), gw.data_ptr(),
-        T, N, M, Q, rows, chunks, stream,
+        rowpart.data_ptr(), gvar_m.data_ptr(), gard.data_ptr(),
+        gz.data_ptr(), V.data_ptr(), gmu.data_ptr(), gs.data_ptr(),
+        gw.data_ptr(), T, N, M, Q, geo.slice_width, geo.rows, geo.chunks,
+        stream,
     )
     _raise_on(err, "psi2_bwd_batched")
     LAUNCHES["psi2_bwd_batched"] += 1

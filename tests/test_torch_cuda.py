@@ -163,3 +163,78 @@ def test_wrapper_refuses_float64_on_card(card):
         psi.psi2_single(a["vs"][0], a["ards"][0], a["mu"], a["s"], a["Zs"][0])
     with pytest.raises(TypeError, match="float32"):
         psi.psi1(a["vs"][0], a["ards"][0], a["mu"], a["s"], a["Zs"][0])
+
+
+def _k2(t):
+    return (t["vs"], t["ards"], t["mu"], t["s"], t["Zs"], t["G"], t["w"])
+
+
+def _k2_errors(got, want):
+    """Scaled errors where an output may be exactly zero (every row weight
+    zero): then the kernel's must be zero too."""
+    return [float((g.double() - w).abs().max())
+            / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [1, 3])
+@pytest.mark.parametrize("M_", [1, 33, 128])
+@pytest.mark.parametrize("N_", [1, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k2_matches_plain_at_edge_shapes(card, weighted, N_, M_, T_):
+    """K2 against its plain version in f64 where its geometry is ragged:
+    one row, a block of fewer rows than a batch, one inducing point, M
+    across warps and slices, the largest M."""
+    a, f = _inputs(card, weighted, T=T_, N=N_, M=M_, Q=10)
+    psi.reset_launch_counts()
+    got = psi.psi2_bwd_batched(*_k2(f))
+    want = psi.psi2_bwd_batched_reference(*_k2(a))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+    assert max(_k2_errors(got, want)) <= TOL_K2
+    assert psi.LAUNCHES == _launched(psi2_bwd_batched=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M_", [33, 128])
+@pytest.mark.parametrize("Q_", [12, 20, 32, 40])
+def test_k2_matches_plain_at_wide_latents(card, Q_, M_):
+    """The generic instantiation for Q > 10: passes of 8 gradient columns,
+    the last one partial at Q = 12 and 20; Q = 40 fills shared memory at
+    M = 128."""
+    a, f = _inputs(card, True, T=2, N=70, M=M_, Q=Q_)
+    got = psi.psi2_bwd_batched(*_k2(f))
+    want = psi.psi2_bwd_batched_reference(*_k2(a))
+    assert max(_scaled_errors(got, want)) <= TOL_K2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [C2, dict(T=4, N=300, M=64, Q=10, D=4),
+                                   dict(T=2, N=70, M=33, Q=20, D=4)],
+                         ids=["c2", "t4", "q20"])
+def test_k2_launches_repeat_bit_for_bit(card, shape):
+    _, f = _inputs(card, True, **shape)
+    first = psi.psi2_bwd_batched(*_k2(f))
+    second = psi.psi2_bwd_batched(*_k2(f))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a, f = _inputs(card, weighted=True)
+    with pytest.raises(TypeError, match="float32"):
+        psi.psi2_bwd_batched(*_k2(a))
+    k2 = list(_k2(f))
+    k2[5] = f["G"].mT
+    with pytest.raises(ValueError, match="contiguous"):
+        psi.psi2_bwd_batched(*k2)
+    k2[5] = f["G"][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        psi.psi2_bwd_batched(*k2)
+    _, big = _inputs(card, False, T=1, N=4, M=129, Q=2)
+    with pytest.raises(ValueError, match="M=129"):
+        psi.psi2_bwd_batched(*_k2(big))
+    _, wide = _inputs(card, False, T=1, N=4, M=128, Q=48)
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
+                                           "Q=48"):
+        psi.psi2_bwd_batched(*_k2(wide))
