@@ -10,7 +10,9 @@ training step (c2_sparse_oil: N=1000, D=12, Q=10, M=50) and the two
 imputation servers built on them. Phases, each printing one JSON line:
 
   build  nvcc-builds the CUDA kernels from csrc/ (in parallel)
-  k1     K1 (fused Psi2 + Psi1^T Y) against its plain version in f64
+  k1     K1 (fused Psi2 + Psi1^T Y) against its plain version in f64, at
+         the c4 shape and at the N=8192, M=128 scale shape, with the launch
+         geometry; two launches on the same inputs must give the same bits
   k2     K2 (fused Psi2 pullback) against its plain version in f64, at the
          c4 shape, at the T=1 c2 shape the Bayesian GP-LVM step gives it
          and at the N=8192, M=128 scale shape; two launches on the same
@@ -144,6 +146,18 @@ def k1_work(T, N, M, Q, D):
     return bytes_moved, flops, exps
 
 
+def k1_fp32_issue_ms(T, N, M, Q, D):
+    """Least time the FP32 pipes take for the instructions K1's direct form
+    issues, at one instruction per lane and clock (half the FMA flop rate
+    `k1_work` counts against): per pair 2Q (an FADD and an FFMA per q)
+    and 4 (le + quad, the exponent's FFMA, the clamp, the sum's FFMA); per
+    Psi1 element 4Q + 4 (c and Psi1 share the difference mu - z); per
+    Psi1^T Y element one FFMA."""
+    pairs = M * (M + 1) // 2
+    instr = T * N * (pairs * (2 * Q + 4) + M * (4 * Q + 4) + M * D)
+    return 1e3 * instr / (FP32_FLOP_PER_S / 2)
+
+
 def k2_work(T, N, M, Q):
     """K2: the symmetric pair exponent (as K1), then per full pair the
     masked W element and its W_sym Z contraction (2Q+8 flops)."""
@@ -201,6 +215,8 @@ def phase_k1(torch, psi, gen):
     args32 = (f32["vs"], f32["ards"], f32["mu"], f32["s"], f32["Zs"],
               f32["Y"])
     got = psi.suffstats_batched(*args32)
+    repeat = psi.suffstats_batched(*args32)
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(got, repeat))
     want = psi.suffstats_batched_reference(
         f64["vs"], f64["ards"], f64["mu"], f64["s"], f64["Zs"], f64["Y"])
     abs_err, scaled = _errors(got, want)
@@ -208,20 +224,55 @@ def phase_k1(torch, psi, gen):
                for g, w in zip(got, want)]
     ms = _timed(lambda: psi.suffstats_batched(*args32), torch)
     device_ms = _device_ms(lambda: psi.suffstats_batched(*args32), torch)
+    scale = _k1_at_scale(torch, psi, gen)
     plain_ms = _timed(lambda: psi.suffstats_batched_reference(*args32), torch,
                       reps=5, warmup=1)
     bound_ms, bound_by = _bound_ms(*k1_work(**C4))
     row = dict(phase="k1", shape=C4, max_abs_err=abs_err,
                launches_in_phase=psi.LAUNCHES["suffstats_batched"],
+               geometry=_k1_geometry(psi, C4),
                scaled_err_psi2=per_out[0], scaled_err_p1y=per_out[1],
-               tol=TOL_K1, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-               bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None,
+               tol=TOL_K1, repeat_bitwise_equal=bitwise, ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, fp32_issue_ms=k1_fp32_issue_ms(**C4),
+               scale=scale, library_ms=None,
                library_note="no single PyTorch call computes Psi2/Psi1^T Y")
     emit(row)
     if not scaled <= TOL_K1:
         raise AssertionError(f"K1 disagrees with its plain version: {scaled}")
+    if not bitwise:
+        raise AssertionError("two K1 launches on the same inputs differ")
+    if not max(scale["scaled_err"]) <= TOL_K1:
+        raise AssertionError(f"K1 disagrees at the scale shape: {scale}")
     return row
+
+
+def _k1_geometry(psi, shape):
+    """How the K1 wrapper launches at `shape` on this card."""
+    geo = psi.k1_launch_geometry("cuda", *(shape[k] for k in "TNMQD"))
+    return dict(geo._asdict(), lane_use=geo.lane_use)
+
+
+def _k1_at_scale(torch, psi, gen):
+    """K1 at N=8192, M=128, T=20, D=60 against its plain version in f64."""
+    f64, f32 = _inputs(torch, gen, **SCALE)
+    names = ("vs", "ards", "mu", "s", "Zs", "Y")
+    args32 = tuple(f32[k] for k in names)
+    got = psi.suffstats_batched(*args32)
+    want = psi.suffstats_batched_reference(*(f64[k] for k in names))
+    abs_err = _errors(got, want)[0]
+    scaled = [float((g.double() - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want)]
+    del want
+    bound_ms, bound_by = _bound_ms(*k1_work(**SCALE))
+    return dict(shape=SCALE, max_abs_err=abs_err, scaled_err=scaled,
+                geometry=_k1_geometry(psi, SCALE),
+                ms=_timed(lambda: psi.suffstats_batched(*args32), torch,
+                          reps=5, warmup=1),
+                device_ms=_device_ms(lambda: psi.suffstats_batched(*args32),
+                                     torch, launches=5, replays=3),
+                bound_ms=bound_ms, bound_by=bound_by,
+                fp32_issue_ms=k1_fp32_issue_ms(**SCALE))
 
 
 def phase_k2(torch, psi, gen):
@@ -859,7 +910,11 @@ def main(argv=None) -> int:
                     bound_by=res["bound_by"], library_ms=None)
 
     kernels = [
-        kernel_row("suffstats_batched", "psi_suffstats.cu", 610, "train", k1),
+        dict(kernel_row("suffstats_batched", "psi_suffstats.cu", 610,
+                        "train", k1),
+             redesigned_in="fifth slice of the port",
+             scale_device_ms=k1["scale"]["device_ms"],
+             scale_bound_ms=k1["scale"]["bound_ms"]),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],

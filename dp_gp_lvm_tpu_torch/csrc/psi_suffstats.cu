@@ -9,41 +9,90 @@
 // in one pass over the rows; the (T, N, M) Psi1 tensor never reaches
 // device memory.
 //
-// Bound on the H100: operations, not bytes. The inputs are a few hundred
-// KB; the work is N*T*M(M+1)/2 exponentials and Q-long reductions of the
-// pair exponent (c4 widths: 42.6 M exp, ~0.9 GFLOP), i.e. the FP32 pipes
-// and the SFU (exp). What the design does about it:
-//   * Psi2 is symmetric: each thread owns one 4x4 tile of the upper
-//     triangle (tiles with tm <= tl), keeps its 16 sums in registers and
-//     mirrors them on the write-out, which halves the exponentials.
-//   * The pair exponent is taken in its direct form
-//       expo = log_norm_n - 1/4 sum_q alpha_q (z_mq - z_lq)^2
-//                         - 1/4 sum_q b_nq (2 mu_nq - z_mq - z_lq)^2,
-//     a sum of non-positive terms with no cancellation, so f32 keeps its
-//     relative precision (the reference's expanded quadratic form
-//     cancels; the n-independent first sum is kept in registers per
-//     block). No tensor cores and no TF32: every product is full f32.
-//   * Rows are staged RS at a time in shared memory; Psi1 for the staged
-//     rows is formed there and contracted at once with the staged Y rows
-//     into a (M, D) accumulator in shared memory.
+// Bound on the H100: FP32 issue and shared-memory bandwidth, not bytes.
+// The inputs are a few hundred KB; per (atom, row) the upper triangle of
+// Psi2 costs M(M+1)/2 exponentials of a Q-term quadratic form (c4
+// widths: 42.6 M pairs in all), the Psi1^T Y contraction M*D FMAs. What
+// the design does about it:
+//   * The pair exponent is K2's (csrc/psi2_bwd.cu), bit for bit:
+//       expo * log2(e) = ln_n log2(e) - log2(e)/4 (le_ml + quad_ml),
+//       le_ml = sum_q alpha_q (z_mq - z_lq)^2   (n-independent, registers)
+//       quad_ml = sum_q (c_mq + c_lq)^2,  c_lq = sqrt(b_q) (mu_q - z_lq),
+//     a sum of non-positive terms with no cancellation (the reference's
+//     expanded quadratic form cancels in f32), clamped at 0 and raised
+//     by ex2.approx.ftz (K2 takes exp2f; the two differ only where
+//     exp2f returns a subnormal, below 2^-126). With c staged per row the
+//     inner loop issues one FADD and one FFMA per pair and q, and two
+//     16-byte shared loads per 16 pairs and q; those loads keep shared
+//     memory about as busy as the FP32 pipes.
+//   * Psi2 is symmetric: a thread owns one 4x4 tile of the upper
+//     triangle and keeps its 16 sums in registers; the partials hold only
+//     those tiles and the chunk reduction mirrors them.
+//   * A block is G groups of NT = T4 (T4 + 1) / 2 tile owners (T4 =
+//     ceil(M / 4)), each group walking its own rows of every stage with
+//     its own accumulators; G is chosen from the kernel's occupancy so
+//     that whole warps do useful work (ops/psi.py::k1_geometry). The
+//     groups' tiles are summed in shared memory, in group order, at the
+//     end of the block.
+//   * Rows are staged RS = G x rows-per-group at a time, in a pipeline
+//     with one block barrier per stage: a stage's row scalars are
+//     prepared two stages ahead (a lane per (row, q), two rows a warp at
+//     Q <= 16, the row's log sums then taken in q order), its c and Psi1
+//     rows (scaled by var w_n) built one (row, m) per thread one stage
+//     ahead, beside the Psi2 and Psi1^T Y work of the stage before it.
+//   * Psi1^T Y: each thread owns a 4 (m) x 4 (d) tile of the (M, D)
+//     accumulator in registers across the whole row loop (one 16-byte
+//     load of Psi1 and one of Y feed 16 FMAs) and writes it once. A D too
+//     wide for one tile per thread walks the rows again per pass.
+//   * Q = 10 at M4 = 64 or 128 (every configuration's widths) runs an
+//     instantiation with both fixed, so shared-memory offsets are
+//     immediates and the q loops unroll; other shapes run the generic one.
 //   * The TPU grid accumulated into one output block in grid order. CUDA
-//     blocks run concurrently, so each block (atom t, N-chunk c) writes
+//     blocks run concurrently, so each block (N-chunk c, atom t) writes
 //     its partial sums to part[c] and a second kernel sums the chunks in
-//     a fixed order: no atomics, the same bits on every run.
+//     a fixed order: no atomics, the same bits on every run. No tensor
+//     cores and no TF32: every product is full f32.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int RS = 16;  // rows staged in shared memory per pass
+constexpr int MAX_M = 128;
+constexpr int MAX_THREADS = 576;  // launch bounds (96 registers, says ptxas)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
 struct Dims {
-  int T, N, M, Q, D, M4, T4, NT, rows_per_chunk;
+  int T, N, M, Q, D, G, RS, rows_per_chunk;
 };
 
-struct Segments {  // where the chunk-reduced result goes
-  float* out[4];
-  long long off[5];
+// shared-memory layout, offsets in floats (16-byte aligned)
+struct Layout {
+  int T4, M4, D4, NT, RI, threads;
+  int z, al, ri, y, c, p1, total;
 };
+
+__host__ __device__ Layout layout(int M, int Q, int D, int G, int RS) {
+  Layout s;
+  s.T4 = (M + 3) / 4;
+  s.M4 = 4 * s.T4;
+  s.D4 = round4(D);
+  s.NT = s.T4 * (s.T4 + 1) / 2;
+  // per q (sqrt b, mu, a1, -) | log u1 | log u2 | w, l1 log2(e), ln log2(e)
+  s.RI = round4(6 * Q + 3);
+  s.threads = ((G * s.NT + 31) / 32) * 32;
+  s.z = 0;                   // [Q][M4] z_t transposed, zero-padded
+  s.al = s.z + Q * s.M4;     // [Q] alpha_t
+  s.ri = s.al + round4(Q);   // [3][RS][RI] row scalars, three stages
+  s.y = s.ri + 3 * RS * s.RI;          // [3][RS][D4] Y rows, three stages
+  s.c = s.y + 3 * RS * s.D4;           // [2][RS][Q][M4] c, two stages
+  s.p1 = s.c + 2 * RS * Q * s.M4;      // [2][RS][M4] var w Psi1, two stages
+  s.total = s.p1 + 2 * RS * s.M4;
+  // the groups' tiles, summed at the end over the same memory
+  const int red = (G - 1) * 16 * s.NT;
+  if (red > s.total) s.total = red;
+  return s;
+}
 
 __device__ __forceinline__ void upper_tile(int k, int t4, int& tm, int& tl) {
   int row = 0;
@@ -55,51 +104,165 @@ __device__ __forceinline__ void upper_tile(int k, int t4, int& tm, int& tl) {
   tl = row + k;
 }
 
-__global__ void suffstats_kernel(const float* __restrict__ var,
-                                 const float* __restrict__ ard,
-                                 const float* __restrict__ mu,
-                                 const float* __restrict__ s,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ z,
-                                 const float* __restrict__ y,
-                                 float* __restrict__ part, Dims d) {
+// 2^x; results below 2^-126 flush to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void unpack(const float4 v, float (&a)[4]) {
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// QC, MC: Q and M4 fixed at compile time (the widths every configuration
+// runs), so that shared-memory offsets are immediates and the q loops
+// unroll; 0 takes them from d
+template <int QC, int MC>
+__global__ void __launch_bounds__(MAX_THREADS)
+suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
+                 const float* __restrict__ mu, const float* __restrict__ s,
+                 const float* __restrict__ w, const float* __restrict__ z,
+                 const float* __restrict__ y, float* __restrict__ part,
+                 Dims d) {
   extern __shared__ __align__(16) float sm[];
+  const int T = d.T, M = d.M, Q = QC ? QC : d.Q, D = d.D, G = d.G;
+  const int RS = d.RS;
+  const Layout lay = layout(M, Q, D, G, RS);
+  const int M4 = MC ? MC : lay.M4, D4 = lay.D4, NT = lay.NT, RI = lay.RI;
+  float* z_sh = sm + lay.z;
+  float* al_sh = sm + lay.al;
+  float* c_sh = sm + lay.c;
+  float* p1_sh = sm + lay.p1;
+
   const int chunk = blockIdx.x, t = blockIdx.y;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int M = d.M, M4 = d.M4, Q = d.Q, D = d.D;
-
-  float* z_sh = sm;                  // [Q][M4] z_t transposed, zero padded
-  float* al_sh = z_sh + Q * M4;      // [Q]
-  float* sb_sh = al_sh + Q;          // [RS][Q] sqrt(b)
-  float* sbm_sh = sb_sh + RS * Q;    // [RS][Q] sqrt(b) * 2 mu
-  float* a1_sh = sbm_sh + RS * Q;    // [RS][Q] alpha / (alpha s + 1)
-  float* mu_sh = a1_sh + RS * Q;     // [RS][Q]
-  float* ln_sh = mu_sh + RS * Q;     // [RS] Psi2 log normaliser
-  float* l1_sh = ln_sh + RS;         // [RS] Psi1 log normaliser
-  float* w_sh = l1_sh + RS;          // [RS]
-  float* p1_sh = w_sh + RS;          // [RS][M] var * w * Psi1 row
-  float* y_sh = p1_sh + RS * M;      // [RS][D]
-  float* acc_sh = y_sh + RS * D;     // [M][D] P1Y accumulator
-
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int row0 = chunk * d.rows_per_chunk;
+  const int nrows = min(d.rows_per_chunk, d.N - row0);
+  const int nstage = (nrows + RS - 1) / RS;
   const float v = var[t];
-  for (int i = tid; i < Q * M4; i += nth) {
+
+  // Row scalars and Y rows of stage st into buffer st % 3. A row takes a
+  // segment of SEG lanes, a lane per q; the segment's first lane then
+  // sums the row's logs in q order (as K2 takes ln).
+  const int SEG = Q <= 16 ? 16 : 32, lane_q = lane % SEG;
+  const int row_slots = nwarps * (32 / SEG);
+  const int ydr = nthreads / D4, ydd = nthreads % D4;  // steps of nthreads
+  const int bdr = nthreads / M4, bdm = nthreads % M4;
+  const int my_row = warp * (32 / SEG) + lane / SEG;
+  auto prep = [&](int st) {
+    const int r0 = st * RS, nb = min(RS, nrows - r0);
+    float* ri = sm + lay.ri + (st % 3) * RS * RI;
+    float* ys = sm + lay.y + (st % 3) * RS * D4;
+    for (int rb = 0; rb < nb; rb += row_slots) {  // uniform across a warp
+      const int r = rb + my_row;
+      const long long n = row0 + r0 + r;
+      float* rr = ri + r * RI;
+      const float wn = r < nb && lane_q == 0 && w ? w[n] : 1.f;
+      if (r < nb) {
+        for (int q = lane_q; q < Q; q += SEG) {
+          const float a = ard[(long long)t * Q + q];
+          const float sv = s[n * Q + q];
+          const float u2 = fmaf(2.f * a, sv, 1.f);
+          const float u1 = fmaf(a, sv, 1.f);
+          rr[4 * q] = sqrtf(a / u2);
+          rr[4 * q + 1] = mu[n * Q + q];
+          rr[4 * q + 2] = a / u1;
+          rr[4 * Q + q] = logf(u1);
+          rr[5 * Q + q] = logf(u2);
+        }
+      }
+      __syncwarp();
+      if (r < nb && lane_q == 0) {
+        float l1 = 0.f, ln = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < Q; ++q) {
+          l1 -= 0.5f * rr[4 * Q + q];
+          ln -= 0.5f * rr[5 * Q + q];
+        }
+        rr[6 * Q] = wn;
+        rr[6 * Q + 1] = l1 * LOG2E;
+        rr[6 * Q + 2] = ln * LOG2E;
+      }
+    }
+    // four loads in flight per thread; (row, column) of element i0 + k
+    // nthreads stepped without dividing
+    int yr = tid / D4, yd = tid % D4;
+    for (int i0 = tid; i0 < nb * D4; i0 += 4 * nthreads) {
+      float yv[4];
+      int r = yr, dd = yd;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        yv[k] = r < nb && dd < D
+                    ? y[(long long)(row0 + r0 + r) * D + dd] : 0.f;
+        r += ydr;
+        dd += ydd;
+        if (dd >= D4) {
+          dd -= D4;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k * nthreads < nb * D4) ys[i0 + k * nthreads] = yv[k];
+      yr = r;
+      yd = dd;
+    }
+  };
+
+  // c and the Psi1 rows of stage st into buffer st % 2, from its row
+  // scalars; one (row, m) per thread, stepped without dividing
+  auto build = [&](int st) {
+    const int nb = min(RS, nrows - st * RS);
+    const float* ri = sm + lay.ri + (st % 3) * RS * RI;
+    float* cb = c_sh + (st % 2) * RS * Q * M4;
+    float* pb = p1_sh + (st % 2) * RS * M4;
+    for (int r = tid / M4, m = tid % M4; r < nb;) {
+      const float* rr = ri + r * RI;
+      float* cr = cb + r * Q * M4 + m;
+      float quad1 = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < Q; ++q) {
+        const float4 v4 = *reinterpret_cast<const float4*>(rr + 4 * q);
+        const float df = v4.y - z_sh[q * M4 + m];
+        cr[q * M4] = v4.x * df;
+        quad1 = fmaf(v4.z * df, df, quad1);
+      }
+      const float e1 = fmaf(-0.5f * LOG2E, quad1, rr[6 * Q + 1]);
+      pb[r * M4 + m] = m < M ? v * rr[6 * Q] * exp2_ftz(fminf(e1, 0.f)) : 0.f;
+      r += bdr;
+      m += bdm;
+      if (m >= M4) {
+        m -= M4;
+        ++r;
+      }
+    }
+  };
+
+  for (int i = tid; i < Q * M4; i += nthreads) {
     const int q = i / M4, m = i % M4;
     z_sh[i] = m < M ? z[((long long)t * M + m) * Q + q] : 0.f;
   }
-  for (int q = tid; q < Q; q += nth) al_sh[q] = ard[(long long)t * Q + q];
-  for (int i = tid; i < M * D; i += nth) acc_sh[i] = 0.f;
+  for (int q = tid; q < Q; q += nthreads) al_sh[q] = ard[(long long)t * Q + q];
+  if (nstage > 0) prep(0);  // the first pass's first two stages
+  if (nstage > 1) prep(1);
   __syncthreads();
 
-  // this thread's Psi2 tile and its n-independent exponent part
-  const bool has_tile = tid < d.NT;
+  // this thread's Psi2 tile: group g, upper-triangle tile k
+  const int g = tid / NT, k = tid % NT;
+  const bool has_tile = g < G;
   int m0 = 0, l0 = 0;
-  float le[4][4], acc[4][4];
   if (has_tile) {
     int tm, tl;
-    upper_tile(tid, d.T4, tm, tl);
+    upper_tile(k, lay.T4, tm, tl);
     m0 = 4 * tm;
     l0 = 4 * tl;
   }
+  float le[4][4], acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -110,186 +273,244 @@ __global__ void suffstats_kernel(const float* __restrict__ var,
   if (has_tile) {
     for (int q = 0; q < Q; ++q) {
       const float a = al_sh[q];
-      const float4 zm = *reinterpret_cast<const float4*>(z_sh + q * M4 + m0);
-      const float4 zl = *reinterpret_cast<const float4*>(z_sh + q * M4 + l0);
-      const float zmv[4] = {zm.x, zm.y, zm.z, zm.w};
-      const float zlv[4] = {zl.x, zl.y, zl.z, zl.w};
+      float zm[4], zl[4];
+      unpack(*reinterpret_cast<const float4*>(z_sh + q * M4 + m0), zm);
+      unpack(*reinterpret_cast<const float4*>(z_sh + q * M4 + l0), zl);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float df = zmv[i] - zlv[j];
+          const float df = zm[i] - zl[j];
           le[i][j] = fmaf(a * df, df, le[i][j]);
         }
     }
   }
 
-  const int row0 = chunk * d.rows_per_chunk;
-  const int row_end = min(d.N, row0 + d.rows_per_chunk);
-  for (int base = row0; base < row_end; base += RS) {
-    // per-row scalars; rows past the end get zero weight
-    for (int r = tid; r < RS; r += nth) {
-      const int n = base + r;
-      const bool ok = n < row_end;
-      float ln = 0.f, l1 = 0.f;
-      for (int q = 0; q < Q; ++q) {
-        const float a = al_sh[q];
-        const float sv = ok ? s[(long long)n * Q + q] : 1.f;
-        const float mv = ok ? mu[(long long)n * Q + q] : 0.f;
-        const float u = 2.f * a * sv + 1.f;
-        const float u1 = a * sv + 1.f;
-        const float sb = sqrtf(a / u);
-        ln -= 0.5f * logf(u);
-        l1 -= 0.5f * logf(u1);
-        sb_sh[r * Q + q] = sb;
-        sbm_sh[r * Q + q] = sb * 2.f * mv;
-        a1_sh[r * Q + q] = a / u1;
-        mu_sh[r * Q + q] = mv;
-      }
-      ln_sh[r] = ln;
-      l1_sh[r] = l1;
-      w_sh[r] = ok ? w[n] : 0.f;
+  // Psi1^T Y passes: this thread's 4 x 4 tile of pass p is tile
+  // tid + p * nthreads of the (M4 / 4) x (D4 / 4) grid
+  const int dt4 = D4 / 4, np1 = lay.T4 * dt4;
+  const long long PB = 16LL * NT + round4(M * D);
+  float* pc = part + ((long long)chunk * T + t) * PB;
+  for (int pass = 0; pass * nthreads < np1; ++pass) {
+    const int pt = tid + pass * nthreads;
+    const bool has_p1 = pt < np1;
+    const int pm0 = has_p1 ? 4 * (pt / dt4) : 0;
+    const int pd0 = has_p1 ? 4 * (pt % dt4) : 0;
+    const bool psi2_pass = pass == 0 && has_tile;
+    float py[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) py[i][j] = 0.f;
+
+    // stage st is prepared two stages ahead and built one ahead, beside
+    // the rows of the stage before it: one block barrier per stage
+    if (pass > 0) {
+      if (nstage > 0) prep(0);
+      if (nstage > 1) prep(1);
+      __syncthreads();
     }
-    for (int i = tid; i < RS * D; i += nth) {
-      const int r = i / D, n = base + r;
-      y_sh[i] = n < row_end ? y[(long long)n * D + (i % D)] : 0.f;
-    }
+    if (nstage > 0) build(0);
     __syncthreads();
+    for (int st = 0; st < nstage; ++st) {
+      if (st + 1 < nstage) build(st + 1);
+      if (st + 2 < nstage) prep(st + 2);
+      const int nb = min(RS, nrows - st * RS);
+      const float* ri = sm + lay.ri + (st % 3) * RS * RI;
+      const float* ys = sm + lay.y + (st % 3) * RS * D4;
+      const float* cb = c_sh + (st % 2) * RS * Q * M4;
+      const float* pb = p1_sh + (st % 2) * RS * M4;
 
-    // Psi1 rows of the stage
-    for (int i = tid; i < RS * M; i += nth) {
-      const int r = i / M, m = i % M;
-      float quad = 0.f;
-      for (int q = 0; q < Q; ++q) {
-        const float df = mu_sh[r * Q + q] - z_sh[q * M4 + m];
-        quad = fmaf(a1_sh[r * Q + q] * df, df, quad);
-      }
-      const float e1 = fminf(l1_sh[r] - 0.5f * quad, 0.f);
-      p1_sh[i] = v * w_sh[r] * expf(e1);
-    }
-
-    // Psi2 tile over the staged rows
-    if (has_tile) {
-      for (int r = 0; r < RS; ++r) {
-        float quad[4][4];
+      // the group's rows of the stage into the Psi2 tile, every row into
+      // the Psi1^T Y tile
+      if (psi2_pass) {
+        for (int r = g; r < nb; r += G) {
+          const float* pm = cb + r * Q * M4 + m0;
+          const float* pl = cb + r * Q * M4 + l0;
+          float quad[4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) quad[i][j] = 0.f;
-        for (int q = 0; q < Q; ++q) {
-          const float sb = sb_sh[r * Q + q], sbm = sbm_sh[r * Q + q];
-          const float4 zm = *reinterpret_cast<const float4*>(z_sh + q * M4 + m0);
-          const float4 zl = *reinterpret_cast<const float4*>(z_sh + q * M4 + l0);
-          const float pm[4] = {fmaf(-sb, zm.x, sbm), fmaf(-sb, zm.y, sbm),
-                               fmaf(-sb, zm.z, sbm), fmaf(-sb, zm.w, sbm)};
-          const float pl[4] = {sb * zl.x, sb * zl.y, sb * zl.z, sb * zl.w};
+            for (int j = 0; j < 4; ++j) quad[i][j] = 0.f;
+#pragma unroll (QC ? QC : 2)
+          for (int q = 0; q < Q; ++q, pm += M4, pl += M4) {
+            float cm[4], cl[4];
+            unpack(*reinterpret_cast<const float4*>(pm), cm);
+            unpack(*reinterpret_cast<const float4*>(pl), cl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const float tq = cm[i] + cl[j];
+                quad[i][j] = fmaf(tq, tq, quad[i][j]);
+              }
+          }
+          const float ln2 = ri[r * RI + 6 * Q + 2], wr = ri[r * RI + 6 * Q];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              const float df = pm[i] - pl[j];
-              quad[i][j] = fmaf(df, df, quad[i][j]);
+              const float ex = fmaf(-0.25f * LOG2E, le[i][j] + quad[i][j], ln2);
+              acc[i][j] = fmaf(wr, exp2_ftz(fminf(ex, 0.f)), acc[i][j]);
             }
         }
-        const float ln = ln_sh[r], wr = w_sh[r];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float expo = ln - 0.25f * (le[i][j] + quad[i][j]);
-            acc[i][j] = fmaf(wr, expf(fminf(expo, 0.f)), acc[i][j]);
-          }
       }
+      if (has_p1) {
+#pragma unroll 4
+        for (int r = 0; r < nb; ++r) {
+          float pv[4], yv[4];
+          unpack(*reinterpret_cast<const float4*>(pb + r * M4 + pm0), pv);
+          unpack(*reinterpret_cast<const float4*>(ys + r * D4 + pd0), yv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) py[i][j] = fmaf(pv[i], yv[j], py[i][j]);
+        }
+      }
+      __syncthreads();  // stage st's buffers free, st + 1 built
     }
-    __syncthreads();  // p1_sh complete
-
-    // P1Y += Psi1^T Y over the staged rows (each element has one owner)
-    for (int i = tid; i < M * D; i += nth) {
-      const int m = i / D, dd = i % D;
-      float a = acc_sh[i];
-      for (int r = 0; r < RS; ++r) a = fmaf(p1_sh[r * M + m], y_sh[r * D + dd], a);
-      acc_sh[i] = a;
+    if (has_p1) {
+      float* p1y = pc + 16LL * NT;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int m = pm0 + i, dd = pd0 + j;
+          if (m < M && dd < D) p1y[(long long)m * D + dd] = py[i][j];
+        }
     }
-    __syncthreads();  // stage buffers free for the next pass
   }
 
-  // partial sums of this (chunk, atom)
-  const long long P = (long long)d.T * M * M + (long long)d.T * M * D;
-  float* p2 = part + chunk * P + (long long)t * M * M;
-  float* p1y = part + chunk * P + (long long)d.T * M * M + (long long)t * M * D;
-  if (has_tile) {
-    const float v2 = v * v;
-    const bool diag = m0 == l0;
+  // the groups' tiles summed in group order; group 0 writes the partial
+  float* red = sm;
+  if (has_tile && g > 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + i, l = l0 + j;
-        if (m < M && l < M) {
-          p2[m * M + l] = v2 * acc[i][j];
-          if (!diag) p2[l * M + m] = v2 * acc[i][j];
-        }
-      }
+      for (int j = 0; j < 4; ++j)
+        red[((g - 1) * 16 + 4 * i + j) * NT + k] = acc[i][j];
   }
-  for (int i = tid; i < M * D; i += nth) p1y[i] = acc_sh[i];
+  __syncthreads();
+  if (has_tile && g == 0) {
+    const float v2 = v * v;
+    float4* p2 = reinterpret_cast<float4*>(pc + 16LL * k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float a = acc[i][j];
+        for (int gg = 1; gg < G; ++gg)
+          a += red[((gg - 1) * 16 + 4 * i + j) * NT + k];
+        o[j] = v2 * a;
+      }
+      p2[i] = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
 }
 
-// out = sum over chunks of part, in chunk order, scattered to segments
+// psi2 and p1y = the chunks' partials summed in chunk order; each stored
+// upper-triangle tile entry is written to (m, l) and mirrored to (l, m)
 __global__ void reduce_chunks(const float* __restrict__ part, int chunks,
-                              long long P, Segments seg) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < P;
-       i += (long long)gridDim.x * blockDim.x) {
-    float a = 0.f;
-    for (int c = 0; c < chunks; ++c) a += part[c * P + i];
-    int k = 0;
-    while (i >= seg.off[k + 1]) ++k;
-    seg.out[k][i - seg.off[k]] = a;
+                              Dims d, float* __restrict__ psi2,
+                              float* __restrict__ p1y) {
+  const int M = d.M, D = d.D;
+  const int T4 = (M + 3) / 4, NT = T4 * (T4 + 1) / 2;
+  const long long PB = 16LL * NT + round4(M * D);
+  const long long P = (long long)d.T * PB;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= P) return;
+  float a = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c) a += part[c * P + e];
+  const int t = (int)(e / PB);
+  const long long r = e % PB;
+  if (r >= 16LL * NT) {
+    if (r - 16LL * NT < (long long)M * D)
+      p1y[(long long)t * M * D + (r - 16LL * NT)] = a;
+    return;
   }
+  int tm, tl;
+  upper_tile((int)(r / 16), T4, tm, tl);
+  const int m = 4 * tm + (int)(r % 16) / 4, l = 4 * tl + (int)(r % 4);
+  if (m >= M || l >= M) return;
+  float* o = psi2 + (long long)t * M * M;
+  o[(long long)m * M + l] = a;
+  o[(long long)l * M + m] = a;
+}
+
+// f(kernel) for the instantiation that serves (Q, M)
+template <class F>
+int with_kernel(int M, int Q, F&& f) {
+  const int M4 = 4 * ((M + 3) / 4);
+  if (Q == 10 && M4 == 64) return f(suffstats_kernel<10, 64>);
+  if (Q == 10 && M4 == 128) return f(suffstats_kernel<10, 128>);
+  return f(suffstats_kernel<0, 0>);
+}
+
+bool valid(int M, int Q, int D, int G, int RS) {
+  return M >= 1 && M <= MAX_M && Q >= 1 && D >= 1 && G >= 1 && RS >= G &&
+         RS % G == 0 && layout(M, Q, D, G, RS).threads <= MAX_THREADS;
 }
 
 }  // namespace
 
+// blocks of the main kernel that fit on one SM with G groups and RS staged
+// rows, 0 where none fits, or minus a CUDA error
+extern "C" int psi_suffstats_blocks_per_sm(int M, int Q, int D, int G,
+                                           int RS) {
+  if (!valid(M, Q, D, G, RS)) return -(int)cudaErrorInvalidValue;
+  const Layout lay = layout(M, Q, D, G, RS);
+  const size_t smem = (size_t)lay.total * sizeof(float);
+  int max_smem = 0, dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (smem > (size_t)max_smem) return 0;
+  return with_kernel(M, Q, [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return -(int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      lay.threads, smem);
+    return e == cudaSuccess ? blocks : -(int)e;
+  });
+}
+
+// part: chunks x T x (16 NT + round4(M D)) floats, NT = T4 (T4 + 1) / 2;
+// w may be null (every row weight 1)
 extern "C" int psi_suffstats_f32(const float* var, const float* ard,
                                  const float* mu, const float* s,
                                  const float* w, const float* z,
                                  const float* y, float* part, float* psi2,
                                  float* p1y, int T, int N, int M, int Q, int D,
-                                 int rows_per_chunk, int chunks,
+                                 int G, int RS, int rows_per_chunk, int chunks,
                                  cudaStream_t stream) {
+  if (!valid(M, Q, D, G, RS) || T < 1 || N < 1 || chunks < 1 ||
+      (long long)rows_per_chunk * (chunks - 1) >= N ||
+      (long long)rows_per_chunk * chunks < N)
+    return (int)cudaErrorInvalidValue;
   Dims d;
-  d.T = T; d.N = N; d.M = M; d.Q = Q; d.D = D;
-  d.T4 = (M + 3) / 4;
-  d.M4 = 4 * d.T4;
-  d.NT = d.T4 * (d.T4 + 1) / 2;
+  d.T = T; d.N = N; d.M = M; d.Q = Q; d.D = D; d.G = G; d.RS = RS;
   d.rows_per_chunk = rows_per_chunk;
-  int threads = ((d.NT + 31) / 32) * 32;
-  if (threads < 128) threads = 128;
-  if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
-  const size_t floats = (size_t)Q * d.M4 + Q + 4 * RS * Q + 3 * RS +
-                        (size_t)RS * M + (size_t)RS * D + (size_t)M * D;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      suffstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  suffstats_kernel<<<dim3(chunks, T), threads, smem, stream>>>(
-      var, ard, mu, s, w, z, y, part, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const Layout lay = layout(M, Q, D, G, RS);
+  const size_t smem = (size_t)lay.total * sizeof(float);
+  const int err = with_kernel(M, Q, [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(chunks, T), lay.threads, smem, stream>>>(
+        var, ard, mu, s, w, z, y, part, d);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
 
-  Segments seg;
-  seg.out[0] = psi2;
-  seg.out[1] = p1y;
-  seg.out[2] = nullptr;
-  seg.out[3] = nullptr;
-  seg.off[0] = 0;
-  seg.off[1] = (long long)T * M * M;
-  seg.off[2] = seg.off[1] + (long long)T * M * D;
-  seg.off[3] = seg.off[2];
-  seg.off[4] = seg.off[2];
-  const long long P = seg.off[2];
+  const long long P = (long long)T * (16LL * lay.NT + round4(M * D));
   const int rthreads = 256;
-  long long rblocks = (P + rthreads - 1) / rthreads;
-  if (rblocks > 4096) rblocks = 4096;
-  reduce_chunks<<<(int)rblocks, rthreads, 0, stream>>>(part, chunks, P, seg);
+  reduce_chunks<<<(unsigned)((P + rthreads - 1) / rthreads), rthreads, 0,
+                  stream>>>(part, chunks, d, psi2, p1y);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ I = ctypes.c_int
 # C entry points of each source: {function name: argtypes}; every one
 # returns the CUDA error of its launches as an int
 SIGNATURES = {
-    "psi_suffstats": {"psi_suffstats_f32": [P] * 10 + [I] * 7 + [P]},
+    "psi_suffstats": {"psi_suffstats_f32": [P] * 10 + [I] * 9 + [P],
+                      "psi_suffstats_blocks_per_sm": [I] * 5},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
                  "psi2_bwd_blocks_per_sm": [I] * 3},
     "psi2_fwd": {"psi2_batched_f32": [P] * 8 + [I] * 6 + [P],

@@ -3,7 +3,8 @@ r"""Fused psi-statistics kernels (counterpart of
 
 - K1 `suffstats_batched` (csrc/psi_suffstats.cu): per-atom Psi2 (T, M, M)
   and Psi1^T Y (T, M, D) in one pass over the rows; Psi1 never reaches
-  device memory. Replaces `_suffstats_batched_kernel`.
+  device memory; its launch geometry is `k1_geometry`. Replaces
+  `_suffstats_batched_kernel`.
 - K2 `psi2_bwd_batched` (csrc/psi2_bwd.cu): the analytic Psi2 pullback,
   atoms on the grid, per-chunk partials summed by a second kernel; its
   launch geometry is `k2_geometry`. Replaces `_psi2_bwd_batched_kernel`.
@@ -42,7 +43,10 @@ LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
 MAX_M = 128          # the kernels hold an M x M tile in shared memory
 K2_MIN_ROWS = 4      # fewest rows a K2 block walks
 _K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
-_K1_STAGE = 16       # rows K1, K4 and K5 stage at once (RS in their sources)
+_K4_STAGE = 16       # rows K4 and K5 stage at once (RS in their source)
+K1_MAX_THREADS = 576  # K1's launch bounds (MAX_THREADS in its source)
+K1_MAX_GROUPS = 8     # most row groups of a K1 block
+_K1_GROUP_ROWS = (16, 8, 4, 2, 1)  # rows per group and stage, largest first
 
 
 def reset_launch_counts() -> None:
@@ -217,10 +221,122 @@ def _rows_per_chunk(n, target_blocks, multiple):
     return multiple * math.ceil(rows / multiple)
 
 
+class K1Geometry(NamedTuple):
+    """How `suffstats_batched` launches csrc/psi_suffstats.cu: `groups` of
+    `tiles` threads each (one 4x4 upper-triangle tile of Psi2 a thread) in
+    blocks of `threads`, `stage_rows` rows staged at once, `blocks_per_sm`
+    resident; `chunks` x T blocks of `rows` rows each, filling
+    `slot_fill` of the block slots of their waves; `p1y_passes` walks of
+    the rows for the Psi1^T Y tiles; the floats of the per-(chunk, atom)
+    partials."""
+    groups: int
+    tiles: int
+    threads: int
+    stage_rows: int
+    blocks_per_sm: int
+    rows: int
+    chunks: int
+    slot_fill: float
+    p1y_passes: int
+    part_floats: int
+
+    @property
+    def lane_use(self) -> float:
+        """Share of the block's threads that own a Psi2 tile."""
+        return self.groups * self.tiles / self.threads
+
+
+def _round32(x):
+    return 32 * math.ceil(x / 32)
+
+
+def _chunking(T, N, min_rows, slots, target):
+    """(rows, chunks, fill): the fewest waves (up to 4) of `slots` block
+    slots whose T x chunks blocks fill at least `target` of them (else the
+    best fill), each chunk walking at least `min_rows` rows (or all N)."""
+    cap = max(1, math.ceil(N / min_rows))
+    best = None
+    for waves in range(1, 5):
+        chunks = max(1, min(cap, waves * slots // T))
+        rows = math.ceil(N / chunks)
+        chunks = math.ceil(N / rows)
+        fill = chunks * T / (math.ceil(chunks * T / slots) * slots)
+        if best is None or fill > best[2]:
+            best = (rows, chunks, fill)
+        if fill >= target or chunks == cap:
+            break
+    return best
+
+
+def k1_geometry(T, N, M, Q, D, sms, occupancy) -> K1Geometry:
+    """K1's launch geometry on `sms` SMs. `occupancy(groups, stage_rows)`
+    is how many blocks of that shape fit on an SM (0 if none). Of the
+    group counts whose block fits within K1_MAX_THREADS, it takes the one
+    with the fewest walks of the rows for Psi1^T Y, then the most
+    tile-owning threads resident per SM, then the most groups: the groups
+    of a block share each stage's staging, and fewer blocks write fewer
+    partials (on an H100 at c4, 4 groups in one block per SM beat 2 in
+    two). Each stages the most rows per group (of 16, 8, 4, 2, 1) that
+    keep as many of its blocks on an SM as one row per group does. Then
+    `_chunking` at one block per chunk and atom."""
+    t4 = math.ceil(M / 4)
+    tiles = t4 * (t4 + 1) // 2
+    best = None
+    for groups in range(1, K1_MAX_GROUPS + 1):
+        threads = _round32(groups * tiles)
+        if threads > K1_MAX_THREADS:
+            break
+        per_sm = occupancy(groups, groups)
+        if per_sm < 1:
+            continue
+        per_group = next(k for k in _K1_GROUP_ROWS
+                         if occupancy(groups, groups * k) == per_sm)
+        passes = math.ceil(t4 * math.ceil(D / 4) / threads)
+        key = (passes, -per_sm * groups * tiles, -groups)
+        if best is None or key < best[0]:
+            best = (key, groups, threads, groups * per_group, per_sm, passes)
+    if best is None:
+        raise RuntimeError(f"suffstats_batched: no block fits an SM at "
+                           f"M={M}, Q={Q}, D={D}")
+    _, groups, threads, stage_rows, per_sm, passes = best
+    rows, chunks, fill = _chunking(T, N, stage_rows, sms * per_sm, 0.9)
+    part = chunks * T * (16 * tiles + 4 * math.ceil(M * D / 4))
+    return K1Geometry(groups, tiles, threads, stage_rows, per_sm, rows,
+                      chunks, fill, passes, part)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_blocks_per_sm(device_index, M, Q, D, groups, stage_rows):
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        blocks = build.function("psi_suffstats", "psi_suffstats_blocks_per_sm")(
+            M, Q, D, groups, stage_rows)
+    if blocks < 0:
+        raise RuntimeError(f"suffstats_batched: occupancy query failed at "
+                           f"M={M}, Q={Q}, D={D} (CUDA error {-blocks})")
+    return blocks
+
+
+def _device_index(device):
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def k1_launch_geometry(device, T, N, M, Q, D) -> K1Geometry:
+    """The geometry `suffstats_batched` launches with on CUDA `device`, from
+    its SM count and the kernel's occupancy there."""
+    index = _device_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return k1_geometry(
+        T, N, M, Q, D, sms,
+        lambda g, rs: _k1_blocks_per_sm(index, M, Q, D, g, rs))
+
+
 def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
                       block_n: int = 64):
     """K1: (Psi2 (T,M,M), Psi1^T Y (T,M,D)). `block_n` sizes the plain
-    version's blocks; the kernel picks its own chunking."""
+    version's blocks; the kernel picks its own chunking (`k1_geometry`)."""
     if _is_cpu(variances, ards, mu, s, Zs, Y, weights):
         return suffstats_batched_reference(variances, ards, mu, s, Zs, Y,
                                            weights, block_n)
@@ -230,25 +346,24 @@ def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
     N, D = Y.shape
     if M > MAX_M:
         raise ValueError(f"suffstats_batched: M={M} > {MAX_M} not supported")
-    w = _ones_weights(mu, weights)
-    _check_cuda(
-        "suffstats_batched",
-        dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, Y=Y, w=w),
-        dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
-             Y=(N, D), w=(N,)),
-    )
-    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
-    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K1_STAGE)
-    chunks = math.ceil(N / rows)
-    part = torch.empty(chunks, T * M * (M + D), dtype=mu.dtype,
-                       device=mu.device)
-    psi2 = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)
-    p1y = torch.empty(T, M, D, dtype=mu.dtype, device=mu.device)
+    tensors = dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, Y=Y)
+    shapes = dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q),
+                  Zs=(T, M, Q), Y=(N, D))
+    if weights is not None:
+        tensors["w"], shapes["w"] = weights, (N,)
+    _check_cuda("suffstats_batched", tensors, shapes)
+    geo = k1_launch_geometry(mu.device, T, N, M, Q, D)
+    kw = dict(dtype=mu.dtype, device=mu.device)
+    part = torch.empty(geo.part_floats, **kw)
+    psi2 = torch.empty(T, M, M, **kw)
+    p1y = torch.empty(T, M, D, **kw)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     err = build.function("psi_suffstats")(
         variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
-        w.data_ptr(), Zs.data_ptr(), Y.data_ptr(), part.data_ptr(),
-        psi2.data_ptr(), p1y.data_ptr(), T, N, M, Q, D, rows, chunks, stream,
+        None if weights is None else weights.data_ptr(), Zs.data_ptr(),
+        Y.data_ptr(), part.data_ptr(), psi2.data_ptr(), p1y.data_ptr(),
+        T, N, M, Q, D, geo.groups, geo.stage_rows, geo.rows, geo.chunks,
+        stream,
     )
     _raise_on(err, "suffstats_batched")
     LAUNCHES["suffstats_batched"] += 1
@@ -286,20 +401,9 @@ def k2_geometry(T, N, M, Q, sms, blocks_per_sm) -> K2Geometry:
     blocks each: the fewest waves (up to 4) whose blocks fill at least 95%
     of their slots, each block walking at least `K2_MIN_ROWS` rows."""
     width = k2_slice_width(M, Q)
-    threads = 32 * math.ceil(M * math.ceil(M / width) / 32)
-    slots = max(1, sms * blocks_per_sm)
-    cap = math.ceil(N / K2_MIN_ROWS)
-    best = None
-    for waves in range(1, 5):
-        chunks = max(1, min(cap, waves * slots // T))
-        rows = math.ceil(N / chunks)
-        chunks = math.ceil(N / rows)
-        fill = chunks * T / (math.ceil(chunks * T / slots) * slots)
-        if best is None or fill > best[0]:
-            best = (fill, rows, chunks)
-        if fill >= 0.95 or chunks == cap:
-            break
-    _, rows, chunks = best
+    threads = _round32(M * math.ceil(M / width))
+    rows, chunks, _ = _chunking(T, N, K2_MIN_ROWS,
+                                max(1, sms * blocks_per_sm), 0.95)
     return K2Geometry(width, threads, blocks_per_sm, rows, chunks,
                       chunks * T * (M + Q + M * Q + M * M),
                       T * N * (2 * Q + 1))
@@ -321,9 +425,7 @@ def _k2_blocks_per_sm(device_index, M, Q, width):
 def k2_launch_geometry(device, T, N, M, Q) -> K2Geometry:
     """The geometry `psi2_bwd_batched` launches with on CUDA `device`, from
     its SM count and the kernel's occupancy there."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
+    index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     per_sm = _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q))
     return k2_geometry(T, N, M, Q, sms, per_sm)
@@ -390,7 +492,7 @@ def _psi2_forward(entry, name, variances, ards, mu, s, Zs, weights, T):
              w=(N,)),
     )
     sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
-    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K1_STAGE)
+    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K4_STAGE)
     chunks = math.ceil(N / rows)
     part = torch.empty(chunks, T * M * M, dtype=mu.dtype, device=mu.device)
     out = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)

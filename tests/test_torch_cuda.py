@@ -238,3 +238,74 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
                                            "Q=48"):
         psi.psi2_bwd_batched(*_k2(wide))
+
+
+def _k1(t):
+    return (t["vs"], t["ards"], t["mu"], t["s"], t["Zs"], t["Y"], t["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [1, 3])
+@pytest.mark.parametrize("M_", [1, 33, 128])
+@pytest.mark.parametrize("N_", [1, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k1_matches_plain_at_edge_shapes(card, weighted, N_, M_, T_):
+    """K1 against its plain version in f64 where its geometry is ragged:
+    one row, a block of fewer rows than a stage, one inducing point, M
+    across tiles and warps, the largest M; D not a multiple of the 4-wide
+    Psi1^T Y tile. Zero weights included (all of them, at N=1 weighted)."""
+    a, f = _inputs(card, weighted, T=T_, N=N_, M=M_, Q=10, D=7)
+    psi.reset_launch_counts()
+    got = psi.suffstats_batched(*_k1(f))
+    want = psi.suffstats_batched_reference(*_k1(a))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+    assert max(_k2_errors(got, want)) <= TOL_K1
+    assert psi.LAUNCHES == _launched(suffstats_batched=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M_", [33, 128])
+@pytest.mark.parametrize("Q_", [12, 20, 40])
+def test_k1_matches_plain_at_wide_latents(card, Q_, M_):
+    """Q beyond every configuration's 10; Q = 40 at M = 128 stages fewer
+    rows at once to fit shared memory."""
+    a, f = _inputs(card, True, T=2, N=70, M=M_, Q=Q_, D=5)
+    got = psi.suffstats_batched(*_k1(f))
+    want = psi.suffstats_batched_reference(*_k1(a))
+    assert max(_scaled_errors(got, want)) <= TOL_K1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [C2, dict(T=4, N=300, M=64, Q=10, D=59),
+                                   dict(T=2, N=90, M=20, Q=5, D=300)],
+                         ids=["c2", "t4", "wide_d"])
+def test_k1_launches_repeat_bit_for_bit(card, shape):
+    """Two launches on the same inputs give the same bits: at the c2
+    widths, at T=4, and where D needs two walks of the rows."""
+    _, f = _inputs(card, True, **shape)
+    first = psi.suffstats_batched(*_k1(f))
+    second = psi.suffstats_batched(*_k1(f))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a, f = _inputs(card, weighted=True)
+    with pytest.raises(TypeError, match="float32"):
+        psi.suffstats_batched(*_k1(a))
+    k1 = list(_k1(f))
+    k1[4] = f["Zs"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        psi.suffstats_batched(*k1)
+    k1[4] = f["Zs"]
+    k1[5] = f["Y"][:-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        psi.suffstats_batched(*k1)
+    _, big = _inputs(card, False, T=1, N=4, M=129, Q=2)
+    with pytest.raises(ValueError, match="M=129"):
+        psi.suffstats_batched(*_k1(big))
+    _, wide = _inputs(card, False, T=1, N=4, M=128, Q=256)
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
+                                           "Q=256"):
+        psi.suffstats_batched(*_k1(wide))

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Time K1 (fused Psi2 + Psi1^T Y, `ops/psi.py::suffstats_batched`) and K2
+(the fused Psi2 pullback, `ops/psi.py::psi2_bwd_batched`) on the card,
+CUDA kernel by CUDA kernel.
+
+    python3 tools/psi_profile.py [--root DIR] [--kernel k1|k2] [--out FILE]
+
+Imports `dp_gp_lvm_tpu_torch` from DIR (default: the checkout holding this
+script), so that an older checkout unpacked beside this one is timed by
+the same script, and builds that checkout's `csrc/psi_suffstats.cu` and
+`csrc/psi2_bwd.cu`. K1 at the c4 (T=20, N=1024, M=64, D=59) and scale
+(T=20, N=8192, M=128, D=60) shapes, K2 at c4, c2 (T=1, N=1000, M=50) and
+scale, all Q=10: one JSON line per kernel and shape with the device ms
+per call of each CUDA kernel the wrapper launches (the main kernel and
+the chunk reduction), from `torch.profiler`'s `key_averages()` over 20
+wrapper calls; then the card's name and power limit as `nvidia-smi` gives
+them. With `--out` the lines are also written to FILE. Needs a CUDA card
+and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+K1_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10, D=59),
+                 scale=dict(T=20, N=8192, M=128, Q=10, D=60))
+K2_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10),
+                 c2=dict(T=1, N=1000, M=50, Q=10),
+                 scale=dict(T=20, N=8192, M=128, Q=10))
+CALLS = 20
+
+
+def _kernel_ms(torch, fn):
+    """{kernel name: device ms per wrapper call} from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = (getattr(evt, "device_time_total", None)
+              or getattr(evt, "cuda_time_total", 0) or 0)
+        if us > 0 and not evt.key.startswith(("cuda", "aten::")):
+            out[evt.key] = us / 1e3 / CALLS
+    return out
+
+
+def _inputs(torch, gen, T, N, M, Q, D=None):
+    kw = dict(generator=gen, device="cuda")
+    args = [0.5 + torch.rand(T, **kw), 0.3 + 1.7 * torch.rand(T, Q, **kw),
+            torch.randn(N, Q, **kw), 0.05 + 0.55 * torch.rand(N, Q, **kw),
+            torch.randn(T, M, Q, **kw)]
+    return args + [torch.randn(N, D, **kw) if D else
+                   torch.randn(T, M, M, **kw)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(
+        pathlib.Path(__file__).resolve().parent.parent))
+    ap.add_argument("--kernel", choices=("k1", "k2"), default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("psi_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    lines = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for kernel, shapes, fn in (("k1", K1_SHAPES, psi.suffstats_batched),
+                               ("k2", K2_SHAPES, psi.psi2_bwd_batched)):
+        if args.kernel not in (None, kernel):
+            continue
+        for name, sh in shapes.items():
+            args32 = _inputs(torch, gen, **sh)
+            lines.append(dict(root=args.root, kernel=kernel, shape=name,
+                              **sh, kernels=_kernel_ms(
+                                  torch, lambda: fn(*args32))))
+    lines.append(dict(card=card))
+    text = "\n".join(json.dumps(x) for x in lines)
+    print(text, flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
