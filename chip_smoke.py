@@ -19,8 +19,11 @@ imputation servers built on them. Phases, each printing one JSON line:
          inputs must give the same bits
   k6     K6 (Psi1) and
   k5     K5 (single-kernel Psi2) at the c2 widths, weighted and not,
-         against their plain versions in f64; also timed at N=8192, M=128
-  k4     K4 (Psi2 stack) at the c4 shape, the same way
+         against their plain versions in f64; also timed at N=8192, M=128;
+         two launches on the same inputs must give the same bits; K5 with
+         its launch geometry (K1's at D = 0)
+  k4     K4 (Psi2 stack) at the c4 shape, the same way, and against f64
+         and timed at the T=20, N=8192, M=128 scale shape
   gate   value and gradient of sum Psi2^2 through Psi2BatchedFused (K4
          forward, K2 backward, weighted) against the plain path in f64
   train  mocap_like -> init_params -> gp_optimizer; fused-path ELBO and
@@ -388,10 +391,12 @@ def _single(tensors):
                 Z=tensors["Zs"][0].contiguous())
 
 
-def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol):
+def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol,
+                  k1_body=False):
     """A single-kernel forward (K5 or K6) at the c2 widths against its
-    plain version in f64, weighted and not; timed there and at N=8192,
-    M=128."""
+    plain version in f64, weighted and not, and repeated to the bit; timed
+    there and at N=8192, M=128; with `k1_body` (K5) the launch geometry of
+    K1's body at D = 0 at both shapes."""
     N, M, Q = C2["N"], C2["M"], C2["Q"]
     f64, f32 = _inputs(torch, gen, T=1, **C2)
     a64, a32 = _single(f64), _single(f32)
@@ -404,6 +409,7 @@ def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol):
         torch.cuda.synchronize()
         errs[label] = _errors([got], [want])
     args32 = (a32["v"], a32["ard"], a32["mu"], a32["s"], a32["Z"])
+    bitwise = bool(torch.equal(fn(*args32), fn(*args32)))
     ms = _timed(lambda: fn(*args32), torch)
     device_ms = _device_ms(lambda: fn(*args32), torch)
     plain_ms = _timed(lambda: ref(*args32), torch, reps=5, warmup=1)
@@ -418,16 +424,22 @@ def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol):
     row = dict(phase=name, shape=dict(N=N, M=M, Q=Q),
                max_abs_err=max(e[0] for e in errs.values()),
                scaled_err={k: e[1] for k, e in errs.items()}, tol=tol,
+               repeat_bitwise_equal=bitwise,
                launches_in_phase=psi.LAUNCHES[launches_key], ms=ms,
                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, scale_shape=big, scale_ms=big_ms,
                scale_device_ms=big_device_ms, scale_bound_ms=big_bound_ms,
                scale_bound_by=big_bound_by, library_ms=None,
                library_note="no single PyTorch call computes Psi1 or Psi2")
+    if k1_body:
+        row["geometry"] = _k1_geometry(psi, dict(T=1, N=N, M=M, Q=Q, D=0))
+        row["scale_geometry"] = _k1_geometry(psi, dict(T=1, D=0, **big))
     emit(row)
     if not max(e[1] for e in errs.values()) <= tol:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{errs}")
+    if not bitwise:
+        raise AssertionError(f"two {name} launches on the same inputs differ")
     return row
 
 
@@ -439,7 +451,7 @@ def phase_k6(torch, psi, gen):
 def phase_k5(torch, psi, gen):
     return _phase_single(torch, gen, "k5", psi.psi2_single,
                          psi.psi2_single_reference, "psi2_single", psi,
-                         k5_work, TOL_K5)
+                         k5_work, TOL_K5, k1_body=True)
 
 
 def phase_k4(torch, psi, gen):
@@ -454,23 +466,51 @@ def phase_k4(torch, psi, gen):
         torch.cuda.synchronize()
         errs[label] = _errors([got], [want])
     args32 = tuple(f32[k] for k in names)
+    bitwise = bool(torch.equal(psi.psi2_batched(*args32),
+                               psi.psi2_batched(*args32)))
     ms = _timed(lambda: psi.psi2_batched(*args32), torch)
     device_ms = _device_ms(lambda: psi.psi2_batched(*args32), torch)
     plain_ms = _timed(lambda: psi.psi2_batched_reference(*args32), torch,
                       reps=5, warmup=1)
     shape = {k: C4[k] for k in "TNMQ"}
     bound_ms, bound_by = _bound_ms(*k4_work(**shape))
+    scale = _k4_at_scale(torch, psi, gen)
     row = dict(phase="k4", shape=shape,
                max_abs_err=max(e[0] for e in errs.values()),
                scaled_err={k: e[1] for k, e in errs.items()}, tol=TOL_K4,
+               repeat_bitwise_equal=bitwise,
+               geometry=_k1_geometry(psi, dict(shape, D=0)),
                launches_in_phase=psi.LAUNCHES["psi2_batched"], ms=ms,
-               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None,
+               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, scale=scale, library_ms=None,
                library_note="no single PyTorch call computes Psi2")
     emit(row)
     if not max(e[1] for e in errs.values()) <= TOL_K4:
         raise AssertionError(f"K4 disagrees with its plain version: {errs}")
+    if not bitwise:
+        raise AssertionError("two K4 launches on the same inputs differ")
+    if not scale["scaled_err"] <= TOL_K4:
+        raise AssertionError(f"K4 disagrees at the scale shape: {scale}")
     return row
+
+
+def _k4_at_scale(torch, psi, gen):
+    """K4 at N=8192, M=128, T=20 against its plain version in f64."""
+    shape = {k: SCALE[k] for k in "TNMQ"}
+    f64, f32 = _inputs(torch, gen, **SCALE)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    args32 = tuple(f32[k] for k in names)
+    want = psi.psi2_batched_reference(*(f64[k] for k in names))
+    abs_err, scaled = _errors([psi.psi2_batched(*args32)], [want])
+    del want
+    bound_ms, bound_by = _bound_ms(*k4_work(**shape))
+    return dict(shape=shape, max_abs_err=abs_err, scaled_err=scaled,
+                geometry=_k1_geometry(psi, dict(shape, D=0)),
+                ms=_timed(lambda: psi.psi2_batched(*args32), torch,
+                          reps=5, warmup=1),
+                device_ms=_device_ms(lambda: psi.psi2_batched(*args32),
+                                     torch, launches=5, replays=3),
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_gate(torch, psi, gen):
@@ -861,13 +901,18 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card.splitlines()[0], flush=True)
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
     emit(dict(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
+              nvcc=[ln for ln in nvcc.splitlines() if "release" in ln],
+              capability=torch.cuda.get_device_capability(0),
               device=torch.cuda.get_device_name(0), card=card))
 
     t0 = time.perf_counter()
     build.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
              for n, log in build.ptxas_log.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas))
 
@@ -920,8 +965,15 @@ def main(argv=None) -> int:
              c2_device_ms=k2["c2"]["device_ms"],
              scale_device_ms=k2["scale"]["device_ms"],
              scale_bound_ms=k2["scale"]["bound_ms"]),
-        kernel_row("psi2_batched", "psi2_fwd.cu", 244, "gate", k4),
-        kernel_row("psi2_single", "psi2_fwd.cu", 66, "train_bgplvm", k5),
+        dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
+             redesigned_in="sixth slice of the port",
+             scale_device_ms=k4["scale"]["device_ms"],
+             scale_bound_ms=k4["scale"]["bound_ms"]),
+        dict(kernel_row("psi2_single", "psi_suffstats.cu", 66,
+                        "train_bgplvm", k5),
+             redesigned_in="sixth slice of the port",
+             scale_device_ms=k5["scale_device_ms"],
+             scale_bound_ms=k5["scale_bound_ms"]),
         kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
     ]
     if any(k["launches"] < 1 for k in kernels):

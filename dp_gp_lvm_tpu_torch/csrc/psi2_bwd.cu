@@ -556,16 +556,23 @@ int block_threads(int M, int Q) {
 
 }  // namespace
 
-// blocks of the main kernel that fit on one SM at (M, Q, lc), or minus a
-// CUDA error
+// blocks of the main kernel that fit on one SM at (M, Q, lc), 0 where its
+// shared memory exceeds a block's, or minus a CUDA error
 extern "C" int psi2_bwd_blocks_per_sm(int M, int Q, int lc) {
   if (M < 1 || M > MAX_M) return -(int)cudaErrorInvalidValue;
+  int max_smem = 0, dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -(int)e;
   return dispatch(Q, lc, [&](auto variant) {
     using V = decltype(variant);
     const auto kernel = psi2_bwd_kernel<V::QT, V::LC, V::CH>;
     const size_t smem = smem_bytes<V>(M, Q);
     const int threads = block_threads<V>(M, Q);
     if (threads == 0) return -(int)cudaErrorInvalidValue;
+    if (smem > (size_t)max_smem) return 0;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return -(int)err;

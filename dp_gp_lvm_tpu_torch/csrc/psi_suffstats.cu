@@ -1,13 +1,20 @@
-// K1: fused per-atom sufficient statistics of the DP-GP-LVM bound, f32.
-//
-// Replaces dp_gp_lvm_tpu/ops/pallas/psi.py:_suffstats_batched_kernel
-// (wrapper suffstats_batched_pallas). For every atom t it computes
+// K1, K4 and K5: the Psi2 forward of the ARD-RBF kernel, f32, one kernel
+// body with two entry points. For every atom t
 //
 //   Psi2_t   = var_t^2 sum_n w_n exp(min(expo_tnml, 0))          (M, M)
 //   P1Y_t    = sum_n var_t w_n exp(min(e1_tnm, 0)) y_n^T          (M, D)
 //
-// in one pass over the rows; the (T, N, M) Psi1 tensor never reaches
-// device memory.
+//   psi_suffstats_f32 (K1) replaces
+//     dp_gp_lvm_tpu/ops/pallas/psi.py:_suffstats_batched_kernel (wrapper
+//     suffstats_batched_pallas): both, in one pass over the rows; the
+//     (T, N, M) Psi1 tensor never reaches device memory;
+//   psi2_batched_f32 (K4) replaces _psi2_batched_kernel (wrapper
+//     psi2_batched_pallas): the Psi2 stack alone; at T = 1 it is K5, which
+//     replaces _psi2_kernel (wrapper psi2_pallas): one kernel's Psi2.
+//
+// K4 and K5 run the body with P1Y = false (D = 0 on the host), which
+// compiles out the Y rows, the scaled Psi1 rows, the Psi1^T Y tiles and
+// their half of the partials and of the chunk reduction.
 //
 // Bound on the H100: FP32 issue and shared-memory bandwidth, not bytes.
 // The inputs are a few hundred KB; per (atom, row) the upper triangle of
@@ -40,13 +47,14 @@
 //     Q <= 16, the row's log sums then taken in q order), its c and Psi1
 //     rows (scaled by var w_n) built one (row, m) per thread one stage
 //     ahead, beside the Psi2 and Psi1^T Y work of the stage before it.
-//   * Psi1^T Y: each thread owns a 4 (m) x 4 (d) tile of the (M, D)
-//     accumulator in registers across the whole row loop (one 16-byte
-//     load of Psi1 and one of Y feed 16 FMAs) and writes it once. A D too
-//     wide for one tile per thread walks the rows again per pass.
-//   * Q = 10 at M4 = 64 or 128 (every configuration's widths) runs an
-//     instantiation with both fixed, so shared-memory offsets are
-//     immediates and the q loops unroll; other shapes run the generic one.
+//   * Psi1^T Y (P1Y only): each thread owns a 4 (m) x 4 (d) tile of the
+//     (M, D) accumulator in registers across the whole row loop (one
+//     16-byte load of Psi1 and one of Y feed 16 FMAs) and writes it once.
+//     A D too wide for one tile per thread walks the rows again per pass.
+//   * Q = 10 at M4 = 64 or 128 (every configuration's widths; for Psi2
+//     alone also 52, c2's M = 50) runs an instantiation with both fixed,
+//     so shared-memory offsets are immediates and the q loops unroll;
+//     other shapes run the generic one.
 //   * The TPU grid accumulated into one output block in grid order. CUDA
 //     blocks run concurrently, so each block (N-chunk c, atom t) writes
 //     its partial sums to part[c] and a second kernel sums the chunks in
@@ -66,7 +74,8 @@ struct Dims {
   int T, N, M, Q, D, G, RS, rows_per_chunk;
 };
 
-// shared-memory layout, offsets in floats (16-byte aligned)
+// shared-memory layout, offsets in floats (16-byte aligned); D = 0 is the
+// Psi2-only body, without Y and Psi1 rows
 struct Layout {
   int T4, M4, D4, NT, RI, threads;
   int z, al, ri, y, c, p1, total;
@@ -87,7 +96,7 @@ __host__ __device__ Layout layout(int M, int Q, int D, int G, int RS) {
   s.y = s.ri + 3 * RS * s.RI;          // [3][RS][D4] Y rows, three stages
   s.c = s.y + 3 * RS * s.D4;           // [2][RS][Q][M4] c, two stages
   s.p1 = s.c + 2 * RS * Q * s.M4;      // [2][RS][M4] var w Psi1, two stages
-  s.total = s.p1 + 2 * RS * s.M4;
+  s.total = s.p1 + (D > 0 ? 2 * RS * s.M4 : 0);
   // the groups' tiles, summed at the end over the same memory
   const int red = (G - 1) * 16 * s.NT;
   if (red > s.total) s.total = red;
@@ -120,8 +129,9 @@ __device__ __forceinline__ void unpack(const float4 v, float (&a)[4]) {
 
 // QC, MC: Q and M4 fixed at compile time (the widths every configuration
 // runs), so that shared-memory offsets are immediates and the q loops
-// unroll; 0 takes them from d
-template <int QC, int MC>
+// unroll; 0 takes them from d. P1Y: Psi1^T Y beside Psi2 (K1), else Psi2
+// alone (K4, K5; d.D = 0)
+template <int QC, int MC, bool P1Y>
 __global__ void __launch_bounds__(MAX_THREADS)
 suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
                  const float* __restrict__ mu, const float* __restrict__ s,
@@ -151,7 +161,8 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
   // sums the row's logs in q order (as K2 takes ln).
   const int SEG = Q <= 16 ? 16 : 32, lane_q = lane % SEG;
   const int row_slots = nwarps * (32 / SEG);
-  const int ydr = nthreads / D4, ydd = nthreads % D4;  // steps of nthreads
+  const int ydr = P1Y ? nthreads / D4 : 0;  // steps of nthreads
+  const int ydd = P1Y ? nthreads % D4 : 0;
   const int bdr = nthreads / M4, bdm = nthreads % M4;
   const int my_row = warp * (32 / SEG) + lane / SEG;
   auto prep = [&](int st) {
@@ -168,11 +179,13 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
           const float a = ard[(long long)t * Q + q];
           const float sv = s[n * Q + q];
           const float u2 = fmaf(2.f * a, sv, 1.f);
-          const float u1 = fmaf(a, sv, 1.f);
           rr[4 * q] = sqrtf(a / u2);
           rr[4 * q + 1] = mu[n * Q + q];
-          rr[4 * q + 2] = a / u1;
-          rr[4 * Q + q] = logf(u1);
+          if constexpr (P1Y) {
+            const float u1 = fmaf(a, sv, 1.f);
+            rr[4 * q + 2] = a / u1;
+            rr[4 * Q + q] = logf(u1);
+          }
           rr[5 * Q + q] = logf(u2);
         }
       }
@@ -181,41 +194,43 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
         float l1 = 0.f, ln = 0.f;
 #pragma unroll 4
         for (int q = 0; q < Q; ++q) {
-          l1 -= 0.5f * rr[4 * Q + q];
+          if constexpr (P1Y) l1 -= 0.5f * rr[4 * Q + q];
           ln -= 0.5f * rr[5 * Q + q];
         }
         rr[6 * Q] = wn;
-        rr[6 * Q + 1] = l1 * LOG2E;
+        if constexpr (P1Y) rr[6 * Q + 1] = l1 * LOG2E;
         rr[6 * Q + 2] = ln * LOG2E;
       }
     }
-    // four loads in flight per thread; (row, column) of element i0 + k
-    // nthreads stepped without dividing
-    int yr = tid / D4, yd = tid % D4;
-    for (int i0 = tid; i0 < nb * D4; i0 += 4 * nthreads) {
-      float yv[4];
-      int r = yr, dd = yd;
+    if constexpr (P1Y) {
+      // four loads in flight per thread; (row, column) of element i0 + k
+      // nthreads stepped without dividing
+      int yr = tid / D4, yd = tid % D4;
+      for (int i0 = tid; i0 < nb * D4; i0 += 4 * nthreads) {
+        float yv[4];
+        int r = yr, dd = yd;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        yv[k] = r < nb && dd < D
-                    ? y[(long long)(row0 + r0 + r) * D + dd] : 0.f;
-        r += ydr;
-        dd += ydd;
-        if (dd >= D4) {
-          dd -= D4;
-          ++r;
+        for (int k = 0; k < 4; ++k) {
+          yv[k] = r < nb && dd < D
+                      ? y[(long long)(row0 + r0 + r) * D + dd] : 0.f;
+          r += ydr;
+          dd += ydd;
+          if (dd >= D4) {
+            dd -= D4;
+            ++r;
+          }
         }
-      }
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (i0 + k * nthreads < nb * D4) ys[i0 + k * nthreads] = yv[k];
-      yr = r;
-      yd = dd;
+        for (int k = 0; k < 4; ++k)
+          if (i0 + k * nthreads < nb * D4) ys[i0 + k * nthreads] = yv[k];
+        yr = r;
+        yd = dd;
+      }
     }
   };
 
-  // c and the Psi1 rows of stage st into buffer st % 2, from its row
-  // scalars; one (row, m) per thread, stepped without dividing
+  // c and (P1Y) the Psi1 rows of stage st into buffer st % 2, from its
+  // row scalars; one (row, m) per thread, stepped without dividing
   auto build = [&](int st) {
     const int nb = min(RS, nrows - st * RS);
     const float* ri = sm + lay.ri + (st % 3) * RS * RI;
@@ -230,10 +245,13 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
         const float4 v4 = *reinterpret_cast<const float4*>(rr + 4 * q);
         const float df = v4.y - z_sh[q * M4 + m];
         cr[q * M4] = v4.x * df;
-        quad1 = fmaf(v4.z * df, df, quad1);
+        if constexpr (P1Y) quad1 = fmaf(v4.z * df, df, quad1);
       }
-      const float e1 = fmaf(-0.5f * LOG2E, quad1, rr[6 * Q + 1]);
-      pb[r * M4 + m] = m < M ? v * rr[6 * Q] * exp2_ftz(fminf(e1, 0.f)) : 0.f;
+      if constexpr (P1Y) {
+        const float e1 = fmaf(-0.5f * LOG2E, quad1, rr[6 * Q + 1]);
+        pb[r * M4 + m] =
+            m < M ? v * rr[6 * Q] * exp2_ftz(fminf(e1, 0.f)) : 0.f;
+      }
       r += bdr;
       m += bdm;
       if (m >= M4) {
@@ -287,13 +305,14 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
   }
 
   // Psi1^T Y passes: this thread's 4 x 4 tile of pass p is tile
-  // tid + p * nthreads of the (M4 / 4) x (D4 / 4) grid
+  // tid + p * nthreads of the (M4 / 4) x (D4 / 4) grid; Psi2 alone takes
+  // one walk of the rows
   const int dt4 = D4 / 4, np1 = lay.T4 * dt4;
   const long long PB = 16LL * NT + round4(M * D);
   float* pc = part + ((long long)chunk * T + t) * PB;
-  for (int pass = 0; pass * nthreads < np1; ++pass) {
+  for (int pass = 0; P1Y ? pass * nthreads < np1 : pass < 1; ++pass) {
     const int pt = tid + pass * nthreads;
-    const bool has_p1 = pt < np1;
+    const bool has_p1 = P1Y && pt < np1;
     const int pm0 = has_p1 ? 4 * (pt / dt4) : 0;
     const int pd0 = has_p1 ? 4 * (pt % dt4) : 0;
     const bool psi2_pass = pass == 0 && has_tile;
@@ -409,8 +428,10 @@ suffstats_kernel(const float* __restrict__ var, const float* __restrict__ ard,
   }
 }
 
-// psi2 and p1y = the chunks' partials summed in chunk order; each stored
-// upper-triangle tile entry is written to (m, l) and mirrored to (l, m)
+// psi2 and (P1Y) p1y = the chunks' partials summed in chunk order; each
+// stored upper-triangle tile entry is written to (m, l) and mirrored to
+// (l, m)
+template <bool P1Y>
 __global__ void reduce_chunks(const float* __restrict__ part, int chunks,
                               Dims d, float* __restrict__ psi2,
                               float* __restrict__ p1y) {
@@ -421,14 +442,17 @@ __global__ void reduce_chunks(const float* __restrict__ part, int chunks,
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P) return;
   float a = 0.f;
-#pragma unroll 4
+  // deeper for K4 and K5, which sum up to ~130 chunks (K5 at N = 8192)
+#pragma unroll (P1Y ? 4 : 16)
   for (int c = 0; c < chunks; ++c) a += part[c * P + e];
   const int t = (int)(e / PB);
   const long long r = e % PB;
-  if (r >= 16LL * NT) {
-    if (r - 16LL * NT < (long long)M * D)
-      p1y[(long long)t * M * D + (r - 16LL * NT)] = a;
-    return;
+  if constexpr (P1Y) {
+    if (r >= 16LL * NT) {
+      if (r - 16LL * NT < (long long)M * D)
+        p1y[(long long)t * M * D + (r - 16LL * NT)] = a;
+      return;
+    }
   }
   int tm, tl;
   upper_tile((int)(r / 16), T4, tm, tl);
@@ -439,24 +463,70 @@ __global__ void reduce_chunks(const float* __restrict__ part, int chunks,
   o[(long long)l * M + m] = a;
 }
 
-// f(kernel) for the instantiation that serves (Q, M)
-template <class F>
-int with_kernel(int M, int Q, F&& f) {
+// f(kernel) for the instantiation that serves (Q, M); Psi2 alone also
+// fixes c2_sparse_oil's M4 = 52 (its step and server launch K5 there)
+template <bool P1Y, class F>
+int with_width(int M, int Q, F&& f) {
   const int M4 = 4 * ((M + 3) / 4);
-  if (Q == 10 && M4 == 64) return f(suffstats_kernel<10, 64>);
-  if (Q == 10 && M4 == 128) return f(suffstats_kernel<10, 128>);
-  return f(suffstats_kernel<0, 0>);
+  if (Q == 10 && M4 == 64) return f(suffstats_kernel<10, 64, P1Y>);
+  if (Q == 10 && M4 == 128) return f(suffstats_kernel<10, 128, P1Y>);
+  if constexpr (!P1Y) {
+    if (Q == 10 && M4 == 52) return f(suffstats_kernel<10, 52, false>);
+  }
+  return f(suffstats_kernel<0, 0, P1Y>);
+}
+
+// ... and for (Q, M, D): D = 0 is the Psi2-only body
+template <class F>
+int with_kernel(int M, int Q, int D, F&& f) {
+  return D > 0 ? with_width<true>(M, Q, f) : with_width<false>(M, Q, f);
 }
 
 bool valid(int M, int Q, int D, int G, int RS) {
-  return M >= 1 && M <= MAX_M && Q >= 1 && D >= 1 && G >= 1 && RS >= G &&
+  return M >= 1 && M <= MAX_M && Q >= 1 && D >= 0 && G >= 1 && RS >= G &&
          RS % G == 0 && layout(M, Q, D, G, RS).threads <= MAX_THREADS;
+}
+
+int launch(const float* var, const float* ard, const float* mu,
+           const float* s, const float* w, const float* z, const float* y,
+           float* part, float* psi2, float* p1y, int T, int N, int M, int Q,
+           int D, int G, int RS, int rows_per_chunk, int chunks,
+           cudaStream_t stream) {
+  if (!valid(M, Q, D, G, RS) || T < 1 || N < 1 || chunks < 1 ||
+      (long long)rows_per_chunk * (chunks - 1) >= N ||
+      (long long)rows_per_chunk * chunks < N)
+    return (int)cudaErrorInvalidValue;
+  Dims d;
+  d.T = T; d.N = N; d.M = M; d.Q = Q; d.D = D; d.G = G; d.RS = RS;
+  d.rows_per_chunk = rows_per_chunk;
+  const Layout lay = layout(M, Q, D, G, RS);
+  const size_t smem = (size_t)lay.total * sizeof(float);
+  const int err = with_kernel(M, Q, D, [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(chunks, T), lay.threads, smem, stream>>>(
+        var, ard, mu, s, w, z, y, part, d);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
+
+  const long long P = (long long)T * (16LL * lay.NT + round4(M * D));
+  const int rthreads = 256;
+  const unsigned rblocks = (unsigned)((P + rthreads - 1) / rthreads);
+  if (D > 0)
+    reduce_chunks<true><<<rblocks, rthreads, 0, stream>>>(part, chunks, d,
+                                                          psi2, p1y);
+  else
+    reduce_chunks<false><<<rblocks, rthreads, 0, stream>>>(part, chunks, d,
+                                                           psi2, p1y);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// blocks of the main kernel that fit on one SM with G groups and RS staged
-// rows, 0 where none fits, or minus a CUDA error
+// blocks of the main kernel (Psi2 alone at D = 0) that fit on one SM with
+// G groups and RS staged rows, 0 where none fits, or minus a CUDA error
 extern "C" int psi_suffstats_blocks_per_sm(int M, int Q, int D, int G,
                                            int RS) {
   if (!valid(M, Q, D, G, RS)) return -(int)cudaErrorInvalidValue;
@@ -469,7 +539,7 @@ extern "C" int psi_suffstats_blocks_per_sm(int M, int Q, int D, int G,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return -(int)err;
   if (smem > (size_t)max_smem) return 0;
-  return with_kernel(M, Q, [&](auto kernel) {
+  return with_kernel(M, Q, D, [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return -(int)e;
@@ -480,7 +550,7 @@ extern "C" int psi_suffstats_blocks_per_sm(int M, int Q, int D, int G,
   });
 }
 
-// part: chunks x T x (16 NT + round4(M D)) floats, NT = T4 (T4 + 1) / 2;
+// K1. part: chunks x T x (16 NT + round4(M D)) floats, NT = T4 (T4 + 1) / 2;
 // w may be null (every row weight 1)
 extern "C" int psi_suffstats_f32(const float* var, const float* ard,
                                  const float* mu, const float* s,
@@ -489,28 +559,19 @@ extern "C" int psi_suffstats_f32(const float* var, const float* ard,
                                  float* p1y, int T, int N, int M, int Q, int D,
                                  int G, int RS, int rows_per_chunk, int chunks,
                                  cudaStream_t stream) {
-  if (!valid(M, Q, D, G, RS) || T < 1 || N < 1 || chunks < 1 ||
-      (long long)rows_per_chunk * (chunks - 1) >= N ||
-      (long long)rows_per_chunk * chunks < N)
-    return (int)cudaErrorInvalidValue;
-  Dims d;
-  d.T = T; d.N = N; d.M = M; d.Q = Q; d.D = D; d.G = G; d.RS = RS;
-  d.rows_per_chunk = rows_per_chunk;
-  const Layout lay = layout(M, Q, D, G, RS);
-  const size_t smem = (size_t)lay.total * sizeof(float);
-  const int err = with_kernel(M, Q, [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3(chunks, T), lay.threads, smem, stream>>>(
-        var, ard, mu, s, w, z, y, part, d);
-    return (int)cudaGetLastError();
-  });
-  if (err != 0) return err;
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  return launch(var, ard, mu, s, w, z, y, part, psi2, p1y, T, N, M, Q, D, G,
+                RS, rows_per_chunk, chunks, stream);
+}
 
-  const long long P = (long long)T * (16LL * lay.NT + round4(M * D));
-  const int rthreads = 256;
-  reduce_chunks<<<(unsigned)((P + rthreads - 1) / rthreads), rthreads, 0,
-                  stream>>>(part, chunks, d, psi2, p1y);
-  return (int)cudaGetLastError();
+// K4, the Psi2 stack (T, M, M), and K5 at T = 1. part: chunks x T x 16 NT
+// floats
+extern "C" int psi2_batched_f32(const float* var, const float* ard,
+                                const float* mu, const float* s,
+                                const float* w, const float* z, float* part,
+                                float* psi2, int T, int N, int M, int Q, int G,
+                                int RS, int rows_per_chunk, int chunks,
+                                cudaStream_t stream) {
+  return launch(var, ard, mu, s, w, z, nullptr, part, psi2, nullptr, T, N, M,
+                Q, 0, G, RS, rows_per_chunk, chunks, stream);
 }

@@ -38,7 +38,7 @@ class Config(NamedTuple):
     num_inducing: int
     psi2_block: int | None = None  # chunk size over N of the plain Psi2
     # True | False | "auto": the fused CUDA kernels K6/K5/K2 (ops/psi.py);
-    # "auto" takes them for tensors on the card
+    # "auto" takes them for tensors on the card where they take the shape
     use_fused: bool | str = "auto"
     kernel: str = "ard_rbf"
     fast_chol: bool = False        # skip the jitter search in the hot step

@@ -42,7 +42,7 @@ class Config(NamedTuple):
     alpha: float = 1.0       # DP concentration
     psi2_block: int | None = None
     # True | False | "auto": the fused CUDA kernels K1/K2 (ops/psi.py);
-    # "auto" takes them for tensors on the card
+    # "auto" takes them for tensors on the card where they take the shape
     use_fused: bool | str = "auto"
     kernel: str = "ard_rbf"
     fast_chol: bool = False
@@ -108,7 +108,8 @@ def per_dim_atom_bound(hyp, Y, config: Config,
     variance, ard = hyp["variance"], hyp["ard"]
     kuu_b = dispatch.gram(variance, ard, z, kernel=config.kernel)
     p0_b = ard_rbf.psi0(variance, mu)
-    if dispatch.resolve_fused(config.use_fused, config.kernel, mu.device):
+    if dispatch.resolve_fused(config.use_fused, config.kernel, mu.device,
+                              *z.shape[1:], Y.shape[1]):
         # one kernel gives Psi2 AND Psi1^T Y per atom; Psi1 never stored
         p2_b, p1y_b = psi_ops.suffstats_batched_fused(
             variance, ard, mu, s, z, Y, None, config.psi2_block or 64

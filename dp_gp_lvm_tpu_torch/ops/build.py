@@ -28,11 +28,10 @@ I = ctypes.c_int
 # returns the CUDA error of its launches as an int
 SIGNATURES = {
     "psi_suffstats": {"psi_suffstats_f32": [P] * 10 + [I] * 9 + [P],
+                      "psi2_batched_f32": [P] * 8 + [I] * 8 + [P],
                       "psi_suffstats_blocks_per_sm": [I] * 5},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
                  "psi2_bwd_blocks_per_sm": [I] * 3},
-    "psi2_fwd": {"psi2_batched_f32": [P] * 8 + [I] * 6 + [P],
-                 "psi2_single_f32": [P] * 8 + [I] * 5 + [P]},
     "psi1": {"psi1_f32": [P] * 7 + [I] * 3 + [P]},
 }
 

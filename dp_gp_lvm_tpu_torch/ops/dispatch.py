@@ -3,9 +3,10 @@
 
 Only the ARD-RBF kernel is ported. `use_fused` (True | False | "auto")
 takes the meaning of the reference's `use_pallas`: "auto" takes the fused
-CUDA kernels (`ops/psi.py`) for tensors on the card, and the non-fused
-plain path on the CPU. The reference's M >= 96 and 5e8 cut-overs were measured
-against XLA on a TPU and are not carried over.
+CUDA kernels (`ops/psi.py`) for tensors on the card where every kernel of
+the path takes the shape (`psi.fused_fits`: M <= 128, blocks that fit an
+SM), and the non-fused plain path otherwise. The reference's M >= 96 and
+5e8 cut-overs were measured against XLA on a TPU and are not carried over.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
     here; the model configs pass their own "auto"."""
     _kernel(kernel)
     p0 = ard_rbf.psi0(variance, mu, weights)
-    if not resolve_fused(use_fused, kernel, mu.device):
+    if not resolve_fused(use_fused, kernel, mu.device, *Z.shape):
         return (
             p0,
             psi1_weighted(variance, ard, mu, s, Z, weights),
@@ -55,12 +56,17 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
                                       block_n or 64)
 
 
-def resolve_fused(use_fused, kernel: str, device: torch.device) -> bool:
-    """Fused-kernel decision: "auto" means fused on the card."""
+def resolve_fused(use_fused, kernel: str, device: torch.device, M: int,
+                  Q: int, D: int = 0) -> bool:
+    """Fused-kernel decision for the path at M inducing points, Q latent
+    dims and D output dims: D > 0 is K1 + K2 (Psi2 with Psi1^T Y), D = 0
+    K4/K5 and K6 + K2 (Psi2 alone). "auto" means fused on the card where
+    every kernel of the path takes (M, Q, D), decided before any launch."""
     if kernel != "ard_rbf":
         return False
     if use_fused == "auto":
-        return torch.device(device).type == "cuda"
+        return (torch.device(device).type == "cuda"
+                and psi_ops.fused_fits_on(device, M, Q, D))
     return bool(use_fused)
 
 
@@ -69,7 +75,7 @@ def psi2_batched(variance, ard, mu, s, Zs, weights=None, block_n=None,
     """Per-atom Psi2 stack (T, M, M): K4 with the K2 pullback when fused,
     else the non-fused path atom by atom."""
     _kernel(kernel)
-    if resolve_fused(use_fused, kernel, mu.device):
+    if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:]):
         return psi_ops.psi2_batched_fused(variance, ard, mu, s, Zs, weights,
                                           block_n or 64)
     return torch.stack([
@@ -85,7 +91,8 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
     (psi0 (T,), psi1T_y (T, M, D), psi2 (T, M, M), yty (D,), n)."""
     _kernel(kernel)
     Yw = Y if weights is None else Y * weights[:, None]
-    if resolve_fused(use_fused, kernel, mu.device):
+    if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:],
+                     Y.shape[1]):
         p2, p1y = psi_ops.suffstats_batched_fused(
             variance, ard, mu, s, Zs, Y, weights, block_n or 64
         )

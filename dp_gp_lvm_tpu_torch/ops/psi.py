@@ -8,15 +8,18 @@ r"""Fused psi-statistics kernels (counterpart of
 - K2 `psi2_bwd_batched` (csrc/psi2_bwd.cu): the analytic Psi2 pullback,
   atoms on the grid, per-chunk partials summed by a second kernel; its
   launch geometry is `k2_geometry`. Replaces `_psi2_bwd_batched_kernel`.
-- K4 `psi2_batched` and K5 `psi2_single` (csrc/psi2_fwd.cu, one kernel
-  body, two entry points): the Psi2 stack (T, M, M) and one kernel's
-  Psi2 (M, M). Replace `_psi2_batched_kernel` and `_psi2_kernel`.
+- K4 `psi2_batched` and K5 `psi2_single`: the Psi2 stack (T, M, M) and
+  one kernel's Psi2 (M, M) (the stack at T = 1), K1's body with Psi1^T Y
+  compiled out (csrc/psi_suffstats.cu, entry `psi2_batched_f32`),
+  launched at `k1_geometry` for D = 0. Replace `_psi2_batched_kernel` and
+  `_psi2_kernel`.
 - K6 `psi1` (csrc/psi1.cu): Psi1 (N, M). Replaces `_psi1_kernel`.
 
 Beside each is its plain PyTorch version (`*_reference`), blocked over N.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel (float32 only, M <= 128) or raises. Each
-launch adds one to `LAUNCHES[<name>]`.
+launch adds one to `LAUNCHES[<name>]`. `fused_fits` says, before any
+launch, whether every kernel of a fused path takes a shape.
 
 The differentiable ops pair them as in the reference:
 `SuffstatsBatchedFused` (K1, K2 + plain Psi1 pullback),
@@ -43,7 +46,6 @@ LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
 MAX_M = 128          # the kernels hold an M x M tile in shared memory
 K2_MIN_ROWS = 4      # fewest rows a K2 block walks
 _K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
-_K4_STAGE = 16       # rows K4 and K5 stage at once (RS in their source)
 K1_MAX_THREADS = 576  # K1's launch bounds (MAX_THREADS in its source)
 K1_MAX_GROUPS = 8     # most row groups of a K1 block
 _K1_GROUP_ROWS = (16, 8, 4, 2, 1)  # rows per group and stage, largest first
@@ -216,19 +218,15 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _rows_per_chunk(n, target_blocks, multiple):
-    rows = max(1, math.ceil(n / max(1, target_blocks)))
-    return multiple * math.ceil(rows / multiple)
-
-
 class K1Geometry(NamedTuple):
     """How `suffstats_batched` launches csrc/psi_suffstats.cu: `groups` of
     `tiles` threads each (one 4x4 upper-triangle tile of Psi2 a thread) in
     blocks of `threads`, `stage_rows` rows staged at once, `blocks_per_sm`
     resident; `chunks` x T blocks of `rows` rows each, filling
     `slot_fill` of the block slots of their waves; `p1y_passes` walks of
-    the rows for the Psi1^T Y tiles; the floats of the per-(chunk, atom)
-    partials."""
+    the rows for the Psi1^T Y tiles (none at D = 0, the Psi2-only body of
+    K4 and K5); the floats of the per-(chunk, atom) partials, 16 per
+    upper-triangle tile and M x D of Psi1^T Y."""
     groups: int
     tiles: int
     threads: int
@@ -268,17 +266,9 @@ def _chunking(T, N, min_rows, slots, target):
     return best
 
 
-def k1_geometry(T, N, M, Q, D, sms, occupancy) -> K1Geometry:
-    """K1's launch geometry on `sms` SMs. `occupancy(groups, stage_rows)`
-    is how many blocks of that shape fit on an SM (0 if none). Of the
-    group counts whose block fits within K1_MAX_THREADS, it takes the one
-    with the fewest walks of the rows for Psi1^T Y, then the most
-    tile-owning threads resident per SM, then the most groups: the groups
-    of a block share each stage's staging, and fewer blocks write fewer
-    partials (on an H100 at c4, 4 groups in one block per SM beat 2 in
-    two). Each stages the most rows per group (of 16, 8, 4, 2, 1) that
-    keep as many of its blocks on an SM as one row per group does. Then
-    `_chunking` at one block per chunk and atom."""
+def _k1_block(M, Q, D, occupancy):
+    """(groups, tiles, threads, stage_rows, blocks per SM, Psi1^T Y passes)
+    of the block `k1_geometry` takes, None where no block fits an SM."""
     t4 = math.ceil(M / 4)
     tiles = t4 * (t4 + 1) // 2
     best = None
@@ -294,11 +284,27 @@ def k1_geometry(T, N, M, Q, D, sms, occupancy) -> K1Geometry:
         passes = math.ceil(t4 * math.ceil(D / 4) / threads)
         key = (passes, -per_sm * groups * tiles, -groups)
         if best is None or key < best[0]:
-            best = (key, groups, threads, groups * per_group, per_sm, passes)
-    if best is None:
-        raise RuntimeError(f"suffstats_batched: no block fits an SM at "
+            best = (key, groups, tiles, threads, groups * per_group, per_sm,
+                    passes)
+    return None if best is None else best[1:]
+
+
+def k1_geometry(T, N, M, Q, D, sms, occupancy) -> K1Geometry:
+    """K1's launch geometry on `sms` SMs, and at D = 0 that of K4 and K5.
+    `occupancy(groups, stage_rows)` is how many blocks of that shape fit
+    on an SM (0 if none). Of the group counts whose block fits within
+    K1_MAX_THREADS, it takes the one with the fewest walks of the rows for
+    Psi1^T Y, then the most tile-owning threads resident per SM, then the
+    most groups: the groups of a block share each stage's staging, and
+    fewer blocks write fewer partials (on an H100 at c4, 4 groups in one
+    block per SM beat 2 in two). Each stages the most rows per group (of
+    16, 8, 4, 2, 1) that keep as many of its blocks on an SM as one row
+    per group does. Then `_chunking` at one block per chunk and atom."""
+    block = _k1_block(M, Q, D, occupancy)
+    if block is None:
+        raise RuntimeError(f"psi_suffstats: no block fits an SM at "
                            f"M={M}, Q={Q}, D={D}")
-    _, groups, threads, stage_rows, per_sm, passes = best
+    groups, tiles, threads, stage_rows, per_sm, passes = block
     rows, chunks, fill = _chunking(T, N, stage_rows, sms * per_sm, 0.9)
     part = chunks * T * (16 * tiles + 4 * math.ceil(M * D / 4))
     return K1Geometry(groups, tiles, threads, stage_rows, per_sm, rows,
@@ -313,7 +319,7 @@ def _k1_blocks_per_sm(device_index, M, Q, D, groups, stage_rows):
         blocks = build.function("psi_suffstats", "psi_suffstats_blocks_per_sm")(
             M, Q, D, groups, stage_rows)
     if blocks < 0:
-        raise RuntimeError(f"suffstats_batched: occupancy query failed at "
+        raise RuntimeError(f"psi_suffstats: occupancy query failed at "
                            f"M={M}, Q={Q}, D={D} (CUDA error {-blocks})")
     return blocks
 
@@ -324,8 +330,9 @@ def _device_index(device):
 
 
 def k1_launch_geometry(device, T, N, M, Q, D) -> K1Geometry:
-    """The geometry `suffstats_batched` launches with on CUDA `device`, from
-    its SM count and the kernel's occupancy there."""
+    """The geometry `suffstats_batched` (or at D = 0 `psi2_batched` and
+    `psi2_single`) launches with on CUDA `device`, from its SM count and
+    the kernel's occupancy there."""
     index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return k1_geometry(
@@ -411,13 +418,15 @@ def k2_geometry(T, N, M, Q, sms, blocks_per_sm) -> K2Geometry:
 
 @functools.lru_cache(maxsize=None)
 def _k2_blocks_per_sm(device_index, M, Q, width):
+    """K2's blocks per SM, 0 where its block's shared memory exceeds the
+    card's."""
     from dp_gp_lvm_tpu_torch.ops import build
 
     with torch.cuda.device(device_index):
         blocks = build.function("psi2_bwd", "psi2_bwd_blocks_per_sm")(
             M, Q, width)
-    if blocks < 1:
-        raise RuntimeError(f"psi2_bwd_batched: no block fits an SM at "
+    if blocks < 0:
+        raise RuntimeError(f"psi2_bwd_batched: occupancy query failed at "
                            f"M={M}, Q={Q} (CUDA error {-blocks})")
     return blocks
 
@@ -428,7 +437,36 @@ def k2_launch_geometry(device, T, N, M, Q) -> K2Geometry:
     index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     per_sm = _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q))
+    if per_sm < 1:
+        raise RuntimeError(f"psi2_bwd_batched: no block fits an SM at "
+                           f"M={M}, Q={Q}")
     return k2_geometry(T, N, M, Q, sms, per_sm)
+
+
+def fused_fits(M, Q, D, k1_occupancy, k2_blocks_per_sm) -> bool:
+    """Whether every kernel of a fused path takes (M, Q, D), by the limits
+    its wrappers enforce: D > 0 is K1 with K2 as its backward, D = 0 is K4
+    or K5 (K1's body without Psi1^T Y) and K6, with K2. Every kernel holds
+    an M x M tile (MAX_M); K2's block must fit an SM
+    (`k2_blocks_per_sm()` >= 1); K1's body must find a block that fits
+    (`k1_geometry`, with `k1_occupancy(groups, stage_rows)`). The queries
+    run only as far as the answer needs them."""
+    return (M <= MAX_M and k2_blocks_per_sm() >= 1
+            and _k1_block(M, Q, D, k1_occupancy) is not None)
+
+
+def fused_fits_on(device, M, Q, D) -> bool:
+    """`fused_fits` on CUDA `device`, from the kernels' occupancy there
+    (building them at first use); decided once per device and shape, and
+    past MAX_M without asking the card."""
+    return M <= MAX_M and _fused_fits_at(_device_index(device), M, Q, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_fits_at(index, M, Q, D) -> bool:
+    return fused_fits(
+        M, Q, D, lambda g, rs: _k1_blocks_per_sm(index, M, Q, D, g, rs),
+        lambda: _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q)))
 
 
 def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
@@ -476,32 +514,30 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
     return gvar_m, gard, gz, V, gmu, gs, gw
 
 
-def _psi2_forward(entry, name, variances, ards, mu, s, Zs, weights, T):
-    """Launch csrc/psi2_fwd.cu through `entry`; inputs carry the atom dim."""
+def _psi2_forward(name, variances, ards, mu, s, Zs, weights):
+    """Launch K1's body without Psi1^T Y (csrc/psi_suffstats.cu) at K1's
+    geometry for D = 0; inputs carry the atom dim."""
     from dp_gp_lvm_tpu_torch.ops import build
 
-    _, M, Q = Zs.shape
+    T, M, Q = Zs.shape
     N = mu.shape[0]
     if M > MAX_M:
         raise ValueError(f"{name}: M={M} > {MAX_M} not supported")
-    w = _ones_weights(mu, weights)
-    _check_cuda(
-        name,
-        dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, w=w),
-        dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q), Zs=(T, M, Q),
-             w=(N,)),
-    )
-    sms = torch.cuda.get_device_properties(mu.device).multi_processor_count
-    rows = _rows_per_chunk(N, math.ceil(4 * sms / T), _K4_STAGE)
-    chunks = math.ceil(N / rows)
-    part = torch.empty(chunks, T * M * M, dtype=mu.dtype, device=mu.device)
+    tensors = dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs)
+    shapes = dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q),
+                  Zs=(T, M, Q))
+    if weights is not None:
+        tensors["w"], shapes["w"] = weights, (N,)
+    _check_cuda(name, tensors, shapes)
+    geo = k1_launch_geometry(mu.device, T, N, M, Q, 0)
+    part = torch.empty(geo.part_floats, dtype=mu.dtype, device=mu.device)
     out = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    dims = (T, N, M, Q) if entry == "psi2_batched_f32" else (N, M, Q)
-    err = build.function("psi2_fwd", entry)(
+    err = build.function("psi_suffstats", "psi2_batched_f32")(
         variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
-        w.data_ptr(), Zs.data_ptr(), part.data_ptr(), out.data_ptr(),
-        *dims, rows, chunks, stream,
+        None if weights is None else weights.data_ptr(), Zs.data_ptr(),
+        part.data_ptr(), out.data_ptr(), T, N, M, Q, geo.groups,
+        geo.stage_rows, geo.rows, geo.chunks, stream,
     )
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -514,8 +550,8 @@ def psi2_batched(variances, ards, mu, s, Zs, weights=None, block_n: int = 64):
     if _is_cpu(variances, ards, mu, s, Zs, weights):
         return psi2_batched_reference(variances, ards, mu, s, Zs, weights,
                                       block_n)
-    return _psi2_forward("psi2_batched_f32", "psi2_batched", variances, ards,
-                         mu, s, Zs, weights, Zs.shape[0])
+    return _psi2_forward("psi2_batched", variances, ards, mu, s, Zs,
+                         weights)
 
 
 def psi2_single(variance, ard, mu, s, Z, weights=None, block_n: int = 64):
@@ -523,9 +559,8 @@ def psi2_single(variance, ard, mu, s, Z, weights=None, block_n: int = 64):
     if _is_cpu(variance, ard, mu, s, Z, weights):
         return psi2_single_reference(variance, ard, mu, s, Z, weights,
                                      block_n)
-    return _psi2_forward("psi2_single_f32", "psi2_single",
-                         variance.reshape(1), ard[None], mu, s, Z[None],
-                         weights, 1)[0]
+    return _psi2_forward("psi2_single", variance.reshape(1), ard[None], mu,
+                         s, Z[None], weights)[0]
 
 
 def psi1(variance, ard, mu, s, Z, weights=None, block_n: int = 128):

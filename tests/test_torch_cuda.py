@@ -309,3 +309,179 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
                                            "Q=256"):
         psi.suffstats_batched(*_k1(wide))
+
+
+def _k45(t):
+    return (t["vs"], t["ards"], t["mu"], t["s"], t["Zs"], t["w"])
+
+
+def _one(t):
+    """The inputs of K5: the first atom of the stack."""
+    return (t["vs"][0], t["ards"][0].contiguous(), t["mu"], t["s"],
+            t["Zs"][0].contiguous(), t["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [1, 3])
+@pytest.mark.parametrize("M_", [1, 33, 128])
+@pytest.mark.parametrize("N_", [1, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k4_k5_match_plain_at_edge_shapes(card, weighted, N_, M_, T_):
+    """K4 on the stack and K5 on its first atom against their plain
+    versions in f64 where the shared body's geometry is ragged: one row, a
+    block of fewer rows than a stage, one inducing point, M across tiles
+    and warps, the largest M. Zero weights included (all of them, at N=1
+    weighted)."""
+    a, f = _inputs(card, weighted, T=T_, N=N_, M=M_, Q=10)
+    psi.reset_launch_counts()
+    got = psi.psi2_batched(*_k45(f))
+    want = psi.psi2_batched_reference(*_k45(a))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert max(_k2_errors([got], [want])) <= TOL_K1
+    got = psi.psi2_single(*_one(f))
+    want = psi.psi2_single_reference(*_one(a))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert max(_k2_errors([got], [want])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(psi2_batched=1, psi2_single=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M_", [33, 128])
+@pytest.mark.parametrize("Q_", [12, 20, 40])
+def test_k4_k5_match_plain_at_wide_latents(card, Q_, M_):
+    """Q beyond every configuration's 10, through the generic
+    instantiation."""
+    a, f = _inputs(card, True, T=2, N=70, M=M_, Q=Q_)
+    got = psi.psi2_batched(*_k45(f))
+    assert max(_scaled_errors([got], [psi.psi2_batched_reference(
+        *_k45(a))])) <= TOL_K1
+    got = psi.psi2_single(*_one(f))
+    assert max(_scaled_errors([got], [psi.psi2_single_reference(
+        *_one(a))])) <= TOL_K1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [C2, dict(T=4, N=300, M=64, Q=10, D=4),
+                                   dict(T=2, N=70, M=33, Q=20, D=4)],
+                         ids=["c2", "t4", "q20"])
+def test_k4_k5_launches_repeat_bit_for_bit(card, shape):
+    _, f = _inputs(card, True, **shape)
+    assert torch.equal(psi.psi2_batched(*_k45(f)), psi.psi2_batched(*_k45(f)))
+    assert torch.equal(psi.psi2_single(*_one(f)), psi.psi2_single(*_one(f)))
+
+
+# K1 at a fixed input and a fixed launch geometry (no SM count or occupancy
+# enters): (T, N, M, Q, D), (groups, stage rows, rows per chunk, chunks) and
+# the first 16 hex digits of the sha256 of its Psi2 and Psi1^T Y bytes, as
+# K1 gave them on an H100 (compute capability 9.0), built by nvcc 12.9
+# (V12.9.86) for sm_90a, before its body was shared with K4 and K5. The
+# Q = 10 instantiations at M4 = 64 and 128 and the generic one. Another
+# nvcc or CUDA runtime may move the bits of a correct kernel: then record
+# them again from the package before the change, on the same card.
+K1_BITS = [
+    ((3, 200, 64, 10, 59), (4, 32, 67, 3), "4693a0ddddb1f9b9"),
+    ((1, 100, 50, 10, 12), (1, 4, 25, 4), "e8501ad308958f06"),
+    ((2, 100, 128, 10, 60), (1, 16, 50, 2), "2a575bb9d815ff79"),
+]
+
+
+def k1_fixed_digest(shape, geometry):
+    """K1's output digest at `shape` and `geometry` (see K1_BITS), through
+    the C entry point of the package on the import path."""
+    import hashlib
+
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    T_, N_, M_, Q_, D_ = shape
+    _, f = _inputs(torch.device("cuda"), True, T=T_, N=N_, M=M_, Q=Q_, D=D_)
+    groups, stage_rows, rows, chunks = geometry
+    t4 = -(-M_ // 4)
+    kw = dict(dtype=torch.float32, device="cuda")
+    part = torch.empty(chunks * T_ * (16 * t4 * (t4 + 1) // 2
+                                      + 4 * -(-M_ * D_ // 4)), **kw)
+    psi2 = torch.empty(T_, M_, M_, **kw)
+    p1y = torch.empty(T_, M_, D_, **kw)
+    err = build.function("psi_suffstats")(
+        *(f[k].data_ptr() for k in ("vs", "ards", "mu", "s", "w", "Zs", "Y")),
+        part.data_ptr(), psi2.data_ptr(), p1y.data_ptr(), T_, N_, M_, Q_, D_,
+        groups, stage_rows, rows, chunks,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return hashlib.sha256(psi2.cpu().numpy().tobytes()
+                          + p1y.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,geometry,digest", K1_BITS,
+                         ids=["m64", "m50", "m128"])
+def test_k1_bits_unchanged_by_the_shared_body(card, shape, geometry, digest):
+    assert k1_fixed_digest(shape, geometry) == digest
+
+
+def _m129_data(card, dtype):
+    r = np.random.default_rng(5)
+    return torch.as_tensor(r.normal(size=(300, 12)), dtype=dtype,
+                           device=card)
+
+
+def _model(family, use_fused):
+    """A model at M = 129 and the c2 latent width, so that K_uu is well
+    conditioned in f32."""
+    from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
+
+    if family == "dp":
+        return dp_gp_lvm, dp_gp_lvm.Config(
+            num_latent=10, num_inducing=129, truncation=2,
+            use_fused=use_fused)
+    return bgplvm, bgplvm.Config(num_latent=10, num_inducing=129,
+                                 use_fused=use_fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dp", "bgplvm"])
+def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
+    """At M = 129 no kernel takes the shape: "auto" runs the non-fused path
+    on the card, launches no kernel, and equals the plain path on the CPU
+    (f64 to rounding; f32 within chip_smoke.py's 1e-4 of f64 at the same
+    jitter)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+
+    model, cfg = _model(family, "auto")
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        Y = _m129_data(card, dtype)
+        params = model.init_params(torch.Generator().manual_seed(0), Y, cfg)
+        policy = JitterPolicy(initial=JitterPolicy().initial_for(dtype))
+        psi.reset_launch_counts()
+        loss = model.loss(params, Y, cfg) if dtype == torch.float32 else (
+            -model.elbo(params, Y, cfg, policy))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        assert psi.LAUNCHES == _launched()
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        p64 = {k: v.detach().cpu().double() for k, v in params.items()}
+        want = -model.elbo(p64, Y.cpu().double(),
+                           cfg._replace(use_fused=False), policy)
+        assert abs(float(loss.detach()) - float(want)) <= tol * abs(
+            float(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dp", "bgplvm"])
+def test_use_fused_true_raises_past_the_kernels_m(card, family):
+    model, cfg = _model(family, True)
+    Y = _m129_data(card, torch.float32)
+    params = model.init_params(torch.Generator().manual_seed(0), Y, cfg)
+    with pytest.raises(ValueError, match="M=129"):
+        model.loss(params, Y, cfg)
+
+
+@pytest.mark.cuda
+def test_auto_asks_the_kernels_occupancy_queries(card):
+    """The queries tell a block that does not fit (0 blocks per SM) from a
+    CUDA error (which raises); "auto" takes the kernels where both fit."""
+    index = torch.cuda.current_device()
+    assert psi._k2_blocks_per_sm(index, 128, 48, 32) == 0
+    assert psi._k1_blocks_per_sm(index, 128, 256, 5, 1, 1) == 0
+    assert not psi.fused_fits_on(card, 128, 48, 0)
+    assert not psi.fused_fits_on(card, 128, 256, 5)
+    assert psi.fused_fits_on(card, 50, 10, 0)
+    assert psi.fused_fits_on(card, 64, 10, 59)

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Time K1 (fused Psi2 + Psi1^T Y, `ops/psi.py::suffstats_batched`) and K2
-(the fused Psi2 pullback, `ops/psi.py::psi2_bwd_batched`) on the card,
-CUDA kernel by CUDA kernel.
+"""Time the Psi kernels on the card, CUDA kernel by CUDA kernel: K1 (fused
+Psi2 + Psi1^T Y, `ops/psi.py::suffstats_batched`), K2 (the fused Psi2
+pullback, `psi2_bwd_batched`), K4 (the Psi2 stack, `psi2_batched`) and K5
+(one kernel's Psi2, `psi2_single`).
 
-    python3 tools/psi_profile.py [--root DIR] [--kernel k1|k2] [--out FILE]
+    python3 tools/psi_profile.py [--root DIR] [--kernel k1|k2|k4|k5]
+                                 [--out FILE]
 
 Imports `dp_gp_lvm_tpu_torch` from DIR (default: the checkout holding this
 script), so that an older checkout unpacked beside this one is timed by
-the same script, and builds that checkout's `csrc/psi_suffstats.cu` and
-`csrc/psi2_bwd.cu`. K1 at the c4 (T=20, N=1024, M=64, D=59) and scale
-(T=20, N=8192, M=128, D=60) shapes, K2 at c4, c2 (T=1, N=1000, M=50) and
-scale, all Q=10: one JSON line per kernel and shape with the device ms
-per call of each CUDA kernel the wrapper launches (the main kernel and
-the chunk reduction), from `torch.profiler`'s `key_averages()` over 20
-wrapper calls; then the card's name and power limit as `nvidia-smi` gives
-them. With `--out` the lines are also written to FILE. Needs a CUDA card
-and nvcc.
+the same script, and builds that checkout's kernels. K1 at the c4 (T=20,
+N=1024, M=64, D=59) and scale (T=20, N=8192, M=128, D=60) shapes, K2 at
+c4, c2 (T=1, N=1000, M=50) and scale, K4 at c4 and scale, K5 at c2 and
+scale (N=8192, M=128), all Q=10: one JSON line per kernel and shape with
+the device ms per call of each CUDA kernel the wrapper launches (the main
+kernel and the chunk reduction), from `torch.profiler`'s `key_averages()`
+over 20 wrapper calls; then the card's name and power limit as
+`nvidia-smi` gives them. With `--out` the lines are also written to FILE.
+Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ K1_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10, D=59),
 K2_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10),
                  c2=dict(T=1, N=1000, M=50, Q=10),
                  scale=dict(T=20, N=8192, M=128, Q=10))
+K4_SHAPES = dict(c4=K2_SHAPES["c4"], scale=K2_SHAPES["scale"])
+K5_SHAPES = dict(c2=K2_SHAPES["c2"], scale=dict(T=1, N=8192, M=128, Q=10))
 CALLS = 20
 
 
@@ -53,20 +57,28 @@ def _kernel_ms(torch, fn):
     return out
 
 
-def _inputs(torch, gen, T, N, M, Q, D=None):
+def _inputs(torch, gen, kernel, T, N, M, Q, D=None):
+    """The wrapper's arguments: K1 takes Y (N, D), K2 a cotangent (T, M, M),
+    K5 the first atom only."""
     kw = dict(generator=gen, device="cuda")
     args = [0.5 + torch.rand(T, **kw), 0.3 + 1.7 * torch.rand(T, Q, **kw),
             torch.randn(N, Q, **kw), 0.05 + 0.55 * torch.rand(N, Q, **kw),
             torch.randn(T, M, Q, **kw)]
-    return args + [torch.randn(N, D, **kw) if D else
-                   torch.randn(T, M, M, **kw)]
+    if kernel == "k1":
+        return args + [torch.randn(N, D, **kw)]
+    if kernel == "k2":
+        return args + [torch.randn(T, M, M, **kw)]
+    if kernel == "k5":
+        return [args[0][0], args[1][0], args[2], args[3], args[4][0]]
+    return args
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(
         pathlib.Path(__file__).resolve().parent.parent))
-    ap.add_argument("--kernel", choices=("k1", "k2"), default=None)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
+                    default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -86,11 +98,13 @@ def main(argv=None) -> int:
     lines = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel, shapes, fn in (("k1", K1_SHAPES, psi.suffstats_batched),
-                               ("k2", K2_SHAPES, psi.psi2_bwd_batched)):
+                               ("k2", K2_SHAPES, psi.psi2_bwd_batched),
+                               ("k4", K4_SHAPES, psi.psi2_batched),
+                               ("k5", K5_SHAPES, psi.psi2_single)):
         if args.kernel not in (None, kernel):
             continue
         for name, sh in shapes.items():
-            args32 = _inputs(torch, gen, **sh)
+            args32 = _inputs(torch, gen, kernel, **sh)
             lines.append(dict(root=args.root, kernel=kernel, shape=name,
                               **sh, kernels=_kernel_ms(
                                   torch, lambda: fn(*args32))))
