@@ -20,8 +20,9 @@ imputation servers built on them. Phases, each printing one JSON line:
   k6     K6 (Psi1) and
   k5     K5 (single-kernel Psi2) at the c2 widths, weighted and not,
          against their plain versions in f64; also timed at N=8192, M=128;
-         two launches on the same inputs must give the same bits; K5 with
-         its launch geometry (K1's at D = 0)
+         two launches on the same inputs must give the same bits; each with
+         its launch geometry (K5: K1's at D = 0); K6 also held against f64,
+         weighted, at N=8192 with M=128 and with M=256 (two column tiles)
   k4     K4 (Psi2 stack) at the c4 shape, the same way, and against f64
          and timed at the T=20, N=8192, M=128 scale shape
   gate   value and gradient of sum Psi2^2 through Psi2BatchedFused (K4
@@ -392,11 +393,12 @@ def _single(tensors):
 
 
 def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol,
-                  k1_body=False):
+                  geometry, held_at=()):
     """A single-kernel forward (K5 or K6) at the c2 widths against its
     plain version in f64, weighted and not, and repeated to the bit; timed
-    there and at N=8192, M=128; with `k1_body` (K5) the launch geometry of
-    K1's body at D = 0 at both shapes."""
+    there and at N=8192, M=128, with `geometry(shape)`, its launch geometry,
+    at both; and held against f64, weighted, and timed at each (N, M, Q) of
+    `held_at`."""
     N, M, Q = C2["N"], C2["M"], C2["Q"]
     f64, f32 = _inputs(torch, gen, T=1, **C2)
     a64, a32 = _single(f64), _single(f32)
@@ -421,37 +423,69 @@ def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol,
     big_device_ms = _device_ms(lambda: fn(*big_args), torch)
     bound_ms, bound_by = _bound_ms(*work(N, M, Q))
     big_bound_ms, big_bound_by = _bound_ms(*work(**big))
+    held = [_held_at(torch, gen, fn, ref, work, **sh) for sh in held_at]
     row = dict(phase=name, shape=dict(N=N, M=M, Q=Q),
                max_abs_err=max(e[0] for e in errs.values()),
                scaled_err={k: e[1] for k, e in errs.items()}, tol=tol,
                repeat_bitwise_equal=bitwise,
                launches_in_phase=psi.LAUNCHES[launches_key], ms=ms,
                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, scale_shape=big, scale_ms=big_ms,
+               bound_by=bound_by, geometry=geometry(dict(N=N, M=M, Q=Q)),
+               scale_shape=big, scale_ms=big_ms,
                scale_device_ms=big_device_ms, scale_bound_ms=big_bound_ms,
-               scale_bound_by=big_bound_by, library_ms=None,
+               scale_bound_by=big_bound_by, scale_geometry=geometry(big),
+               held_at=held, library_ms=None,
                library_note="no single PyTorch call computes Psi1 or Psi2")
-    if k1_body:
-        row["geometry"] = _k1_geometry(psi, dict(T=1, N=N, M=M, Q=Q, D=0))
-        row["scale_geometry"] = _k1_geometry(psi, dict(T=1, D=0, **big))
     emit(row)
     if not max(e[1] for e in errs.values()) <= tol:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{errs}")
     if not bitwise:
         raise AssertionError(f"two {name} launches on the same inputs differ")
+    for h in held:
+        if not h["scaled_err"] <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {h['shape']}: {h}")
     return row
 
 
+def _held_at(torch, gen, fn, ref, work, N, M, Q):
+    """A single-kernel forward at (N, M, Q), weighted, against its plain
+    version in f64, and its device ms there."""
+    f64, f32 = _inputs(torch, gen, T=1, D=1, N=N, M=M, Q=Q)
+    a64, a32 = _single(f64), _single(f32)
+    w64 = _weights(torch, gen, N)
+    args32 = (a32["v"], a32["ard"], a32["mu"], a32["s"], a32["Z"],
+              w64.float())
+    abs_err, scaled = _errors(
+        [fn(*args32)],
+        [ref(a64["v"], a64["ard"], a64["mu"], a64["s"], a64["Z"], w64)])
+    bound_ms, bound_by = _bound_ms(*work(N, M, Q))
+    return dict(shape=dict(N=N, M=M, Q=Q), max_abs_err=abs_err,
+                scaled_err=scaled,
+                device_ms=_device_ms(lambda: fn(*args32), torch),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _k6_geometry(psi, shape):
+    """How the K6 wrapper launches at `shape` on this card."""
+    return psi.k6_launch_geometry("cuda", shape["N"], shape["M"],
+                                  shape["Q"])._asdict()
+
+
 def phase_k6(torch, psi, gen):
+    big = dict(N=SCALE["N"], Q=SCALE["Q"])
     return _phase_single(torch, gen, "k6", psi.psi1, psi.psi1_reference,
-                         "psi1", psi, k6_work, TOL_K6)
+                         "psi1", psi, k6_work, TOL_K6,
+                         lambda sh: _k6_geometry(psi, sh),
+                         held_at=(dict(big, M=128), dict(big, M=256)))
 
 
 def phase_k5(torch, psi, gen):
     return _phase_single(torch, gen, "k5", psi.psi2_single,
                          psi.psi2_single_reference, "psi2_single", psi,
-                         k5_work, TOL_K5, k1_body=True)
+                         k5_work, TOL_K5,
+                         lambda sh: _k1_geometry(psi, dict(T=1, D=0, **sh)))
 
 
 def phase_k4(torch, psi, gen):
@@ -974,7 +1008,10 @@ def main(argv=None) -> int:
              redesigned_in="sixth slice of the port",
              scale_device_ms=k5["scale_device_ms"],
              scale_bound_ms=k5["scale_bound_ms"]),
-        kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
+        dict(kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
+             redesigned_in="seventh slice of the port",
+             scale_device_ms=k6["scale_device_ms"],
+             scale_bound_ms=k6["scale_bound_ms"]),
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {kernels}")

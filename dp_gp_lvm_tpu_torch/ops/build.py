@@ -32,7 +32,8 @@ SIGNATURES = {
                       "psi_suffstats_blocks_per_sm": [I] * 5},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
                  "psi2_bwd_blocks_per_sm": [I] * 3},
-    "psi1": {"psi1_f32": [P] * 7 + [I] * 3 + [P]},
+    "psi1": {"psi1_f32": [P] * 7 + [I] * 5 + [P],
+             "psi1_blocks_per_sm": [I] * 2},
 }
 
 _lock = threading.Lock()

@@ -13,13 +13,16 @@ r"""Fused psi-statistics kernels (counterpart of
   compiled out (csrc/psi_suffstats.cu, entry `psi2_batched_f32`),
   launched at `k1_geometry` for D = 0. Replace `_psi2_batched_kernel` and
   `_psi2_kernel`.
-- K6 `psi1` (csrc/psi1.cu): Psi1 (N, M). Replaces `_psi1_kernel`.
+- K6 `psi1` (csrc/psi1.cu): Psi1 (N, M), columns tiled over the grid so
+  that any M runs; its launch geometry is `k6_geometry`. Replaces
+  `_psi1_kernel`.
 
 Beside each is its plain PyTorch version (`*_reference`), blocked over N.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel (float32 only, M <= 128) or raises. Each
-launch adds one to `LAUNCHES[<name>]`. `fused_fits` says, before any
-launch, whether every kernel of a fused path takes a shape.
+tensor it launches the kernel (float32 only; M <= 128 for K1's body and
+K2) or raises. Each launch adds one to `LAUNCHES[<name>]`. `fused_fits`
+says, before any launch, whether every kernel of a fused path takes a
+shape.
 
 The differentiable ops pair them as in the reference:
 `SuffstatsBatchedFused` (K1, K2 + plain Psi1 pullback),
@@ -43,12 +46,15 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
 
 LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
             "psi2_batched": 0, "psi2_single": 0, "psi1": 0}
-MAX_M = 128          # the kernels hold an M x M tile in shared memory
+MAX_M = 128          # K1's body and K2 hold an M x M tile in shared memory
 K2_MIN_ROWS = 4      # fewest rows a K2 block walks
 _K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
 K1_MAX_THREADS = 576  # K1's launch bounds (MAX_THREADS in its source)
 K1_MAX_GROUPS = 8     # most row groups of a K1 block
 _K1_GROUP_ROWS = (16, 8, 4, 2, 1)  # rows per group and stage, largest first
+K6_WARPS = 8          # warps of a K6 block (WARPS in its source)
+K6_COLS = 128         # columns of a K6 column tile, four per lane
+K6_MAX_STEP_ROWS = 8  # most rows a K6 warp prepares at once (its source's)
 
 
 def reset_launch_counts() -> None:
@@ -446,8 +452,8 @@ def k2_launch_geometry(device, T, N, M, Q) -> K2Geometry:
 def fused_fits(M, Q, D, k1_occupancy, k2_blocks_per_sm) -> bool:
     """Whether every kernel of a fused path takes (M, Q, D), by the limits
     its wrappers enforce: D > 0 is K1 with K2 as its backward, D = 0 is K4
-    or K5 (K1's body without Psi1^T Y) and K6, with K2. Every kernel holds
-    an M x M tile (MAX_M); K2's block must fit an SM
+    or K5 (K1's body without Psi1^T Y) and K6, with K2. K1's body and K2
+    hold an M x M tile (MAX_M; K6 takes any M); K2's block must fit an SM
     (`k2_blocks_per_sm()` >= 1); K1's body must find a block that fits
     (`k1_geometry`, with `k1_occupancy(groups, stage_rows)`). The queries
     run only as far as the answer needs them."""
@@ -563,27 +569,91 @@ def psi2_single(variance, ard, mu, s, Z, weights=None, block_n: int = 64):
                          s, Z[None], weights)[0]
 
 
+class K6Geometry(NamedTuple):
+    """How `psi1` launches csrc/psi1.cu: blocks of K6_WARPS warps,
+    `col_tiles` column tiles of K6_COLS columns (four a lane) on the
+    grid's y axis and `row_blocks` blocks on its x axis; each warp
+    prepares `step_rows` rows at once and walks at most `steps` such steps
+    grid-stride; `blocks_per_sm` of its blocks fit on an SM."""
+    step_rows: int
+    col_tiles: int
+    row_blocks: int
+    steps: int
+    blocks_per_sm: int
+
+
+def k6_max_step_rows(Q) -> int:
+    """Most rows a K6 warp prepares at once: two passes of its lanes over
+    the (row, q) pairs (6 rows at Q = 10), at least one, at most
+    K6_MAX_STEP_ROWS."""
+    return max(1, min(K6_MAX_STEP_ROWS, 64 // Q))
+
+
+def k6_geometry(N, M, Q, sms, blocks_per_sm) -> K6Geometry:
+    """K6's launch geometry on `sms` SMs that hold `blocks_per_sm` of its
+    blocks each (at `k6_max_step_rows`): the fewest rows a warp step that
+    let one wave of resident blocks, over all column tiles, take every
+    row in one step (on an H100 one row a step at c2, four at N = 8192,
+    M = 128: more rows a step than that only lengthen each warp's chain,
+    fewer make warps walk a second step), up to `k6_max_step_rows`;
+    as many blocks as those steps need, at most one wave; each block
+    reads its tile of Z once, and the warps of a larger N walk their
+    steps grid-stride."""
+    col_tiles = math.ceil(M / K6_COLS)
+    wave = max(1, sms * blocks_per_sm // col_tiles)
+    step_rows = min(k6_max_step_rows(Q),
+                    max(1, math.ceil(N / (wave * K6_WARPS))))
+    warp_steps = math.ceil(N / step_rows)
+    row_blocks = max(1, min(math.ceil(warp_steps / K6_WARPS), wave))
+    steps = math.ceil(warp_steps / (row_blocks * K6_WARPS))
+    return K6Geometry(step_rows, col_tiles, row_blocks, steps, blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_blocks_per_sm(device_index, Q):
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        blocks = build.function("psi1", "psi1_blocks_per_sm")(
+            Q, k6_max_step_rows(Q))
+    if blocks < 0:
+        raise RuntimeError(f"psi1: occupancy query failed at Q={Q} "
+                           f"(CUDA error {-blocks})")
+    return blocks
+
+
+def k6_launch_geometry(device, N, M, Q) -> K6Geometry:
+    """The geometry `psi1` launches with on CUDA `device`, from its SM
+    count and the kernel's occupancy there."""
+    index = _device_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    per_sm = _k6_blocks_per_sm(index, Q)
+    if per_sm < 1:
+        raise RuntimeError(f"psi1: no block fits an SM at Q={Q}")
+    return k6_geometry(N, M, Q, sms, per_sm)
+
+
 def psi1(variance, ard, mu, s, Z, weights=None, block_n: int = 128):
-    """K6: Psi1 (N, M) of one kernel, optionally row-weighted."""
+    """K6: Psi1 (N, M) of one kernel, optionally row-weighted. `block_n`
+    sizes the plain version's blocks; the kernel takes `k6_geometry`."""
     if _is_cpu(variance, ard, mu, s, Z, weights):
         return psi1_reference(variance, ard, mu, s, Z, weights, block_n)
     from dp_gp_lvm_tpu_torch.ops import build
 
     M, Q = Z.shape
     N = mu.shape[0]
-    if M > MAX_M:
-        raise ValueError(f"psi1: M={M} > {MAX_M} not supported")
     tensors = dict(variance=variance, ard=ard, mu=mu, s=s, Z=Z)
     shapes = dict(variance=(), ard=(Q,), mu=(N, Q), s=(N, Q), Z=(M, Q))
     if weights is not None:
         tensors["w"], shapes["w"] = weights, (N,)
     _check_cuda("psi1", tensors, shapes)
+    geo = k6_launch_geometry(mu.device, N, M, Q)
     out = torch.empty(N, M, dtype=mu.dtype, device=mu.device)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     err = build.function("psi1")(
         variance.data_ptr(), ard.data_ptr(), mu.data_ptr(), s.data_ptr(),
         None if weights is None else weights.data_ptr(), Z.data_ptr(),
-        out.data_ptr(), N, M, Q, stream,
+        out.data_ptr(), N, M, Q, geo.step_rows, geo.row_blocks, stream,
     )
     _raise_on(err, "psi1")
     LAUNCHES["psi1"] += 1

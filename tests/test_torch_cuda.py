@@ -485,3 +485,81 @@ def test_auto_asks_the_kernels_occupancy_queries(card):
     assert not psi.fused_fits_on(card, 128, 256, 5)
     assert psi.fused_fits_on(card, 50, 10, 0)
     assert psi.fused_fits_on(card, 64, 10, 59)
+
+
+def _k6(t):
+    """The inputs of K6: the first atom of the stack, unweighted."""
+    return (t["vs"][0], t["ards"][0].contiguous(), t["mu"], t["s"],
+            t["Zs"][0].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q_", [1, 10, 12, 40])
+@pytest.mark.parametrize("M_", [1, 33, 50, 128, 129, 256])
+@pytest.mark.parametrize("N_", [1, 5, 1000, 8192])
+def test_k6_matches_plain_at_any_m(card, N_, M_, Q_):
+    """K6 against its plain version in f64, unweighted and with mask-style
+    weights (zeros included; all of them at N=1): the fixed (Q = 10) and
+    the generic instantiation; one row, a step of fewer rows than a warp
+    prepares, the c2 and the scale N; one column, M across lanes, odd
+    (scalar stores), even (8-byte), a multiple of 4 (16-byte), past one
+    column tile of 128. Each call launches K6 once."""
+    a, f = _inputs(card, True, T=1, N=N_, M=M_, Q=Q_)
+    psi.reset_launch_counts()
+    for w32, w64 in ((None, None), (f["w"], a["w"])):
+        got = psi.psi1(*_k6(f), w32)
+        want = psi.psi1_reference(*_k6(a), w64)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert max(_k2_errors([got], [want])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(psi1=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [C2, dict(T=1, N=8192, M=128, Q=10, D=4),
+                                   dict(T=1, N=300, M=129, Q=12, D=4)],
+                         ids=["c2", "scale", "m129_q12"])
+def test_k6_launches_repeat_bit_for_bit(card, shape):
+    _, f = _inputs(card, True, **shape)
+    assert torch.equal(psi.psi1(*_k6(f), f["w"]), psi.psi1(*_k6(f), f["w"]))
+    assert torch.equal(psi.psi1(*_k6(f)), psi.psi1(*_k6(f)))
+
+
+@pytest.mark.cuda
+def test_psi1_fused_gradient_past_one_column_tile(card):
+    """Psi1Fused at M = 129 (K6 forward over two column tiles, the plain
+    pullback) on the card against the same op on the CPU in f64."""
+    a, f = _inputs(card, True, T=1, N=70, M=129, Q=10)
+
+    def run(t):
+        leaves = [x.detach().clone().contiguous().requires_grad_()
+                  for x in _k6(t)]
+        out = psi.psi1_fused(*leaves)
+        return torch.autograd.grad(torch.sum(out ** 2) + torch.sum(
+            torch.sin(out)), leaves)
+
+    psi.reset_launch_counts()
+    got = run(f)
+    assert psi.LAUNCHES == _launched(psi1=1)
+    want = run({k: v.cpu() for k, v in a.items()})
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu().double() - w).abs().max()) <= TOL_K2 * float(
+            w.abs().max())
+
+
+@pytest.mark.cuda
+def test_k6_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a, f = _inputs(card, weighted=True, T=1, M=129)
+    with pytest.raises(TypeError, match="float32"):
+        psi.psi1(*_k6(a))
+    k6 = list(_k6(f))
+    k6[4] = f["Zs"][0].T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        psi.psi1(*k6)
+    with pytest.raises(ValueError, match="shape"):
+        psi.psi1(*_k6(f), f["w"][:-1].contiguous())
+    # the generic instantiation's Z tile (Q x 128 floats) past the card's
+    # shared memory
+    _, wide = _inputs(card, False, T=1, N=4, M=3, Q=512)
+    with pytest.raises(RuntimeError, match="no block fits an SM at Q=512"):
+        psi.psi1(*_k6(wide))

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Time the Psi kernels on the card, CUDA kernel by CUDA kernel: K1 (fused
 Psi2 + Psi1^T Y, `ops/psi.py::suffstats_batched`), K2 (the fused Psi2
-pullback, `psi2_bwd_batched`), K4 (the Psi2 stack, `psi2_batched`) and K5
-(one kernel's Psi2, `psi2_single`).
+pullback, `psi2_bwd_batched`), K4 (the Psi2 stack, `psi2_batched`), K5
+(one kernel's Psi2, `psi2_single`) and K6 (Psi1, `psi1`).
 
-    python3 tools/psi_profile.py [--root DIR] [--kernel k1|k2|k4|k5]
+    python3 tools/psi_profile.py [--root DIR] [--kernel k1|k2|k4|k5|k6]
                                  [--out FILE]
 
 Imports `dp_gp_lvm_tpu_torch` from DIR (default: the checkout holding this
 script), so that an older checkout unpacked beside this one is timed by
 the same script, and builds that checkout's kernels. K1 at the c4 (T=20,
 N=1024, M=64, D=59) and scale (T=20, N=8192, M=128, D=60) shapes, K2 at
-c4, c2 (T=1, N=1000, M=50) and scale, K4 at c4 and scale, K5 at c2 and
-scale (N=8192, M=128), all Q=10: one JSON line per kernel and shape with
-the device ms per call of each CUDA kernel the wrapper launches (the main
-kernel and the chunk reduction), from `torch.profiler`'s `key_averages()`
-over 20 wrapper calls; then the card's name and power limit as
-`nvidia-smi` gives them. With `--out` the lines are also written to FILE.
+c4, c2 (T=1, N=1000, M=50) and scale, K4 at c4 and scale, K5 and K6 at
+c2 and scale (N=8192, M=128), all Q=10: one JSON line per kernel and shape
+with the device ms per call of each CUDA kernel the wrapper launches (the
+main kernel and any chunk reduction), from `torch.profiler`'s `key_averages()`
+over 20 wrapper calls, and the wrapper's ms (one call between two CUDA
+events, host work included, median of 20); then the card's name and power
+limit as `nvidia-smi` gives them. With `--out` the lines are also written to FILE.
 Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -33,7 +35,8 @@ K2_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10),
                  c2=dict(T=1, N=1000, M=50, Q=10),
                  scale=dict(T=20, N=8192, M=128, Q=10))
 K4_SHAPES = dict(c4=K2_SHAPES["c4"], scale=K2_SHAPES["scale"])
-K5_SHAPES = dict(c2=K2_SHAPES["c2"], scale=dict(T=1, N=8192, M=128, Q=10))
+K5_SHAPES = K6_SHAPES = dict(c2=K2_SHAPES["c2"],
+                             scale=dict(T=1, N=8192, M=128, Q=10))
 CALLS = 20
 
 
@@ -57,9 +60,25 @@ def _kernel_ms(torch, fn):
     return out
 
 
+def _wrapper_ms(torch, fn, calls=CALLS):
+    """Median ms of one call of `fn` between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _inputs(torch, gen, kernel, T, N, M, Q, D=None):
     """The wrapper's arguments: K1 takes Y (N, D), K2 a cotangent (T, M, M),
-    K5 the first atom only."""
+    K5 and K6 the first atom only."""
     kw = dict(generator=gen, device="cuda")
     args = [0.5 + torch.rand(T, **kw), 0.3 + 1.7 * torch.rand(T, Q, **kw),
             torch.randn(N, Q, **kw), 0.05 + 0.55 * torch.rand(N, Q, **kw),
@@ -68,7 +87,7 @@ def _inputs(torch, gen, kernel, T, N, M, Q, D=None):
         return args + [torch.randn(N, D, **kw)]
     if kernel == "k2":
         return args + [torch.randn(T, M, M, **kw)]
-    if kernel == "k5":
+    if kernel in ("k5", "k6"):
         return [args[0][0], args[1][0], args[2], args[3], args[4][0]]
     return args
 
@@ -77,7 +96,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(
         pathlib.Path(__file__).resolve().parent.parent))
-    ap.add_argument("--kernel", choices=("k1", "k2", "k4", "k5"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k4", "k5", "k6"),
                     default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -100,13 +119,16 @@ def main(argv=None) -> int:
     for kernel, shapes, fn in (("k1", K1_SHAPES, psi.suffstats_batched),
                                ("k2", K2_SHAPES, psi.psi2_bwd_batched),
                                ("k4", K4_SHAPES, psi.psi2_batched),
-                               ("k5", K5_SHAPES, psi.psi2_single)):
+                               ("k5", K5_SHAPES, psi.psi2_single),
+                               ("k6", K6_SHAPES, psi.psi1)):
         if args.kernel not in (None, kernel):
             continue
         for name, sh in shapes.items():
             args32 = _inputs(torch, gen, kernel, **sh)
             lines.append(dict(root=args.root, kernel=kernel, shape=name,
                               **sh, kernels=_kernel_ms(
+                                  torch, lambda: fn(*args32)),
+                              wrapper_ms=_wrapper_ms(
                                   torch, lambda: fn(*args32))))
     lines.append(dict(card=card))
     text = "\n".join(json.dumps(x) for x in lines)
