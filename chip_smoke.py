@@ -40,6 +40,16 @@ imputation servers built on them. Phases, each printing one JSON line:
          posterior build must launch K6 and K5 once
   serve_dp  make_dp_imputer on the c4 parameters (the c5_dp_missing
          widths), batches 1, 8, 32, 128; the build must launch K1 once
+  runs   the by-name runner (`dp_gp_lvm_tpu_torch.experiments.run.run`)
+         trains each gated config (c1_bgplvm_toy, c2_sparse_oil,
+         c4_dp_mocap, c5_dp_missing, c5_pose_missing) at full width for
+         100 steps, its rates decayed over those 100; every numeric leaf of
+         the result must be finite and every gated key present (the gates
+         themselves are reported, not held, at 100 steps); every step must
+         launch K6, K5 and K2 (c1, c2) or K1 and K2 (c4, c5, c5_pose); the
+         first inputs each kernel got at each of its shapes in the run are
+         kept, and the kernel is held on them against its plain version
+         in f64 (at its phase's tolerance) and repeated to the bit
 
 then the card's name and power limit again, a `kernels` JSON line, and as
 its last line
@@ -55,6 +65,7 @@ the same work (see `_bound_ms`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -884,6 +895,142 @@ def phase_serve_dp(torch, seed, params, Y, cfg):
     return row
 
 
+RUN_CONFIGS = ("c1_bgplvm_toy", "c2_sparse_oil", "c4_dp_mocap",
+               "c5_dp_missing", "c5_pose_missing")
+RUN_STEPS = 100       # two chunks of the runner's 50
+# each kernel wrapper: its plain version (which takes the same
+# arguments), the tolerance it is held to, and where its row weights sit
+# among its positional arguments
+RUN_KERNELS = dict(
+    suffstats_batched=("suffstats_batched_reference", TOL_K1, 6),
+    psi2_bwd_batched=("psi2_bwd_batched_reference", TOL_K2, 6),
+    psi2_batched=("psi2_batched_reference", TOL_K4, 5),
+    psi2_single=("psi2_single_reference", TOL_K5, 5),
+    psi1=("psi1_reference", TOL_K6, 5))
+
+
+@contextlib.contextmanager
+def _first_inputs(torch, psi):
+    """While the block runs, keep a copy of the arguments of the first
+    call of each kernel wrapper at each signature (its name, the shapes of
+    its tensors, None where an optional one is not given). The wrappers
+    are module attributes looked up at call time, so the fused autograd
+    ops and every model reach the recording copies."""
+    seen = {}
+    originals = {name: getattr(psi, name) for name in RUN_KERNELS}
+
+    def recording(name, fn):
+        def wrapper(*args):
+            key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                                  for a in args)
+            if key not in seen:
+                seen[key] = [a.detach().clone() if torch.is_tensor(a) else a
+                             for a in args]
+            return fn(*args)
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(psi, name, recording(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(psi, name, fn)
+
+
+def _hold_first_inputs(torch, psi, seen):
+    """Each kernel on the inputs a run gave it, against its plain version
+    in f64 on the same inputs, and repeated to the bit."""
+    held = []
+    for key, args in seen.items():
+        name = key[0]
+        ref_name, tol, w_at = RUN_KERNELS[name]
+        got = getattr(psi, name)(*args)
+        again = getattr(psi, name)(*args)
+        want = getattr(psi, ref_name)(*(a.double() if torch.is_tensor(a)
+                                        else a for a in args))
+        got, again, want = (x if isinstance(x, tuple) else (x,)
+                            for x in (got, again, want))
+        abs_err, scaled = _errors(got, want)
+        held.append(dict(
+            kernel=name, shapes=[list(k) for k in key[1:]
+                                 if isinstance(k, tuple)],
+            weighted=len(args) > w_at and args[w_at] is not None,
+            max_abs_err=abs_err,
+            scaled_err=scaled, tol=tol,
+            repeat_bitwise_equal=all(bool(torch.equal(x, y))
+                                     for x, y in zip(got, again))))
+    return held
+
+
+def phase_runs(torch, seed):
+    import dataclasses
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    rows = {}
+    for name in RUN_CONFIGS:
+        cfg = dataclasses.replace(config.get(name), seed=seed)
+        psi.reset_launch_counts()
+        loop.reset_step_count()
+        with _first_inputs(torch, psi) as seen:
+            result = runner.run(cfg, steps=RUN_STEPS, device="cuda")
+        launches = dict(psi.LAUNCHES)
+        steps = loop.STEPS["taken"]      # training and timing
+        expected = dict.fromkeys(psi.LAUNCHES, 0)
+        if cfg.model == "bgplvm":
+            # per step K6 and K5 forward, K2 backward; K6 and K5 once more
+            # for the result's ELBO terms
+            expected.update(psi1=steps + 1, psi2_single=steps + 1,
+                            psi2_bwd_batched=steps)
+        else:
+            # per step K1 forward, K2 backward; K1 once more for the ELBO
+            # terms, and once for the imputation's posterior build
+            expected.update(
+                suffstats_batched=steps + 1 + (cfg.missing_fraction > 0),
+                psi2_bwd_batched=steps)
+        held = _hold_first_inputs(torch, psi, seen)
+        finiteness = config.evaluate_checks("", result)   # no gates
+        failures = config.evaluate_checks(name, result)
+        row = dict(phase="runs", config=name, steps=RUN_STEPS,
+                   decay_steps=RUN_STEPS, steps_taken=steps,
+                   ms_per_step=result["ms_per_step"],
+                   seconds=result["seconds"], elbo=result["elbo"],
+                   nonfinite=finiteness,
+                   missing=[f for f in failures if "MISSING" in f],
+                   gates_not_held_at_these_steps=[
+                       f for f in failures if f not in finiteness],
+                   launches=launches, expected_launches=expected,
+                   held_on_the_runs_inputs=held,
+                   **{k: result[k] for k in ("imputation_mse",
+                                             "predictive_loglik_per_dim",
+                                             "imputation_seconds",
+                                             "ard_recall_top2",
+                                             "ard_separation_ratio")
+                      if k in result})
+        emit(row)
+        if row["nonfinite"] or row["missing"]:
+            raise AssertionError(f"runs: {name} gave a broken result: {row}")
+        if launches != expected:
+            raise AssertionError(f"runs: {name} launched {launches}, "
+                                 f"expected {expected}")
+        if {h["kernel"] for h in held} != {k for k, n in launches.items()
+                                          if n}:
+            raise AssertionError(f"runs: {name} held {held} against the "
+                                 f"kernels it launched, {launches}")
+        for h in held:
+            if not (h["scaled_err"] <= h["tol"]
+                    and h["repeat_bitwise_equal"]):
+                raise AssertionError(f"runs: {name}: {h['kernel']} disagrees "
+                                     f"with its plain version on the run's "
+                                     f"inputs: {h}")
+        rows[name] = row
+    return rows
+
+
 def phase_scale(torch, psi, gen):
     _, f32 = _inputs(torch, gen, **SCALE)
     T, M, D = SCALE["T"], SCALE["M"], SCALE["D"]
@@ -962,17 +1109,21 @@ def main(argv=None) -> int:
     train2, bg_params, bg_Y, bg_cfg = phase_train_bgplvm(torch, args.seed)
     serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
+    runs = phase_runs(torch, args.seed)
 
     # `launches` of a kernel is its count over the path named in
     # `launches_of`; `launches_by_phase` lists every driven path, the
-    # server builds (one posterior each) included
+    # server builds (one posterior each) and the runner's 100-step run of
+    # each gated config included
     paths = dict(train="10 training steps of c4_dp_mocap",
                  train_bgplvm="10 training steps of c2_sparse_oil",
                  gate="one value and gradient of sum Psi2^2")
     phases = dict(train=train["launches"], train_bgplvm=train2["launches"],
                   gate=gate["launches"],
                   serve_bgplvm_build=serve2["build_launches"],
-                  serve_dp_build=serve5["build_launches"])
+                  serve_dp_build=serve5["build_launches"],
+                  **{f"runs_{name}": row["launches"]
+                     for name, row in runs.items()})
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 

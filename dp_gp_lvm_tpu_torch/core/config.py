@@ -1,12 +1,14 @@
-"""Named experiment configurations (counterpart of
-`dp_gp_lvm_tpu/core/config.py`). Only the configurations whose models the
-port runs are copied: the Bayesian GP-LVM's `c1_bgplvm_toy` and
-`c2_sparse_oil`, and the DP-GP-LVM's `c4_dp_mocap` and `c5_dp_missing`.
+"""Named experiment configurations and their regression gates
+(counterpart of `dp_gp_lvm_tpu/core/config.py`). Only the configurations
+whose models the port runs are copied, with their gates: the Bayesian
+GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, and the DP-GP-LVM's
+`c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,4 +59,90 @@ CONFIGS: dict[str, ExperimentConfig] = {
         n=1024, d=59, q=10, m=64, t=20, steps=8000, lr=3e-3, ngd_lr=1.0,
         missing_fraction=0.5,
     ),
+    "c5_pose_missing": ExperimentConfig(
+        name="c5_pose_missing", model="dp_gp_lvm", dataset="pose",
+        n=512, d=32, q=8, m=48, t=12, steps=6000, lr=3e-3, ngd_lr=1.0,
+        missing_fraction=0.5,
+    ),
 }
+
+
+def get(name: str) -> ExperimentConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+# Regression gates: metric -> (op, threshold), or a list of them for a
+# two-sided gate. A finished run fails (`experiments/run.py --check` exits
+# 1) if any gated metric is past its threshold. The thresholds carry
+# headroom over the reference's committed artifacts in results/.
+CHECKS: dict[str, dict[str, tuple[str, float] | list[tuple[str, float]]]] = {
+    "c1_bgplvm_toy": {
+        "elbo": (">=", -900.0),
+        "ard_recall_top2": (">=", 1.0),       # both true dims in the top 2
+        "ard_separation_ratio": (">=", 10.0),  # active vs pruned ARD gap
+    },
+    "c2_sparse_oil": {
+        "elbo": (">=", -9000.0),
+    },
+    "c4_dp_mocap": {
+        "elbo": (">=", 7000.0),
+    },
+    "c5_dp_missing": {
+        "imputation_mse": ("<=", 0.01),
+        "predictive_loglik_per_dim": (">=", 0.3),
+        # err^2 over predictive variance: catches overconfidence
+        "calibration_ratio": [(">=", 0.005), ("<=", 5.0)],
+    },
+    "c5_pose_missing": {
+        "imputation_mse": ("<=", 0.15),
+        "predictive_loglik_per_dim": (">=", -0.2),
+        "calibration_ratio": [(">=", 0.2), ("<=", 5.0)],
+    },
+}
+
+_OPS = {
+    ">=": lambda v, t: v >= t,
+    "<=": lambda v, t: v <= t,
+}
+
+
+def _walk_numeric(obj, path, out):
+    if isinstance(obj, bool):
+        return
+    if isinstance(obj, (int, float)):
+        out.append((path, float(obj)))
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _walk_numeric(v, f"{path}.{k}" if path else str(k), out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _walk_numeric(v, f"{path}[{i}]", out)
+
+
+def evaluate_checks(name: str, result: dict) -> list[str]:
+    """Human-readable failures of a finished run (empty: all gates pass).
+
+    Every numeric leaf of `result` must be finite, gated or not; then each
+    gate of `CHECKS[name]` must hold, and a gated metric missing from the
+    result fails."""
+    failures = []
+    numerics: list[tuple[str, float]] = []
+    _walk_numeric(result, "", numerics)
+    for path, value in numerics:
+        if math.isnan(value) or math.isinf(value):
+            failures.append(f"{path}: non-finite value {value}")
+    for metric, gates in CHECKS.get(name, {}).items():
+        if metric not in result or result[metric] is None:
+            failures.append(f"{metric}: MISSING from result")
+            continue
+        value = result[metric]
+        if isinstance(gates, tuple):
+            gates = [gates]
+        for op, threshold in gates:
+            if not _OPS[op](value, threshold):
+                failures.append(
+                    f"{metric}: {value:.6g} not {op} {threshold:.6g}"
+                )
+    return failures

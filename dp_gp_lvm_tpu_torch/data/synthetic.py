@@ -1,5 +1,6 @@
 """Synthetic datasets (counterpart of `dp_gp_lvm_tpu/data/synthetic.py`):
-`toy_gplvm` (c1), `oil_flow_like` (c2) and `mocap_like` (c4/c5). Every
+`toy_gplvm` (c1), `oil_flow_like` (c2), `mocap_like` (c4/c5) and
+`pose_like` (c5_pose). Every
 draw comes from an explicit `torch.Generator`, on the generator's device;
 the result is moved to `device` (the card unless the caller says "cpu")."""
 from __future__ import annotations
@@ -77,3 +78,83 @@ def mocap_like(generator: torch.Generator, n: int = 1024, d: int = 59,
     W = torch.randn((q_true, d), generator=generator, **kw) / math.sqrt(q_true)
     Y = X @ W + noise * torch.randn((n, d), generator=generator, **kw)
     return _standardize(Y).to(device), X.to(device)
+
+
+# 2D articulated figure for pose_like: (parent, length, base_angle,
+# gait_group) per joint; joint 0 is the root (pelvis). Groups: 0 spine/head,
+# 1 left leg, 2 right leg, 3 left arm, 4 right arm.
+_POSE_SKELETON = (
+    (-1, 0.0, 0.0, 0),    # 0 pelvis (root)
+    (0, 0.5, 1.571, 0),   # 1 lower spine
+    (1, 0.5, 1.571, 0),   # 2 upper spine
+    (2, 0.3, 1.571, 0),   # 3 head
+    (0, 0.5, -1.271, 1),  # 4 left hip
+    (4, 0.5, -1.571, 1),  # 5 left knee
+    (5, 0.25, -1.871, 1),  # 6 left foot
+    (0, 0.5, -1.871, 2),  # 7 right hip
+    (7, 0.5, -1.571, 2),  # 8 right knee
+    (8, 0.25, -1.271, 2),  # 9 right foot
+    (2, 0.45, -0.771, 3),  # 10 left shoulder
+    (10, 0.45, -1.271, 3),  # 11 left elbow
+    (11, 0.2, -1.571, 3),   # 12 left hand
+    (2, 0.45, -2.371, 4),   # 13 right shoulder
+    (13, 0.45, -1.871, 4),  # 14 right elbow
+    (14, 0.2, -1.571, 4),   # 15 right hand
+)
+
+
+def pose_from_draws(phases, mix, noise_draw, noise: float = 0.01):
+    """The deterministic part of `pose_like`: gait signals -> joint angles
+    per limb group -> 2D forward kinematics -> noise -> standardization.
+
+    phases (1, q) in [0, 2 pi), mix (5, q) (the groups' weights, before the
+    opposite limbs are mirrored), noise_draw (n, 32) standard normal.
+    Returns (Y (n, 32), gait (n, q), joint_groups (16,))."""
+    n, q = noise_draw.shape[0], phases.shape[1]
+    kw = dict(dtype=phases.dtype, device=phases.device)
+    t = torch.linspace(0.0, 6.0 * math.pi, n, **kw)[:, None]
+    freqs = 0.7 + torch.arange(q, **kw)[None, :] * 0.4
+    gait = torch.sin(t * freqs + phases)                    # (n, q)
+    # opposite limbs get opposite sign (walking anti-phase)
+    mix = mix.clone()
+    mix[2] = -mix[1]
+    mix[4] = -mix[3]
+    group_angle = gait @ mix.T                              # (n, groups)
+
+    positions, cum_angles = {}, {}
+    for j, (parent, length, base, group) in enumerate(_POSE_SKELETON):
+        if parent < 0:
+            cum_angles[j] = torch.zeros(n, **kw)
+            positions[j] = torch.zeros(n, 2, **kw)
+        else:
+            ang = cum_angles[parent] * 0.3 + base + group_angle[:, group]
+            cum_angles[j] = ang
+            step = length * torch.stack([torch.cos(ang), torch.sin(ang)],
+                                        dim=-1)
+            positions[j] = positions[parent] + step
+    Y = torch.cat([positions[j] for j in range(len(_POSE_SKELETON))], dim=1)
+    Y = Y + noise * noise_draw
+    # the floor keeps a joint that barely moves from being blown up
+    sd = torch.clamp(Y.std(dim=0, correction=0), min=1e-3)
+    Y = (Y - Y.mean(dim=0)) / sd
+    groups = torch.tensor([g for (_, _, _, g) in _POSE_SKELETON],
+                          device=phases.device)
+    return Y, gait, groups
+
+
+def pose_like(generator: torch.Generator, n: int = 512, q_true: int = 3,
+              noise: float = 0.01, dtype=torch.float64, device=None):
+    """Pose-shaped surrogate (config c5_pose_missing): 2D keypoint
+    trajectories of a 16-joint articulated figure walking. A few smooth
+    gait signals drive joint angles per limb group through a 2D
+    forward-kinematic chain, so the observed dims (x, y per joint) are
+    nonlinear in the latents and come in limb groups.
+    Returns (Y (n, 32), X_true (n, q_true), joint_groups (16,)) on
+    `device` (the card unless the caller says "cpu")."""
+    device = resolve_device(device)
+    kw = dict(generator=generator, dtype=dtype, device=generator.device)
+    phases = 2.0 * math.pi * torch.rand((1, q_true), **kw)
+    mix = 0.5 * torch.randn((5, q_true), **kw)
+    noise_draw = torch.randn((n, 2 * len(_POSE_SKELETON)), **kw)
+    Y, gait, groups = pose_from_draws(phases, mix, noise_draw, noise)
+    return Y.to(device), gait.to(device), groups.to(device)

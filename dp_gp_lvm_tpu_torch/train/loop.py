@@ -1,20 +1,36 @@
-"""Training: the optimizer of the GP-LVM family (counterpart of
-`dp_gp_lvm_tpu/train/loop.py::gp_optimizer`, without its schedules).
+"""Training: the optimizer of the GP-LVM family and the training driver
+(counterpart of `dp_gp_lvm_tpu/train/loop.py`: `gp_optimizer` with its
+schedules, `NonFiniteGuard`, `make_step_fn`, `make_multi_step_fn`,
+`time_steps`), and `STEPS`, the count of steps the driver has taken.
 
-It reproduces the reference's optax chain
-    apply_if_finite(chain(clip_by_global_norm(clip),
-                          multi_transform({hyper: adam(lr/10), var: adam(lr),
-                                           ngd: chain(ngd_precondition,
-                                                      scale(-ngd_lr))})))
+`gp_optimizer` reproduces the reference's optax chain
+    apply_if_finite(chain(
+        clip_by_global_norm(clip),
+        multi_transform({hyper: adam(hyper_rate), var: adam(rate),
+                         ard: adam(ard_rate), frozen: set_to_zero(),
+                         ngd: chain(ngd_precondition,
+                                    scale_by_schedule(-ngd_rate))})))
 written by hand:
-  - the global-norm clip is optax's (`clip_grad_norm_` adds 1e-6);
+  - the global-norm clip is optax's (`clip_grad_norm_` adds 1e-6); the
+    frozen group's gradients count in it and in the finiteness test;
   - a step whose gradients hold a non-finite value changes neither the
-    parameters nor the Adam state, and is decided on the device with
+    parameters nor any group's state, and is decided on the device with
     `torch.where`, so the step needs no host sync;
-  - Adam is optax's `scale_by_adam` (eps outside the square root).
-Cosine decay, warmup and the `ard_lr` group wait for a later slice.
+  - Adam is optax's `scale_by_adam` (eps outside the square root);
+  - each group keeps one count of applied steps. optax's `scale_by_adam`
+    and `scale_by_schedule` hold a count each, but both advance on every
+    applied step only, so they are equal: the bias correction reads
+    count + 1 and the rate schedule reads count (step 1 runs at
+    schedule(0)). The NGD group has its count too.
+Schedules are optax's formulas, evaluated on the device from the count
+tensor. `fit`, `fit_lbfgs` and `make_streaming_scan_fn` wait for later
+slices.
 """
 from __future__ import annotations
+
+import math
+import time
+from typing import Callable
 
 import torch
 
@@ -26,6 +42,87 @@ HYPER_PARAM_NAMES = frozenset(
 )
 NGD_NAMES = frozenset({"qx_mean", "raw_qx_var"})
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# optimizer steps the driver has taken (applied or skipped) since
+# `reset_step_count`: a host-side count, no device read
+STEPS = {"taken": 0}
+
+
+def reset_step_count() -> None:
+    STEPS["taken"] = 0
+
+
+# ---------------------------------------------------------------------------
+# schedules: integer count tensor -> rate tensor on its device
+# ---------------------------------------------------------------------------
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0):
+    """optax.cosine_decay_schedule: init_value to alpha * init_value over
+    decay_steps, constant after."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, "
+                         f"got {decay_steps}")
+
+    def schedule(count):
+        c = torch.clamp(count.to(torch.float64), max=float(decay_steps))
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * c / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int):
+    """optax.linear_schedule: init_value to end_value over
+    transition_steps, constant after; constant init_value when
+    transition_steps <= 0. In float32, as optax gives it from the int32
+    count of its state (JAX takes int32 / int to float32 even with 64-bit
+    types on), and with XLA's arithmetic for it in the compiled update: the
+    division by the constant becomes a product with its float32
+    reciprocal, and both multiply-adds are fused, rounded once."""
+    if transition_steps <= 0:
+        return lambda count: torch.full(
+            count.shape, float(init_value), dtype=torch.float64,
+            device=count.device)
+    # float32 operands as Python floats: their products are exact in float64
+    f32 = torch.float32
+    recip = (torch.tensor(1.0, dtype=f32) / transition_steps).item()
+    slope = torch.tensor(init_value - end_value, dtype=f32).item()
+    end = torch.tensor(end_value, dtype=f32).item()
+
+    def schedule(count):
+        c = torch.clamp(count, 0, transition_steps).to(torch.float64)
+        frac = (1.0 - c * recip).to(f32).to(torch.float64)
+        return (slope * frac + end).to(f32)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule: a linear warmup to peak_value,
+    then a cosine decay to end_value; decay_steps counts the warmup. In
+    float32 after a warmup, as optax gives it from an int32 count: its
+    join takes the warmup's float32 and the decay's weakly typed float64
+    to float32."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warm = linear_schedule(init_value, peak_value, warmup_steps)
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                                  alpha)
+
+    def schedule(count):
+        head = warm(count)
+        return torch.where(count < warmup_steps, head,
+                           decay(count - warmup_steps)).to(head.dtype)
+
+    return schedule
+
+
+# ---------------------------------------------------------------------------
+# the optimizer
+# ---------------------------------------------------------------------------
 
 
 def ngd_precondition(grads, params):
@@ -40,35 +137,34 @@ def ngd_precondition(grads, params):
     }
 
 
+def global_norm(grads) -> torch.Tensor:
+    """optax.global_norm of a dict of tensors."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+
+
 class GPOptimizer:
-    """Adam grouped by label, hypers at `hyper_lr`, optional NGD on q(X).
+    """Adam grouped by label, each group at its own rate, optional NGD on
+    q(X), frozen leaves held.
 
-    `step(grads)` updates the parameter tensors in place."""
+    `labels` maps each parameter to its group: "hyper", "var", "ard",
+    "ngd" or "frozen". `rates` maps every group but "frozen" to its rate:
+    a float, or a schedule (integer count tensor -> rate tensor).
+    `step(grads)` updates the parameter tensors in place and returns
+    whether it applied the update (a 0-d bool tensor, not read here)."""
 
-    def __init__(self, params, lr, hyper_lr, clip, skip_nonfinite, ngd_lr):
+    def __init__(self, params, labels, rates, clip, skip_nonfinite):
         self.params = params
+        self.labels = labels
+        self.rates = rates
         self.clip = clip
         self.skip_nonfinite = skip_nonfinite
-        self.ngd_lr = ngd_lr
-        self.labels = {k: self._label(k) for k in params}
-        self.lrs = {"hyper": hyper_lr, "var": lr}
-        any_p = next(iter(params.values()))
-        self.count = {g: torch.zeros((), dtype=torch.int64,
-                                     device=any_p.device)
-                      for g in ("hyper", "var")}
-        self.mu = {k: torch.zeros_like(p) for k, p in params.items()
-                   if self.labels[k] != "ngd"}
-        self.nu = {k: torch.zeros_like(p) for k, p in params.items()
-                   if self.labels[k] != "ngd"}
-        self.notfinite_count = torch.zeros((), dtype=torch.int64,
-                                           device=any_p.device)
-
-    def _label(self, k):
-        if k in HYPER_PARAM_NAMES:
-            return "hyper"
-        if self.ngd_lr is not None and k in NGD_NAMES:
-            return "ngd"
-        return "var"
+        device = next(iter(params.values())).device
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        self.count = {g: zero.clone() for g in rates}
+        adam = [k for k, g in labels.items() if g not in ("ngd", "frozen")]
+        self.mu = {k: torch.zeros_like(params[k]) for k in adam}
+        self.nu = {k: torch.zeros_like(params[k]) for k in adam}
+        self.notfinite_count = zero.clone()
 
     @torch.no_grad()
     def step(self, grads):
@@ -83,45 +179,192 @@ class GPOptimizer:
         else:
             apply = torch.ones((), dtype=torch.bool, device=finite.device)
 
-        g_norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in keys))
+        g_norm = global_norm(grads)
         clipped = {
             k: torch.where(g_norm < self.clip, grads[k],
                            (grads[k] / g_norm) * self.clip)
             for k in keys
         }
         updates = {}
-        for group in ("hyper", "var"):
+        for group, rate_fn in self.rates.items():
+            # a group's count advances with or without members, as optax's
+            count = self.count[group]
+            self.count[group] = torch.where(apply, count + 1, count)
             members = [k for k in keys if self.labels[k] == group]
             if not members:
                 continue
-            count = self.count[group] + 1
-            bc1 = 1.0 - B1 ** count.to(torch.float64)
-            bc2 = 1.0 - B2 ** count.to(torch.float64)
-            lr = self.lrs[group]
+            rate = rate_fn(count) if callable(rate_fn) else rate_fn
+            if group == "ngd":
+                direction = ngd_precondition(clipped, self.params)
+            else:
+                direction = {}
+                bc1 = 1.0 - B1 ** (count + 1).to(torch.float64)
+                bc2 = 1.0 - B2 ** (count + 1).to(torch.float64)
+                for k in members:
+                    g = clipped[k]
+                    mu = (1.0 - B1) * g + B1 * self.mu[k]
+                    nu = (1.0 - B2) * (g * g) + B2 * self.nu[k]
+                    mu_hat = mu / bc1.to(g.dtype)
+                    nu_hat = nu / bc2.to(g.dtype)
+                    direction[k] = mu_hat / (torch.sqrt(nu_hat) + EPS)
+                    self.mu[k].copy_(torch.where(apply, mu, self.mu[k]))
+                    self.nu[k].copy_(torch.where(apply, nu, self.nu[k]))
             for k in members:
-                g = clipped[k]
-                mu = (1.0 - B1) * g + B1 * self.mu[k]
-                nu = (1.0 - B2) * (g * g) + B2 * self.nu[k]
-                mu_hat = mu / bc1.to(g.dtype)
-                nu_hat = nu / bc2.to(g.dtype)
-                updates[k] = -lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-                self.mu[k].copy_(torch.where(apply, mu, self.mu[k]))
-                self.nu[k].copy_(torch.where(apply, nu, self.nu[k]))
-            self.count[group] = torch.where(apply, count, self.count[group])
-        if self.ngd_lr is not None:
-            nat = ngd_precondition(clipped, self.params)
-            for k in NGD_NAMES:
-                updates[k] = -self.ngd_lr * nat[k]
-        for k in keys:
+                step = (-rate).to(direction[k].dtype) if torch.is_tensor(
+                    rate) else -rate
+                updates[k] = step * direction[k]
+        for k, u in updates.items():
             p = self.params[k]
-            p.copy_(torch.where(apply, p + updates[k], p))
+            p.copy_(torch.where(apply, p + u, p))
         return apply
 
 
 def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
                  clip: float = 100.0, skip_nonfinite: int = 100_000,
-                 ngd_lr: float | None = None) -> GPOptimizer:
+                 decay_steps: int | None = None, ngd_lr: float | None = None,
+                 ard_lr: float | None = None, ard_warmup: int | None = None,
+                 hyper_warmup: int | None = None,
+                 freeze: frozenset = frozenset(),
+                 slow: frozenset = frozenset()) -> GPOptimizer:
     """Stability-tuned optimizer of the GP-LVM family: hypers at lr/10,
-    global-norm clip, non-finite steps skipped, optional NGD on q(X)."""
+    global-norm clip, non-finite steps skipped, optional NGD on q(X).
+
+    decay_steps cosine-decays lr, the hyper rate and the NGD rate to 5%
+    of their value over that horizon (the hyper rate after a linear
+    warmup of hyper_warmup steps when given). ard_lr gives raw_ard alone
+    a hot Adam rate, ramped from 0 over ard_warmup steps: with
+    decay_steps a warmup-cosine (default warmup min(2000, decay_steps //
+    10)), without it a linear ramp (default 2000 steps), then constant.
+    `freeze` leaves get a zero update; `slow` leaves move at the hyper
+    rate. The NGD group is dropped when no leaf carries its label.
+    """
     hyper_lr = lr / 10.0 if hyper_lr is None else hyper_lr
-    return GPOptimizer(params, lr, hyper_lr, clip, skip_nonfinite, ngd_lr)
+    lr_rate, hyper_rate, ngd_rate, ard_rate = lr, hyper_lr, ngd_lr, None
+    if decay_steps:
+        if ngd_lr is not None:
+            ngd_rate = cosine_decay_schedule(ngd_lr, decay_steps, alpha=0.05)
+        lr_rate = cosine_decay_schedule(lr, decay_steps, alpha=0.05)
+        if hyper_warmup:
+            hyper_rate = warmup_cosine_decay_schedule(
+                0.0, hyper_lr, hyper_warmup, decay_steps,
+                end_value=0.05 * hyper_lr)
+        else:
+            hyper_rate = cosine_decay_schedule(hyper_lr, decay_steps,
+                                               alpha=0.05)
+        if ard_lr is not None:
+            warm = (ard_warmup if ard_warmup is not None
+                    else min(2000, decay_steps // 10))
+            ard_rate = warmup_cosine_decay_schedule(
+                0.0, ard_lr, warm, decay_steps, end_value=0.05 * ard_lr)
+    elif ard_lr is not None:
+        warm = 2000 if ard_warmup is None else ard_warmup
+        ard_rate = linear_schedule(0.0, ard_lr, max(warm, 1))
+
+    def label(k):
+        if k in freeze:
+            return "frozen"
+        if ard_lr is not None and k == "raw_ard":
+            return "ard"
+        if k in HYPER_PARAM_NAMES or k in slow:
+            return "hyper"
+        if ngd_lr is not None and k in NGD_NAMES:
+            return "ngd"
+        return "var"
+
+    labels = {k: label(k) for k in params}
+    rates = {"hyper": hyper_rate, "var": lr_rate}
+    if ard_lr is not None:
+        rates["ard"] = ard_rate
+    if "ngd" in labels.values():
+        rates["ngd"] = ngd_rate
+    return GPOptimizer(params, labels, rates, clip, skip_nonfinite)
+
+
+class NonFiniteGuard:
+    """K-consecutive-non-finite-chunks abort for chunked training loops.
+
+    apply_if_finite skips bad updates, but nothing halts a loop once the
+    parameters themselves are poisoned. Feed each chunk's losses (one
+    tensor: one host read) to `update`; when `k` consecutive chunks hold a
+    non-finite value it returns True and the loop must stop and fail the
+    run. One finite chunk resets the counter, so a transient
+    skip-and-recover does not end a run."""
+
+    def __init__(self, k: int = 3):
+        self.k = k
+        self.consecutive = 0
+        self.first_bad_step: int | None = None
+
+    def update(self, losses, step: int) -> bool:
+        if bool(torch.isfinite(torch.as_tensor(losses)).all()):
+            self.consecutive = 0
+            self.first_bad_step = None
+            return False
+        if self.consecutive == 0:
+            self.first_bad_step = step
+        self.consecutive += 1
+        return self.consecutive >= self.k
+
+
+# ---------------------------------------------------------------------------
+# the driver
+# ---------------------------------------------------------------------------
+
+
+def _gradient_step(loss_fn: Callable, optimizer: GPOptimizer):
+    keys = list(optimizer.params)
+    leaves = [optimizer.params[k] for k in keys]
+
+    def one(*data):
+        loss = loss_fn(optimizer.params, *data)
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        optimizer.step(grads)
+        STEPS["taken"] += 1
+        return loss.detach(), grads
+
+    return one
+
+
+def make_step_fn(loss_fn: Callable, optimizer: GPOptimizer):
+    """`step(*data) -> metrics`: one loss, gradient and update of
+    `optimizer.params` in place. `loss`, `elbo` and `grad_norm` (of the
+    unclipped gradient) are 0-d device tensors; nothing is read back."""
+    one = _gradient_step(loss_fn, optimizer)
+
+    def step(*data):
+        loss, grads = one(*data)
+        return {"loss": loss, "elbo": -loss, "grad_norm": global_norm(grads)}
+
+    return step
+
+
+def make_multi_step_fn(loss_fn: Callable, optimizer: GPOptimizer,
+                       num_inner: int):
+    """`multi_step(*data) -> losses`: num_inner steps; their losses come
+    back as one (num_inner,) device tensor, so the caller reads the host
+    once per chunk."""
+    one = _gradient_step(loss_fn, optimizer)
+
+    def multi_step(*data):
+        return torch.stack([one(*data)[0] for _ in range(num_inner)])
+
+    return multi_step
+
+
+def _wait(tensor):
+    if tensor.is_cuda:
+        torch.cuda.synchronize(tensor.device)
+
+
+def time_steps(step_fn, data: tuple, num_steps: int, warmup: int = 2):
+    """Wall-clock seconds per step after `warmup` steps. The steps train
+    on: the optimizer's parameters and counts advance by warmup +
+    num_steps, as the reference's state does."""
+    for _ in range(warmup):
+        m = step_fn(*data)
+    _wait(m["loss"])
+    t0 = time.perf_counter()
+    for _ in range(num_steps):
+        m = step_fn(*data)
+    _wait(m["loss"])
+    return (time.perf_counter() - t0) / num_steps

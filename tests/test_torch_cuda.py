@@ -18,6 +18,13 @@ TINY = dict(T=T, N=N, M=M, Q=Q, D=D)
 # the c2_sparse_oil widths: neither M nor N is a multiple of the kernels'
 # 4x4 tile, 16-row stage or 64-row block
 C2 = dict(T=1, N=1000, M=50, Q=10, D=12)
+# the widths of the gated configs c1_bgplvm_toy (the Bayesian GP-LVM:
+# K6, K5 and K2 at T = 1) and c5_pose_missing (the DP-GP-LVM on its
+# 448-row train split: K1 and K2); both Q take the generic instantiations
+C1 = dict(T=1, N=100, M=20, Q=6, D=10)
+C5_POSE = dict(T=12, N=448, M=48, Q=8, D=32)
+SHAPES = [TINY, C2, C1, C5_POSE]
+SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose"]
 TOL_K1, TOL_K2 = 1e-4, 5e-4   # scaled by max|ref|, as in chip_smoke.py
 
 
@@ -55,7 +62,7 @@ def _launched(**counts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [TINY, C2], ids=["tiny", "c2"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("weighted", [False, True])
 def test_kernels_match_plain_on_card(card, weighted, shape):
     a, f = _inputs(card, weighted, **shape)
@@ -74,7 +81,7 @@ def test_kernels_match_plain_on_card(card, weighted, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [TINY, C2], ids=["tiny", "c2"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("weighted", [False, True])
 def test_psi2_and_psi1_forwards_match_plain_on_card(card, weighted, shape):
     """K4 on the stack, K5 and K6 on its first atom."""
@@ -485,6 +492,20 @@ def test_auto_asks_the_kernels_occupancy_queries(card):
     assert not psi.fused_fits_on(card, 128, 256, 5)
     assert psi.fused_fits_on(card, 50, 10, 0)
     assert psi.fused_fits_on(card, 64, 10, 59)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [C1, C5_POSE], ids=["c1", "c5_pose"])
+def test_auto_takes_the_kernels_at_the_gated_shapes(card, shape):
+    """"auto" takes the kernels at c1's and c5_pose's widths: the Psi2-only
+    path (D = 0: K6, K5, K2) and the DP path (K1, K2)."""
+    from dp_gp_lvm_tpu_torch.ops import dispatch
+
+    M_, Q_, D_ = shape["M"], shape["Q"], shape["D"]
+    assert psi.fused_fits_on(card, M_, Q_, 0)
+    assert psi.fused_fits_on(card, M_, Q_, D_)
+    assert dispatch.resolve_fused("auto", "ard_rbf", card, M_, Q_)
+    assert dispatch.resolve_fused("auto", "ard_rbf", card, M_, Q_, D_)
 
 
 def _k6(t):

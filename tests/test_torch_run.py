@@ -1,0 +1,271 @@
+"""The port's by-name runner and what it needs, against the JAX package
+on the CPU: the configs and gates (`core/config.py`), `evaluate_checks`
+on crafted results and on the committed artifacts, `pose_like`'s
+deterministic part, the missing-data holdout, the ARD metrics,
+`JsonlLogger`, and `experiments/run.py` end to end at tiny f64 widths."""
+import dataclasses
+import io
+import json
+import math
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dp_gp_lvm_tpu.core import config as jconfig
+from dp_gp_lvm_tpu.data import synthetic as jsyn
+from dp_gp_lvm_tpu.train import logging as jlogging
+from dp_gp_lvm_tpu_torch.core import config
+from dp_gp_lvm_tpu_torch.data import synthetic
+from dp_gp_lvm_tpu_torch.experiments import run as runner
+from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
+             "c4_dp_mocap": "c4", "c5_dp_missing": "c5",
+             "c5_pose_missing": "c5_pose"}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _artifact(name):
+    with open(ROOT / "results" / ARTIFACTS[name] / "result.json") as fh:
+        return json.load(fh)
+
+
+def test_configs_and_gates_are_the_references():
+    assert set(config.CONFIGS) == set(ARTIFACTS)
+    for name, cfg in config.CONFIGS.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jconfig.get(name))
+        assert config.get(name) is cfg
+        assert config.CHECKS[name] == jconfig.CHECKS[name]
+    assert set(config.CHECKS) == set(ARTIFACTS)
+    with pytest.raises(KeyError, match="unknown config"):
+        config.get("c3_mrd_twoview")
+
+
+CRAFTED = {
+    "pass": ("c5_dp_missing", {"imputation_mse": 0.002,
+                               "predictive_loglik_per_dim": 0.6,
+                               "calibration_ratio": 0.04}),
+    "missing_key": ("c5_dp_missing", {"imputation_mse": 0.002,
+                                      "calibration_ratio": 0.04}),
+    "none_value": ("c2_sparse_oil", {"elbo": None}),
+    "two_sided_high": ("c5_pose_missing", {"imputation_mse": 0.1,
+                                           "predictive_loglik_per_dim": 0.0,
+                                           "calibration_ratio": 6.0}),
+    "two_sided_low": ("c5_pose_missing", {"imputation_mse": 0.2,
+                                          "predictive_loglik_per_dim": -0.3,
+                                          "calibration_ratio": 0.1}),
+    "nested_nan": ("c1_bgplvm_toy", {"elbo": -800.0, "ard_recall_top2": 1.0,
+                                     "ard_separation_ratio": 40.0,
+                                     "ard_weights": [0.8, math.nan, 0.01]}),
+    "deep_inf_and_bool": ("c4_dp_mocap", {
+        "elbo": math.inf, "ok": True,
+        "nested": {"a": [1, {"b": -math.inf}], "c": "text"}}),
+    "ungated_name": ("c9_not_ported", {"elbo": math.nan, "steps": 3}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CRAFTED))
+def test_evaluate_checks_matches_reference_on_crafted_results(case):
+    name, result = CRAFTED[case]
+    got = config.evaluate_checks(name, result)
+    assert got == jconfig.evaluate_checks(name, result)
+    assert bool(got) == (case != "pass")
+
+
+@pytest.mark.parametrize("name", sorted(ARTIFACTS))
+def test_evaluate_checks_matches_reference_on_committed_artifacts(name):
+    result = _artifact(name)
+    assert config.evaluate_checks(name, result) == \
+        jconfig.evaluate_checks(name, result) == []
+    bad = dict(result, elbo=math.nan)
+    assert config.evaluate_checks(name, bad) == \
+        jconfig.evaluate_checks(name, bad)
+
+
+def test_pose_like_from_the_references_draws():
+    """The deterministic part (gait, mirrored limb mix, forward
+    kinematics, the 1e-3 floored standardization) fed jax.random's draws
+    as pose_like splits them."""
+    n, q = 48, 3
+    key = jax.random.PRNGKey(3)
+    want = jsyn.pose_like(key, n=n, q_true=q, dtype=jnp.float64)
+    r1, r2, r3 = jax.random.split(key, 3)
+    draws = (jax.random.uniform(r1, (1, q), jnp.float64, 0.0, 2 * jnp.pi),
+             0.5 * jax.random.normal(r2, (5, q), jnp.float64),
+             jax.random.normal(r3, (n, 32), jnp.float64))
+    got = synthetic.pose_from_draws(*(torch.tensor(np.asarray(x))
+                                      for x in draws))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+    # the port's own draw: the same shapes, standardized, and repeatable
+    Y, X, groups = synthetic.pose_like(torch.Generator().manual_seed(3),
+                                       n=n, device="cpu")
+    again, _, _ = synthetic.pose_like(torch.Generator().manual_seed(3),
+                                      n=n, device="cpu")
+    assert Y.shape == (n, 32) and X.shape == (n, q) and groups.shape == (16,)
+    assert torch.equal(Y, again)
+    np.testing.assert_allclose(Y.mean(0).numpy(), 0.0, atol=1e-12)
+
+
+def _reference_holdout(Y):
+    """experiments/run.py:250-264, the c5 branch of the reference."""
+    Y_all = np.asarray(Y)
+    keep = np.ones(Y_all.shape[0], bool)
+    keep[7::8] = False
+    Y_train_np, Y_test_np = Y_all[keep], Y_all[~keep]
+    mu_tr = Y_train_np.mean(axis=0)
+    sd_tr = Y_train_np.std(axis=0) + 1e-8
+    return (Y_train_np - mu_tr) / sd_tr, (Y_test_np - mu_tr) / sd_tr
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_holdout_split_matches_reference(dtype):
+    Y = np.random.default_rng(2).normal(1.0, 3.0, (61, 7)).astype(dtype)
+    got, want = runner.holdout_split(Y), _reference_holdout(Y)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[0].shape == (54, 7) and got[1].shape == (7, 7)
+
+
+def _reference_ard_metrics(ard):
+    """experiments/run.py:789-806, the c1 branch of the reference."""
+    ard = jnp.asarray(ard)
+    order = jnp.argsort(-ard)
+    top2 = set(int(i) for i in order[:2])
+    active = ard[jnp.array([0, 1])]
+    inactive = ard[jnp.arange(2, ard.shape[0])]
+    return {
+        "ard_weights": [round(float(a), 6) for a in ard],
+        "ard_recall_top2": len(top2 & {0, 1}) / 2.0,
+        "ard_separation_ratio": float(
+            jnp.min(active) / jnp.maximum(jnp.max(inactive), 1e-12)),
+    }
+
+
+@pytest.mark.parametrize("ard", [
+    [0.805595, 1.006849, 0.003305, 0.01674, 0.003406, 0.003259],
+    [0.9, 0.02, 0.5, 0.0, 0.0, 0.1],
+    [0.3, 0.3, 0.3, 0.3, 1e-14, 0.2],
+], ids=["committed", "one_missed", "ties"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ard_metrics_match_reference(ard, dtype):
+    ard = np.asarray(ard, dtype)
+    assert runner.ard_metrics(torch.as_tensor(ard)) == \
+        _reference_ard_metrics(ard)
+
+
+def test_jsonl_logger_matches_reference():
+    ours, theirs = io.StringIO(), io.StringIO()
+    for logger, fh in ((JsonlLogger(stream=ours), ours),
+                       (jlogging.JsonlLogger(stream=theirs), theirs)):
+        logger.log(49, elbo=torch.tensor(-12.5) if fh is ours else -12.5,
+                   tag="text", n=3)
+        logger.log(99, elbo=1.25)
+    a, b = ([json.loads(line) for line in fh.getvalue().splitlines()]
+            for fh in (ours, theirs))
+    for rec in a + b:
+        assert rec.pop("wall_dt_s") >= 0.0
+    assert a == b == [{"step": 49, "elbo": -12.5, "tag": "text", "n": 3.0},
+                      {"step": 99, "elbo": 1.25}]
+
+
+def test_load_data_draws_each_dataset():
+    for name, shape, tag in (
+            ("c1_bgplvm_toy", (30, 10), "toy_gplvm"),
+            ("c2_sparse_oil", (1000, 12), "synthetic:oil_flow_like"),
+            ("c4_dp_mocap", (30, 59), "synthetic:mocap_like"),
+            ("c5_pose_missing", (30, 32), "synthetic:pose_like")):
+        cfg = dataclasses.replace(config.get(name), n=30, seed=4)
+        Y, got_tag = runner.load_data(cfg, torch.float64, "cpu")
+        assert (tuple(Y.shape), got_tag) == (shape, tag)
+        assert bool(torch.isfinite(Y).all())
+    # the oil-flow surrogate ignores the config's seed and size
+    c2 = config.get("c2_sparse_oil")
+    a, _ = runner.load_data(c2, torch.float64, "cpu")
+    b, _ = runner.load_data(dataclasses.replace(c2, seed=9), torch.float64,
+                            "cpu")
+    assert torch.equal(a, b)
+
+
+TINY = {
+    # c5's own M = 64 does not fit a 56-row train split
+    "c5_dp_missing": dict(n=64, d=10, m=8, t=3, q=3),
+    "c1_bgplvm_toy": dict(n=40, d=5, m=6, q=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_run_end_to_end_gives_the_references_keys(name, tmp_path):
+    cfg = dataclasses.replace(config.get(name), **TINY[name])
+    data = None
+    if name == "c5_dp_missing":   # the JAX package's draw, passed across
+        data = np.asarray(jsyn.mocap_like(jax.random.PRNGKey(0), n=cfg.n,
+                                          d=cfg.d)[0])
+    result = runner.run(cfg, steps=4, device="cpu", dtype=torch.float64,
+                        data=data, out=str(tmp_path), log_every=3)
+    assert set(result) == set(_artifact(name))
+    assert config.evaluate_checks("", result) == []     # finite throughout
+    assert result["steps"] == 4
+    assert json.loads((tmp_path / "result.json").read_text()) == result
+    log = [json.loads(line) for line in
+           (tmp_path / "train.jsonl").read_text().splitlines()]
+    # whole chunks: 4 steps at 3 a chunk run 6
+    assert [rec["step"] for rec in log] == [2, 5]
+    if name == "c5_dp_missing":
+        assert result["imputation_rows"] == 8
+        assert result["data"] == "given:mocap"
+    else:
+        assert len(result["ard_weights"]) == cfg.q
+
+
+def test_main_check_exits_by_the_gates(monkeypatch, tmp_path, capsys):
+    argv = ["c1_bgplvm_toy", "--device", "cpu", "--f64", "--n", "40",
+            "--steps", "2", "--log-every", "1", "--out", str(tmp_path),
+            "--check"]
+    monkeypatch.setitem(config.CHECKS, "c1_bgplvm_toy",
+                        {"elbo": (">=", -1e30), "steps": ("<=", 2.0)})
+    assert runner.main(argv) == 0
+    assert "all 2 regression gates pass" in capsys.readouterr().out
+    monkeypatch.setitem(config.CHECKS, "c1_bgplvm_toy",
+                        {"elbo": [(">=", -1e30), ("<=", -1e29)]})
+    assert runner.main(argv) == 1
+    assert "FAIL elbo:" in capsys.readouterr().out
+    assert runner.main(argv[:-1]) == 0           # no --check, no gates
+
+
+def test_main_seed_draws_anew(tmp_path):
+    """--seed replaces the config's seed: the run is the one `run` gives
+    for that seed, and another draw than the config's."""
+    cfg = dataclasses.replace(config.get("c1_bgplvm_toy"), n=40)
+    argv = ["c1_bgplvm_toy", "--device", "cpu", "--f64", "--n", "40",
+            "--steps", "2", "--log-every", "1"]
+    elbos = {}
+    for seed in (0, 3):
+        out = tmp_path / str(seed)
+        assert runner.main(argv + ["--seed", str(seed), "--out",
+                                   str(out)]) == 0
+        elbos[seed] = json.loads((out / "result.json").read_text())["elbo"]
+    want = runner.run(dataclasses.replace(cfg, seed=3), steps=2,
+                      device="cpu", dtype=torch.float64, log_every=1)
+    assert elbos[3] == want["elbo"] and elbos[3] != elbos[0]
+
+
+def test_f64_is_refused_on_the_card():
+    cfg = config.get("c4_dp_mocap")
+    with pytest.raises(ValueError, match="float32 only"):
+        runner.run(cfg, steps=1, device="cuda", dtype=torch.float64)
