@@ -50,6 +50,20 @@ imputation servers built on them. Phases, each printing one JSON line:
          first inputs each kernel got at each of its shapes in the run are
          kept, and the kernel is held on them against its plain version
          in f64 (at its phase's tolerance) and repeated to the bit
+  svi    the runner trains c6_svi_bigN (the minibatch SVI-GPLVM) at full
+         width, N=131072 and 1024 rows a step, for 200 steps with a
+         checkpoint every 100; a second run resumes from the step-100
+         checkpoint and must end on the same bits; every step must launch
+         K1 twice and K2 once (the gradient pass and the blend at the
+         updated parameters); K1 is held against f64 on the first
+         minibatch the run gives it, K2 on the first with a nonzero
+         cotangent (the second: at the first q(u) is the prior, where
+         the bound does not depend on Psi2), and both are timed there
+         (device ms, bound);
+         the float64 host ELBO and an imputation of the 256 held-out rows
+         (50 inference steps) must be finite; also the host's draw of the
+         minibatch indices and the host syncs a step makes (PyTorch's
+         sync debug mode, at c6's widths on 4096 rows)
 
 then the card's name and power limit again, a `kernels` JSON line, and as
 its last line
@@ -66,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -630,6 +645,7 @@ def _init_grad_err(torch, loss32, loss64, params, p64):
 
 
 def phase_train(torch, seed):
+    from dp_gp_lvm_tpu_torch.core import prng
     from dp_gp_lvm_tpu_torch.core.config import CONFIGS
     from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
     from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
@@ -640,11 +656,11 @@ def phase_train(torch, seed):
     c4 = CONFIGS["c4_dp_mocap"]
     if (c4.t, c4.n, c4.m, c4.q, c4.d) != tuple(C4[k] for k in "TNMQD"):
         raise AssertionError("C4 no longer matches core/config.py")
-    gen = torch.Generator().manual_seed(seed)
-    Y, _ = mocap_like(gen, n=c4.n, d=c4.d, dtype=torch.float32)
+    key = prng.PRNGKey(seed)    # the reference's draw of this seed
+    Y, _ = mocap_like(key, n=c4.n, d=c4.d, dtype=torch.float32)
     cfg = dp_gp_lvm.Config(num_latent=c4.q, num_inducing=c4.m,
                            truncation=c4.t, alpha=c4.alpha)
-    params = dp_gp_lvm.init_params(gen, Y, cfg)
+    params = dp_gp_lvm.init_params(key, Y, cfg)
 
     # the f32 fused path against the plain path in f64, at the same jitter
     policy32 = JitterPolicy()
@@ -686,6 +702,7 @@ def phase_train(torch, seed):
 
 
 def phase_train_bgplvm(torch, seed):
+    from dp_gp_lvm_tpu_torch.core import prng
     from dp_gp_lvm_tpu_torch.core.config import CONFIGS
     from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
     from dp_gp_lvm_tpu_torch.data.synthetic import oil_flow_like
@@ -696,10 +713,10 @@ def phase_train_bgplvm(torch, seed):
     c2 = CONFIGS["c2_sparse_oil"]
     if (c2.n, c2.m, c2.q, c2.d) != tuple(C2[k] for k in "NMQD"):
         raise AssertionError("C2 no longer matches core/config.py")
-    gen = torch.Generator().manual_seed(seed)
-    Y, _, _ = oil_flow_like(gen, n=c2.n, d=c2.d, dtype=torch.float32)
+    key = prng.PRNGKey(seed)    # the reference's draw of this seed
+    Y, _, _ = oil_flow_like(key, n=c2.n, d=c2.d, dtype=torch.float32)
     cfg = bgplvm.Config(num_latent=c2.q, num_inducing=c2.m)
-    params = bgplvm.init_params(gen, Y, cfg)
+    params = bgplvm.init_params(key, Y, cfg)
 
     policy32 = JitterPolicy()
     same_jitter = JitterPolicy(initial=policy32.initial_for(torch.float32))
@@ -910,12 +927,13 @@ RUN_KERNELS = dict(
 
 
 @contextlib.contextmanager
-def _first_inputs(torch, psi):
+def _first_inputs(torch, psi, worth=lambda name, args: True):
     """While the block runs, keep a copy of the arguments of the first
     call of each kernel wrapper at each signature (its name, the shapes of
-    its tensors, None where an optional one is not given). The wrappers
-    are module attributes looked up at call time, so the fused autograd
-    ops and every model reach the recording copies."""
+    its tensors, None where an optional one is not given) that `worth`
+    accepts. The wrappers are module attributes looked up at call time,
+    so the fused autograd ops and every model reach the recording
+    copies."""
     seen = {}
     originals = {name: getattr(psi, name) for name in RUN_KERNELS}
 
@@ -923,7 +941,7 @@ def _first_inputs(torch, psi):
         def wrapper(*args):
             key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
                                   for a in args)
-            if key not in seen:
+            if key not in seen and worth(name, args):
                 seen[key] = [a.detach().clone() if torch.is_tensor(a) else a
                              for a in args]
             return fn(*args)
@@ -1031,6 +1049,169 @@ def phase_runs(torch, seed):
     return rows
 
 
+C6_STEPS = 200       # two chunks of the runner's 100 at this step count
+C6_CKPT_EVERY = 100
+C6_IMPUTE_STEPS = 50
+
+
+def phase_svi(torch, seed):
+    import shutil
+
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
+    out = ROOT / "build" / "smoke_svi"
+    shutil.rmtree(out, ignore_errors=True)
+    kw = dict(steps=C6_STEPS, device="cuda", ckpt_every=C6_CKPT_EVERY,
+              impute_steps=C6_IMPUTE_STEPS)
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    # K2's cotangent is exactly zero at the first step (q(u) starts at the
+    # prior, where the bound does not depend on Psi2), so K2 is held on
+    # the first call with a nonzero one: the second step's (one host read)
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen:
+        straight = runner.run(cfg, out=str(out / "straight"), **kw)
+    launches = dict(psi.LAUNCHES)
+    steps = loop.STEPS["taken"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=2 * steps, psi2_bwd_batched=steps)
+    held = _hold_first_inputs(torch, psi, seen)
+
+    # resume from the uninterrupted run's step-100 checkpoint
+    resumed_dir = out / "resumed"
+    (resumed_dir / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "straight" / "ckpt" / f"ckpt_{C6_CKPT_EVERY}.pt",
+                resumed_dir / "ckpt")
+    loop.reset_step_count()
+    resumed = runner.run(cfg, out=str(resumed_dir), resume=True, **kw)
+    resumed_steps = loop.STEPS["taken"]
+    a, b = (load_npz(str(d / "params.npz"))
+            for d in (out / "straight", resumed_dir))
+    bitwise = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+    # K1 and K2 on the run's first minibatch: device time and bound
+    timing = {}
+    for key, args in seen.items():
+        name = key[0]
+        T, M, Q = args[4].shape
+        shape = dict(T=T, N=args[2].shape[0], M=M, Q=Q)
+        if name == "suffstats_batched":
+            shape["D"] = args[5].shape[1]
+        work = (k1_work if name == "suffstats_batched" else k2_work)(**shape)
+        bound, by = _bound_ms(*work)
+        dev = _device_ms(lambda: getattr(psi, name)(*args), torch)
+        timing[name] = dict(shape=shape,
+                            device_ms=dev, bound_ms=bound, bound_by=by,
+                            device_over_bound=dev / bound)
+    # the host's draw of one chunk of minibatch indices
+    _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
+    t0 = time.perf_counter()
+    prng.randint(prng.fold_in(r1, torch.arange(C6_CKPT_EVERY)),
+                 (runner.SVI_BATCH,), 0, _train_rows(cfg))
+    draw_ms = 1e3 * (time.perf_counter() - t0) / C6_CKPT_EVERY
+    syncs, sync_sites = _host_syncs_per_step(torch, cfg)
+
+    finiteness = config.evaluate_checks("", straight)
+    failures = config.evaluate_checks(cfg.name, straight)
+    row = dict(phase="svi", config=cfg.name, n=cfg.n, batch=straight["batch"],
+               steps=C6_STEPS, steps_taken=steps,
+               ms_per_step=straight["ms_per_step"],
+               rows_per_sec=straight["rows_per_sec"],
+               seconds=straight["seconds"], elbo_f64=straight["elbo"],
+               noise=straight["noise"],
+               **{k: straight[k] for k in (
+                   "imputation_mse", "predictive_loglik_per_dim",
+                   "calibration_ratio", "imputation_seconds",
+                   "imputation_rows")},
+               index_draw_ms_per_step=draw_ms,
+               host_syncs_per_step=syncs, host_sync_sites=sync_sites,
+               launches=launches, expected_launches=expected,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               held_on_the_runs_inputs=held, kernels_at_c6=timing,
+               resumed_from=C6_CKPT_EVERY, resumed_steps=resumed_steps,
+               resumed_elbo_f64=resumed["elbo"],
+               resume_bitwise_equal=bitwise and (
+                   resumed["elbo"] == straight["elbo"]),
+               nonfinite=finiteness,
+               missing=[f for f in failures if "MISSING" in f],
+               gates_not_held_at_these_steps=[
+                   f for f in failures if f not in finiteness])
+    emit(row)
+    if row["nonfinite"] or row["missing"]:
+        raise AssertionError(f"svi: broken result: {row}")
+    if launches != expected or steps != C6_STEPS:
+        raise AssertionError(f"svi: launched {launches} in {steps} steps, "
+                             f"expected {expected}")
+    if {h["kernel"] for h in held} != {"suffstats_batched",
+                                       "psi2_bwd_batched"}:
+        raise AssertionError(f"svi: held {held}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"svi: {h['kernel']} disagrees with its "
+                                 f"plain version on the run's inputs: {h}")
+    if resumed_steps != C6_STEPS - C6_CKPT_EVERY or not row[
+            "resume_bitwise_equal"]:
+        raise AssertionError("svi: the resumed run did not end on the "
+                             "uninterrupted run's bits")
+    return row
+
+
+def _train_rows(cfg):
+    """Rows of c6's training split: the strided holdout keeps 7 of 8."""
+    return cfg.n - len(range(7, cfg.n, 8))
+
+
+def _host_syncs_per_step(torch, cfg, steps=5):
+    """Host syncs of a c6 natural-gradient step as PyTorch's sync debug
+    mode reports them (the synchronizing calls PyTorch makes; a library's
+    own synchronization inside a call is not seen), over `steps` steps
+    after two warm-up steps, at c6's widths on a 4096-row draw; with the
+    source lines that made them."""
+    import os
+    import warnings
+
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    n, batch = 4096, 1024
+    Y, _ = mocap_like(prng.PRNGKey(cfg.seed), n=n, d=cfg.d,
+                      dtype=torch.float32)
+    mcfg = svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                            batch=batch, psi2_block=cfg.psi2_block)
+    params = svi_gplvm.init_params(prng.PRNGKey(cfg.seed), Y, mcfg)
+    opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                       decay_steps=cfg.steps)
+    step = svi_gplvm.make_svi_natgrad_step(mcfg, n, opt, rho=0.2)
+    idx = prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(
+        2 + steps)), (batch,), 0, n).long().cuda()
+    for t in range(2):
+        step(t, idx[t], Y)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t in range(2, 2 + steps):
+                step(t, idx[t], Y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return len(sites) / steps, {s: sites.count(s) / steps
+                                for s in sorted(set(sites))}
+
+
 def phase_scale(torch, psi, gen):
     _, f32 = _inputs(torch, gen, **SCALE)
     T, M, D = SCALE["T"], SCALE["M"], SCALE["D"]
@@ -1110,6 +1291,7 @@ def main(argv=None) -> int:
     serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
     runs = phase_runs(torch, args.seed)
+    svi = phase_svi(torch, args.seed)
 
     # `launches` of a kernel is its count over the path named in
     # `launches_of`; `launches_by_phase` lists every driven path, the
@@ -1123,7 +1305,8 @@ def main(argv=None) -> int:
                   serve_bgplvm_build=serve2["build_launches"],
                   serve_dp_build=serve5["build_launches"],
                   **{f"runs_{name}": row["launches"]
-                     for name, row in runs.items()})
+                     for name, row in runs.items()},
+                  svi_c6_svi_bigN=svi["launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -1144,12 +1327,24 @@ def main(argv=None) -> int:
                         "train", k1),
              redesigned_in="fifth slice of the port",
              scale_device_ms=k1["scale"]["device_ms"],
-             scale_bound_ms=k1["scale"]["bound_ms"]),
+             scale_bound_ms=k1["scale"]["bound_ms"],
+             c6_device_ms=svi["kernels_at_c6"]["suffstats_batched"][
+                 "device_ms"],
+             c6_bound_ms=svi["kernels_at_c6"]["suffstats_batched"][
+                 "bound_ms"],
+             c6_launches_per_step=svi["launches_per_step"][
+                 "suffstats_batched"]),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
              scale_device_ms=k2["scale"]["device_ms"],
-             scale_bound_ms=k2["scale"]["bound_ms"]),
+             scale_bound_ms=k2["scale"]["bound_ms"],
+             c6_device_ms=svi["kernels_at_c6"]["psi2_bwd_batched"][
+                 "device_ms"],
+             c6_bound_ms=svi["kernels_at_c6"]["psi2_bwd_batched"][
+                 "bound_ms"],
+             c6_launches_per_step=svi["launches_per_step"][
+                 "psi2_bwd_batched"]),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],

@@ -1,8 +1,9 @@
 """Named experiment configurations and their regression gates
 (counterpart of `dp_gp_lvm_tpu/core/config.py`). Only the configurations
 whose models the port runs are copied, with their gates: the Bayesian
-GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, and the DP-GP-LVM's
-`c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`.
+GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, the DP-GP-LVM's
+`c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`, and the minibatch
+SVI-GPLVM's `c6_svi_bigN`.
 """
 from __future__ import annotations
 
@@ -64,6 +65,14 @@ CONFIGS: dict[str, ExperimentConfig] = {
         n=512, d=32, q=8, m=48, t=12, steps=6000, lr=3e-3, ngd_lr=1.0,
         missing_fraction=0.5,
     ),
+    # minibatch SVI-GPLVM at 128x the full-batch configs' data; batch rows
+    # a step come from the runner (1024), held-out dims are imputed from
+    # q(u) alone
+    "c6_svi_bigN": ExperimentConfig(
+        name="c6_svi_bigN", model="svi_gplvm", dataset="mocap",
+        n=131072, d=32, q=8, m=64, steps=6000, lr=3e-3, ngd_lr=1.0,
+        missing_fraction=0.5, psi2_block=8192,
+    ),
 }
 
 
@@ -99,6 +108,14 @@ CHECKS: dict[str, dict[str, tuple[str, float] | list[tuple[str, float]]]] = {
         "imputation_mse": ("<=", 0.15),
         "predictive_loglik_per_dim": (">=", -0.2),
         "calibration_ratio": [(">=", 0.2), ("<=", 5.0)],
+    },
+    "c6_svi_bigN": {
+        "imputation_mse": ("<=", 0.05),
+        "predictive_loglik_per_dim": (">=", -0.8),
+        "rows_per_sec": (">=", 150000.0),
+        # the full-data ELBO in float64 at the trained parameters
+        "elbo": (">=", -6.0e6),
+        "calibration_ratio": [(">=", 0.01), ("<=", 5.0)],
     },
 }
 

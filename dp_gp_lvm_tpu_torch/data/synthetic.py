@@ -1,82 +1,94 @@
 """Synthetic datasets (counterpart of `dp_gp_lvm_tpu/data/synthetic.py`):
-`toy_gplvm` (c1), `oil_flow_like` (c2), `mocap_like` (c4/c5) and
-`pose_like` (c5_pose). Every
-draw comes from an explicit `torch.Generator`, on the generator's device;
-the result is moved to `device` (the card unless the caller says "cpu")."""
+`toy_gplvm` (c1), `oil_flow_like` (c2), `mocap_like` (c4, c5, c6) and
+`pose_like` (c5_pose). Each takes a key of the reference's random stream
+(`core/prng.py`) and draws what the reference draws from it, in the same
+order, on the CPU; the result is moved to `device` (the card unless the
+caller says "cpu")."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.types import resolve_device
 from dp_gp_lvm_tpu_torch.kernels import ard_rbf
-from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_spec
+from dp_gp_lvm_tpu_torch.linalg import safe_cholesky
 
 
 def _standardize(Y):
     return (Y - Y.mean(dim=0)) / Y.std(dim=0, correction=0)
 
 
-def _gp_draws(generator, X, ard, num_out, noise, variance=1.0):
+def _linspace(stop: float, n: int, dtype):
+    """`jnp.linspace(0, stop, n)`: stop * (i / (n - 1)), the last exactly
+    stop."""
+    stop = torch.tensor(stop, dtype=dtype)
+    step = torch.arange(n - 1, dtype=dtype) / (n - 1)
+    return torch.cat([stop * step, stop[None]])
+
+
+def _gp_draws(key, X, ard, num_out, noise, variance=1.0):
     """num_out independent GP function values over the rows of X, plus
     observation noise of variance `noise`."""
     n = X.shape[0]
-    kw = dict(generator=generator, dtype=X.dtype, device=X.device)
-    k = ard_rbf.gram(torch.tensor(variance, dtype=X.dtype, device=X.device),
-                     ard, X)
-    L, _ = safe_cholesky_spec(k)
-    f = L @ torch.randn((n, num_out), **kw)
-    return f + math.sqrt(noise) * torch.randn((n, num_out), **kw)
+    k = ard_rbf.gram(torch.tensor(variance, dtype=X.dtype), ard, X)
+    L, _ = safe_cholesky(k)
+    r1, r2 = prng.split(key)
+    f = L @ prng.normal(r1, (n, num_out), X.dtype)
+    return f + math.sqrt(noise) * prng.normal(r2, (n, num_out), X.dtype)
 
 
-def toy_gplvm(generator: torch.Generator, n: int = 100, d: int = 10,
-              q_true: int = 2, q_total: int | None = None,
-              noise: float = 0.01, dtype=torch.float64, device=None):
+def toy_gplvm(key, n: int = 100, d: int = 10, q_true: int = 2,
+              q_total: int | None = None, noise: float = 0.01,
+              dtype=torch.float64, device=None):
     """Config-1 data: D outputs driven by q_true active latent dims; with
     q_total > q_true the generating ARD weights are zero on the inactive
     dims. Returns (Y, X_true)."""
     device = resolve_device(device)
     q_total = q_total or q_true
-    kw = dict(dtype=dtype, device=generator.device)
-    X = torch.randn((n, q_total), generator=generator, **kw)
-    ard = torch.cat([torch.ones(q_true, **kw),
-                     torch.zeros(q_total - q_true, **kw)])
-    Y = _standardize(_gp_draws(generator, X, ard, d, noise))
+    r1, r2 = prng.split(key)
+    X = prng.normal(r1, (n, q_total), dtype)
+    ard = torch.cat([torch.ones(q_true, dtype=dtype),
+                     torch.zeros(q_total - q_true, dtype=dtype)])
+    Y = _standardize(_gp_draws(r2, X, ard, d, noise))
     return Y.to(device), X.to(device)
 
 
-def oil_flow_like(generator: torch.Generator, n: int = 1000, d: int = 12,
-                  dtype=torch.float64, device=None):
+def oil_flow_like(key, n: int = 1000, d: int = 12, dtype=torch.float64,
+                  device=None):
     """Three-regime multiphase-flow surrogate (config-2 shape: N=1000,
     D=12): three well-separated clusters in a 2-dim latent, mapped through
-    random Fourier features. Returns (Y, labels, X)."""
+    random Fourier features. Returns (Y, labels, X). The labels are drawn
+    at the integer width the reference draws them at: 64 bits with
+    float64 (its 64-bit mode), else 32."""
     device = resolve_device(device)
-    kw = dict(dtype=dtype, device=generator.device)
-    labels = torch.randint(0, 3, (n,), generator=generator,
-                           device=generator.device)
-    centers = torch.tensor([[-2.0, 0.0], [2.0, 0.0], [0.0, 2.5]], **kw)
-    X = centers[labels] + 0.3 * torch.randn((n, 2), generator=generator, **kw)
-    W = torch.randn((2, d), generator=generator, **kw)
-    b = 2.0 * math.pi * torch.rand((d,), generator=generator, **kw)
+    r0, r1, r2, r3 = prng.split(key, 4)
+    labels = prng.randint(r0, (n,), 0, 3,
+                          bits=64 if dtype == torch.float64 else 32)
+    centers = torch.tensor([[-2.0, 0.0], [2.0, 0.0], [0.0, 2.5]],
+                           dtype=dtype)
+    X = centers[labels.long()] + 0.3 * prng.normal(r1, (n, 2), dtype)
+    W = prng.normal(r2, (2, d), dtype)
+    b = prng.uniform(r3, (d,), dtype, 0.0, 2.0 * math.pi)
     Y = _standardize(torch.sin(X @ W + b[None, :]))
     return Y.to(device), labels.to(device), X.to(device)
 
 
-def mocap_like(generator: torch.Generator, n: int = 1024, d: int = 59,
-               q_true: int = 4, noise: float = 0.02,
-               dtype=torch.float64, device=None):
-    """CMU-mocap-shaped surrogate (N~1k, D~60): smooth low-dimensional
-    trajectories through a high-dimensional joint-angle space.
-    Returns (Y, X) on `device` (the card unless the caller says "cpu")."""
+def mocap_like(key, n: int = 1024, d: int = 59, q_true: int = 4,
+               noise: float = 0.02, dtype=torch.float64, device=None):
+    """CMU-mocap-shaped surrogate (N~1k, D~60; c6 draws N=131072, D=32):
+    smooth low-dimensional trajectories through a high-dimensional
+    joint-angle space. Returns (Y, X) on `device` (the card unless the
+    caller says "cpu")."""
     device = resolve_device(device)
-    kw = dict(dtype=dtype, device=generator.device)
-    t = torch.linspace(0.0, 8.0 * math.pi, n, **kw)[:, None]
-    freqs = 0.5 + torch.arange(q_true, **kw)[None, :] * 0.35
-    phases = 2.0 * math.pi * torch.rand((1, q_true), generator=generator, **kw)
+    r1, r2 = prng.split(key)
+    t = _linspace(8.0 * math.pi, n, dtype)[:, None]
+    freqs = 0.5 + torch.arange(q_true, dtype=dtype)[None, :] * 0.35
+    phases = prng.uniform(r1, (1, q_true), dtype, 0.0, 2.0 * math.pi)
     X = torch.sin(t * freqs + phases)
-    W = torch.randn((q_true, d), generator=generator, **kw) / math.sqrt(q_true)
-    Y = X @ W + noise * torch.randn((n, d), generator=generator, **kw)
+    W = prng.normal(r2, (q_true, d), dtype) / math.sqrt(q_true)
+    Y = X @ W + noise * prng.normal(key, (n, d), dtype)
     return _standardize(Y).to(device), X.to(device)
 
 
@@ -112,7 +124,8 @@ def pose_from_draws(phases, mix, noise_draw, noise: float = 0.01):
     Returns (Y (n, 32), gait (n, q), joint_groups (16,))."""
     n, q = noise_draw.shape[0], phases.shape[1]
     kw = dict(dtype=phases.dtype, device=phases.device)
-    t = torch.linspace(0.0, 6.0 * math.pi, n, **kw)[:, None]
+    t = _linspace(6.0 * math.pi, n, phases.dtype).to(phases.device)
+    t = t[:, None]
     freqs = 0.7 + torch.arange(q, **kw)[None, :] * 0.4
     gait = torch.sin(t * freqs + phases)                    # (n, q)
     # opposite limbs get opposite sign (walking anti-phase)
@@ -142,8 +155,8 @@ def pose_from_draws(phases, mix, noise_draw, noise: float = 0.01):
     return Y, gait, groups
 
 
-def pose_like(generator: torch.Generator, n: int = 512, q_true: int = 3,
-              noise: float = 0.01, dtype=torch.float64, device=None):
+def pose_like(key, n: int = 512, q_true: int = 3, noise: float = 0.01,
+              dtype=torch.float64, device=None):
     """Pose-shaped surrogate (config c5_pose_missing): 2D keypoint
     trajectories of a 16-joint articulated figure walking. A few smooth
     gait signals drive joint angles per limb group through a 2D
@@ -152,9 +165,9 @@ def pose_like(generator: torch.Generator, n: int = 512, q_true: int = 3,
     Returns (Y (n, 32), X_true (n, q_true), joint_groups (16,)) on
     `device` (the card unless the caller says "cpu")."""
     device = resolve_device(device)
-    kw = dict(generator=generator, dtype=dtype, device=generator.device)
-    phases = 2.0 * math.pi * torch.rand((1, q_true), **kw)
-    mix = 0.5 * torch.randn((5, q_true), **kw)
-    noise_draw = torch.randn((n, 2 * len(_POSE_SKELETON)), **kw)
+    r1, r2, r3 = prng.split(key, 3)
+    phases = prng.uniform(r1, (1, q_true), dtype, 0.0, 2.0 * math.pi)
+    mix = 0.5 * prng.normal(r2, (5, q_true), dtype)
+    noise_draw = prng.normal(r3, (n, 2 * len(_POSE_SKELETON)), dtype)
     Y, gait, groups = pose_from_draws(phases, mix, noise_draw, noise)
     return Y.to(device), gait.to(device), groups.to(device)

@@ -1,23 +1,30 @@
-"""Run a named config end to end on the full-batch path (counterpart of
-`experiments/run.py` for the Bayesian GP-LVM and the DP-GP-LVM): data ->
-init -> chunked training with restarts -> metrics, a JSONL log, a
-`result.json`, and the committed regression gates with `--check`.
+"""Run a named config end to end (counterpart of `experiments/run.py` for
+the Bayesian GP-LVM, the DP-GP-LVM and the minibatch SVI-GPLVM): data ->
+init -> chunked training (restarts for the full-batch models, the SVI loop
+with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
+`result.json`, a `params.npz`, and the committed regression gates with
+`--check`.
 
     python -m dp_gp_lvm_tpu_torch.experiments.run c4_dp_mocap --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --check
     python -m dp_gp_lvm_tpu_torch.experiments.run c5_dp_missing \\
         --device cpu --f64 --n 128 --steps 40
+    python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --device cpu \\
+        --f64 --n 128 --steps 8 --batch 32 --log-every 2 --stop-after 4 \\
+        --ckpt-every 2 --out build/runs/c6   # then again with --resume
 
 It runs f32 on the card unless `--device cpu` is given. `--f64` is the
 CPU parity mode: the CUDA kernels take float32 only, so it is refused on
-the card. Data and initial parameters are drawn from CPU
-`torch.Generator`s seeded from the config, so a draw does not depend on
-the device; it is not the reference's `jax.random` draw.
+the card. Data, initial parameters and the SVI minibatches are the
+reference's draws: its `jax.random` keys in its order, through
+`core/prng.py`, on the CPU (a draw does not depend on the device).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import sys
@@ -27,12 +34,22 @@ import numpy as np
 import torch
 
 from dp_gp_lvm_tpu_torch.core import config as config_lib
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
 from dp_gp_lvm_tpu_torch.data import synthetic
-from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, prediction
+from dp_gp_lvm_tpu_torch.models import (
+    bgplvm,
+    dp_gp_lvm,
+    eval_f64,
+    prediction,
+    svi_gplvm,
+)
+from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer, export_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 from dp_gp_lvm_tpu_torch.train.loop import (
+    NonFiniteGuard,
+    TrainState,
     gp_optimizer,
     make_multi_step_fn,
     make_step_fn,
@@ -40,31 +57,31 @@ from dp_gp_lvm_tpu_torch.train.loop import (
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-MODELS = {"bgplvm": bgplvm, "dp_gp_lvm": dp_gp_lvm}
-
-
-def _generator(seed: int) -> torch.Generator:
-    return torch.Generator().manual_seed(seed)
+MODELS = {"bgplvm": bgplvm, "dp_gp_lvm": dp_gp_lvm, "svi_gplvm": svi_gplvm}
+SVI_BATCH = 1024        # rows a step of the SVI configs (the reference's)
+SVI_TEST_ROWS = 256     # held-out rows the SVI imputation metric reads
 
 
 def load_data(cfg, dtype, device):
-    """(Y, source tag) of the config's dataset. The oil-flow surrogate is
-    drawn from seed 0 whatever the config's seed, and at its fixed
-    1000 x 12, as the reference's loader does without a data directory."""
+    """(Y, source tag) of the config's dataset, drawn from the reference's
+    key `PRNGKey(cfg.seed)`. The oil-flow surrogate is drawn from key 0
+    whatever the config's seed, and at its fixed 1000 x 12, as the
+    reference's loader does without a data directory."""
     kw = dict(dtype=dtype, device=device)
+    key = prng.PRNGKey(cfg.seed)
     if cfg.dataset == "toy_gplvm":
-        Y, _ = synthetic.toy_gplvm(_generator(cfg.seed), n=cfg.n, d=cfg.d,
-                                   q_true=2, q_total=cfg.q, **kw)
+        Y, _ = synthetic.toy_gplvm(key, n=cfg.n, d=cfg.d, q_true=2,
+                                   q_total=cfg.q, **kw)
         return Y, "toy_gplvm"
     if cfg.dataset == "oil_flow":
-        Y, _, _ = synthetic.oil_flow_like(_generator(0), n=1000, d=12, **kw)
+        Y, _, _ = synthetic.oil_flow_like(prng.PRNGKey(0), n=1000, d=12,
+                                          **kw)
         return Y, "synthetic:oil_flow_like"
     if cfg.dataset == "pose":
-        Y, _, _ = synthetic.pose_like(_generator(cfg.seed), n=cfg.n, **kw)
+        Y, _, _ = synthetic.pose_like(key, n=cfg.n, **kw)
         return Y, "synthetic:pose_like"
     if cfg.dataset == "mocap":
-        Y, _ = synthetic.mocap_like(_generator(cfg.seed), n=cfg.n, d=cfg.d,
-                                    **kw)
+        Y, _ = synthetic.mocap_like(key, n=cfg.n, d=cfg.d, **kw)
         return Y, "synthetic:mocap_like"
     raise ValueError(f"dataset {cfg.dataset!r} is not ported")
 
@@ -102,16 +119,16 @@ def _scalar_terms(terms) -> dict:
             if not torch.is_tensor(v) or v.ndim == 0}
 
 
-def _impute(params, Y_train, Y_test, mcfg, missing_fraction) -> dict:
+def _impute(impute_fn, Y_test, missing_fraction) -> dict:
     """The missing-data metrics: the last `missing_fraction` of the dims
-    of every held-out row are masked and imputed."""
+    of every held-out row are masked and imputed by
+    `impute_fn(Y_test, mask) -> (mean, var, ...)`."""
     d = Y_test.shape[1]
     n_miss = int(d * missing_fraction)
     mask = torch.ones_like(Y_test)
     mask[:, -n_miss:] = 0.0
     t0 = time.perf_counter()
-    mean, var, *_ = prediction.impute_dp(params, Y_train, mcfg, Y_test, mask,
-                                         num_steps=200)
+    mean, var, *_ = impute_fn(Y_test, mask)
     if mean.is_cuda:
         torch.cuda.synchronize(mean.device)
     seconds = time.perf_counter() - t0
@@ -130,16 +147,141 @@ def _impute(params, Y_train, Y_test, mcfg, missing_fraction) -> dict:
     }
 
 
+def _model_config(cfg, batch):
+    if cfg.model == "bgplvm":
+        return bgplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                             psi2_block=cfg.psi2_block)
+    if cfg.model == "dp_gp_lvm":
+        return dp_gp_lvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                                truncation=cfg.t, alpha=cfg.alpha,
+                                psi2_block=cfg.psi2_block)
+    return svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                            batch=batch or SVI_BATCH,
+                            psi2_block=cfg.psi2_block,
+                            amortized=cfg.amortized,
+                            noise_floor=cfg.noise_floor)
+
+
+def _svi_chunk(device, log_every, steps, stop_after):
+    """Steps between host reads of the SVI loop, the reference's rule: at
+    least 250 off the CPU, at least two chunks, --stop-after reached
+    exactly. The step keys do not depend on it."""
+    floor = 1 if device.type == "cpu" else 250
+    chunk = max(1, min(max(log_every, floor), steps))
+    if chunk >= steps:
+        chunk = max(1, steps // 2)
+    if stop_after:
+        chunk = max(1, min(chunk, stop_after))
+    return chunk
+
+
+def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
+               ngd_lr, logger, out, ckpt_every, resume, stop_after,
+               inject_nonfinite_at):
+    """The generic SVI loop: q(u) by stochastic natural gradient, the rest
+    by `gp_optimizer`, in chunks of steps with one host read each. Step t
+    draws its minibatch with `randint(fold_in(r1, t), (B,), 0, N)`, r1 the
+    second half of `split(PRNGKey(seed + 100))`, so the minibatch sequence
+    depends on neither the chunk size nor a restart; a chunk's (chunk, B)
+    indices are drawn on the host in one call and copied once. Returns
+    (params, s per step after the first chunk, seconds, result keys)."""
+    n_total = Y.shape[0]
+    opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr, ard_lr=cfg.ard_lr,
+                       decay_steps=steps, ngd_lr=ngd_lr)
+    step_fn = svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2)
+    chunk = _svi_chunk(device, log_every, steps, stop_after)
+    _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
+    state = TrainState(opt)
+    ck = None
+    if ckpt_every or resume:
+        if out is None:
+            raise ValueError("--ckpt-every and --resume need an output "
+                             "directory")
+        ck = Checkpointer(os.path.join(out, "ckpt"))
+        if resume and ck.restore(state) is not None:
+            print(f"[{cfg.name}] resumed at step {state.step}", flush=True)
+    loop_steps = min(steps, stop_after or steps)
+    if loop_steps % chunk:
+        print(f"[{cfg.name}] note: the loop runs chunks of {chunk}; it "
+              f"stops at the next multiple of {chunk} past {loop_steps}",
+              flush=True)
+    if ckpt_every and ckpt_every % chunk:
+        print(f"[{cfg.name}] note: --ckpt-every {ckpt_every} is not a "
+              f"multiple of the chunk {chunk}; checkpoints are written only "
+              f"at chunk ends divisible by it", flush=True)
+    guard = NonFiniteGuard()
+    t0 = time.perf_counter()
+    done = start = state.step
+    t_post, draw_s = None, 0.0
+    while done < loop_steps:
+        t_draw = time.perf_counter()
+        keys = prng.fold_in(r1, torch.arange(done, done + chunk))
+        idx = prng.randint(keys, (mcfg.batch,), 0, n_total).long().to(device)
+        draw_s += time.perf_counter() - t_draw
+        losses = torch.stack([step_fn(done + i, idx[i], Y)
+                              for i in range(chunk)]).cpu()   # the host read
+        state.step = done + chunk
+        if t_post is None:
+            t_post = time.perf_counter()      # the first chunk builds
+        if inject_nonfinite_at is not None:   # fault injection (tests)
+            losses[max(0, inject_nonfinite_at - done):] = math.nan
+        if guard.update(losses, done):
+            _abort_nonfinite(cfg, out, guard, done + chunk)
+        done += chunk
+        elbo_now = -float(losses[-1])
+        logger.log(done - 1, elbo_estimate=elbo_now)
+        print(f"  step {done - 1}: elbo_estimate={elbo_now:.4g}", flush=True)
+        if ck is not None and ckpt_every and done % ckpt_every == 0:
+            ck.save(state)
+    timed = done - start - chunk
+    per_step = ((time.perf_counter() - t_post) / timed if timed > 0
+                else math.nan)
+    total = time.perf_counter() - t0
+    rows_per_sec = (round(mcfg.batch / max(per_step, 1e-9))
+                    if per_step == per_step else None)
+    drawn = max(done - start, 1)
+    print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step "
+          f"after the first chunk, {rows_per_sec} rows/s; minibatch "
+          f"indices drawn on the host in {draw_s * 1e3 / drawn:.4f} "
+          f"ms/step", flush=True)
+    return opt.params, per_step, total, {"batch": mcfg.batch,
+                                         "rows_per_sec": rows_per_sec}
+
+
+def _abort_nonfinite(cfg, out, guard, done):
+    """Mark the run failed and exit 3: k consecutive chunks held a
+    non-finite loss."""
+    failed = {"config": cfg.name, "aborted_nonfinite": True,
+              "aborted_at_step": int(done),
+              "first_nonfinite_step": int(guard.first_bad_step or done)}
+    if out is not None:
+        with open(os.path.join(out, "result.json"), "w") as fh:
+            json.dump(failed, fh, indent=2)
+    print(f"[{cfg.name}] ABORT: {guard.k} consecutive chunks with non-finite "
+          f"losses (first at step ~{guard.first_bad_step}); run marked "
+          f"failed", flush=True)
+    raise SystemExit(3)
+
+
 def run(cfg, *, steps: int | None = None, device=None,
         dtype=torch.float32, data=None, params=None, out=None,
         log_every: int = 50, hyper_lr: float | None = None,
-        ngd_lr: float | None = None) -> dict:
+        ngd_lr: float | None = None, batch: int | None = None,
+        ckpt_every: int = 0, resume: bool = False,
+        stop_after: int | None = None,
+        inject_nonfinite_at: int | None = None,
+        impute_steps: int = 200) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout) and
     `params` the first restart's initial parameters, both as numpy (for
     example the JAX package's, to hold the two packages together). With
-    `out`, `train.jsonl` and `result.json` are written there."""
+    `out`, `train.jsonl`, `result.json` and `params.npz` are written
+    there. The SVI configs take `batch` (rows a step), `ckpt_every` and
+    `resume` (checkpoints in `out/ckpt`), `stop_after` (stop the loop
+    early; the schedules still span `steps`) and `inject_nonfinite_at`
+    (treat losses from that step on as NaN: the abort, exit 3);
+    `impute_steps` sizes the imputation's latent inference."""
     device = resolve_device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
@@ -150,6 +292,7 @@ def run(cfg, *, steps: int | None = None, device=None,
         pin_full_f32()
     steps = steps or cfg.steps
     model = MODELS[cfg.model]
+    svi = cfg.model == "svi_gplvm"
     if out is not None:
         os.makedirs(out, exist_ok=True)
     logger = JsonlLogger(os.path.join(out, "train.jsonl") if out else None)
@@ -159,24 +302,22 @@ def run(cfg, *, steps: int | None = None, device=None,
     else:
         Y, tag = torch.tensor(np.asarray(data), dtype=dtype,
                               device=device), f"given:{cfg.dataset}"
-    if cfg.model == "bgplvm":
-        mcfg = bgplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
-                             psi2_block=cfg.psi2_block)
-    else:
-        mcfg = dp_gp_lvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
-                                truncation=cfg.t, alpha=cfg.alpha,
-                                psi2_block=cfg.psi2_block)
-    imputing = cfg.model == "dp_gp_lvm" and cfg.missing_fraction > 0
+    mcfg = _model_config(cfg, batch)
+    imputing = cfg.model != "bgplvm" and cfg.missing_fraction > 0
     if imputing:
         Y_train, Y_test = (torch.as_tensor(y, dtype=dtype, device=device)
                            for y in holdout_split(Y.cpu().numpy()))
+        if svi:
+            Y_test = Y_test[:SVI_TEST_ROWS]
     else:
         Y_train = Y
 
     def init(r):
         if r == 0 and params is not None:
             return params_from_jax(params, device, dtype)
-        return model.init_params(_generator(cfg.seed + r), Y_train, mcfg)
+        # the first restart draws its init from the data's key, as the
+        # reference does
+        return model.init_params(prng.PRNGKey(cfg.seed + r), Y_train, mcfg)
 
     def loss_fn(p, y):
         return model.loss(p, y, mcfg)
@@ -205,28 +346,45 @@ def run(cfg, *, steps: int | None = None, device=None,
                   flush=True)
         return opt, elbo_now
 
-    # non-convex models train from cfg.restarts init seeds; the best final
-    # ELBO is kept
-    t0 = time.perf_counter()
-    opt, best_elbo = train_from(init(0), " [r0]" if cfg.restarts > 1 else "")
-    restart_elbos = [best_elbo]
-    for r in range(1, cfg.restarts):
-        opt_r, elbo_r = train_from(init(r), f" [r{r}]")
-        restart_elbos.append(elbo_r)
-        if elbo_r > best_elbo:
-            opt, best_elbo = opt_r, elbo_r
-    total = time.perf_counter() - t0
-    per_step = time_steps(make_step_fn(loss_fn, opt), (Y_train,), 10)
-    print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step",
-          flush=True)
-    logger.close()
-
-    trained = opt.params
-    with torch.no_grad():
-        terms = _scalar_terms(model.elbo_terms(trained, Y_train, mcfg))
+    extra, restart_elbos = {}, []
+    if svi:
+        trained, per_step, total, extra = _train_svi(
+            cfg, Y_train, mcfg, init(0), steps, device=device,
+            log_every=log_every, hyper_lr=hyper_lr, ngd_lr=ngd_lr,
+            logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
+            stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at)
+        logger.close()
+        # the gated ELBO in host float64 over every training row
+        with torch.no_grad():
+            noise = float(svi_gplvm.constrain(trained, mcfg)["noise"])
+        terms = {"elbo": eval_f64.elbo_f64(trained, Y_train, mcfg),
+                 "noise": noise}
+    else:
+        # non-convex models train from cfg.restarts init seeds; the best
+        # final ELBO is kept
+        t0 = time.perf_counter()
+        opt, best_elbo = train_from(init(0),
+                                    " [r0]" if cfg.restarts > 1 else "")
+        restart_elbos = [best_elbo]
+        for r in range(1, cfg.restarts):
+            opt_r, elbo_r = train_from(init(r), f" [r{r}]")
+            restart_elbos.append(elbo_r)
+            if elbo_r > best_elbo:
+                opt, best_elbo = opt_r, elbo_r
+        total = time.perf_counter() - t0
+        per_step = time_steps(make_step_fn(loss_fn, opt), (Y_train,), 10)
+        print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} "
+              "ms/step", flush=True)
+        logger.close()
+        trained = opt.params
+        with torch.no_grad():
+            terms = _scalar_terms(model.elbo_terms(trained, Y_train, mcfg))
     result = {"config": cfg.name, "data": tag, "steps": steps,
               "seconds": round(total, 2),
-              "ms_per_step": round(per_step * 1e3, 3), **terms}
+              # None (valid JSON), not NaN, where no step was timed
+              "ms_per_step": (round(per_step * 1e3, 3)
+                              if per_step == per_step else None),
+              **terms, **extra}
     if cfg.restarts > 1:
         result["restart_elbos"] = [round(e, 3) for e in restart_elbos]
     if cfg.model == "bgplvm" and cfg.dataset == "toy_gplvm":
@@ -235,13 +393,24 @@ def run(cfg, *, steps: int | None = None, device=None,
               f"recall={result['ard_recall_top2']} "
               f"sep={result['ard_separation_ratio']:.1f}", flush=True)
     if imputing:
-        result.update(_impute(trained, Y_train, Y_test, mcfg,
-                              cfg.missing_fraction))
+        if svi:
+            def impute_fn(y, mask):
+                return svi_gplvm.impute(trained, y, mask, mcfg,
+                                        num_steps=impute_steps)
+        else:
+            def impute_fn(y, mask):
+                return prediction.impute_dp(trained, Y_train, mcfg, y, mask,
+                                            num_steps=impute_steps)
+        result.update(_impute(impute_fn, Y_test, cfg.missing_fraction))
         print(f"[{cfg.name}] imputation mse={result['imputation_mse']:.4f} "
               f"pll={result['predictive_loglik_per_dim']:.4f} "
               f"({result['imputation_seconds']:.2f}s for "
               f"{result['imputation_rows']} rows)", flush=True)
     if out is not None:
+        # the SVI export is of the raw parameters, which its serving entry
+        # points take; the collapsed models export constrained values
+        export_npz(os.path.join(out, "params.npz"),
+                   dict(trained) if svi else model.constrain(trained))
         with open(os.path.join(out, "result.json"), "w") as fh:
             json.dump(result, fh, indent=2)
     print(json.dumps(result), flush=True)
@@ -276,6 +445,21 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="assert the regression gates (core/config.CHECKS) "
                          "on the finished run; exit 1 on any failure")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="SVI configs: rows a step (default 1024)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="SVI configs: checkpoint every this many steps, "
+                         "in <out>/ckpt (a multiple of the chunk)")
+    ap.add_argument("--resume", action="store_true",
+                    help="SVI configs: resume from the latest checkpoint "
+                         "in <out>/ckpt; the run continues bit for bit")
+    ap.add_argument("--stop-after", type=int, default=None,
+                    help="SVI configs: stop the loop after this many steps "
+                         "(schedules still span --steps)")
+    ap.add_argument("--inject-nonfinite-at", type=int, default=None,
+                    metavar="STEP",
+                    help="SVI configs, fault injection: treat chunk losses "
+                         "as NaN from this step on (the abort, exit 3)")
     args = ap.parse_args(argv)
 
     cfg = config_lib.get(args.config)
@@ -288,7 +472,10 @@ def main(argv=None) -> int:
     result = run(cfg, steps=args.steps, device=args.device,
                  dtype=torch.float64 if args.f64 else torch.float32,
                  out=out, log_every=args.log_every, hyper_lr=args.hyper_lr,
-                 ngd_lr=args.ngd_lr)
+                 ngd_lr=args.ngd_lr, batch=args.batch,
+                 ckpt_every=args.ckpt_every, resume=args.resume,
+                 stop_after=args.stop_after,
+                 inject_nonfinite_at=args.inject_nonfinite_at)
     if args.check:
         failures = config_lib.evaluate_checks(cfg.name, result)
         if failures:

@@ -68,6 +68,18 @@ def safe_cholesky_spec(A, policy: JitterPolicy = JitterPolicy()):
     return L, torch.full(batch, jitter, dtype=A.dtype, device=A.device)
 
 
+def safe_cholesky(A, policy: JitterPolicy = JitterPolicy()):
+    """Safe Cholesky of one matrix (the reference's search-first form):
+    (L, jitter) with jitter 0-d. For a single matrix, searching the
+    jitter before factoring and factoring at the initial jitter before
+    searching pick the same jitter and the same factor, so this is
+    `safe_cholesky_spec`: one factorization and one host sync on the
+    good path."""
+    if A.ndim != 2:
+        raise ValueError(f"safe_cholesky takes one matrix, got {A.shape}")
+    return safe_cholesky_spec(A, policy)
+
+
 def tri_solve(L, B, lower: bool = True, trans: bool = False):
     """Solve op(L) X = B for triangular L. Batched over leading dims."""
     if trans:

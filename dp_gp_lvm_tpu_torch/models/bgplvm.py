@@ -45,11 +45,13 @@ class Config(NamedTuple):
     hyperprior_std: float = 0.0    # log-normal prior on hypers (0 = off)
 
 
-def init_params(generator: torch.Generator, Y, config: Config):
-    """PCA-initialized parameters on Y's device, drawn from `generator`."""
+def init_params(key, Y, config: Config):
+    """PCA-initialized parameters on Y's device; Z is drawn from `key` (a
+    key of the reference's stream, `core/prng.py`) as the reference
+    draws it."""
     dtype, device = Y.dtype, Y.device
     x0 = pca_latents(Y, config.num_latent)
-    z0 = inducing_from_latents(generator, x0, config.num_inducing)
+    z0 = inducing_from_latents(key, x0, config.num_inducing)
     params = {
         "qx_mean": x0,
         "raw_qx_var": positive_inverse(0.5 * torch.ones_like(x0)),

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.transforms import (
     positive,
     positive_inverse,
@@ -50,15 +51,16 @@ class Config(NamedTuple):
     learn_alpha: bool = False
 
 
-def init_params(generator: torch.Generator, Y, config: Config):
-    """Initial parameters on Y's device, drawn from `generator`."""
+def init_params(key, Y, config: Config):
+    """Initial parameters on Y's device, drawn from `key` (a key of the
+    reference's stream, `core/prng.py`) as the reference draws them."""
     dtype, device = Y.dtype, Y.device
     t, q = config.truncation, config.num_latent
     d = Y.shape[1]
+    r_z, r_phi, r_hyp = prng.split(key, 3)
     x0 = pca_latents(Y, q)
-    z0 = inducing_from_latents(generator, x0, config.num_inducing)
-    noise = torch.randn((t, q), generator=generator, dtype=dtype,
-                        device=generator.device).to(device)
+    z0 = inducing_from_latents(r_z, x0, config.num_inducing)
+    noise = prng.normal(r_hyp, (t, q), dtype).to(device)
     # small per-atom jitter on the ARD weights breaks atom symmetry
     ard0 = 1.0 + 0.05 * noise
 
@@ -72,8 +74,8 @@ def init_params(generator: torch.Generator, Y, config: Config):
         "raw_variance": positive_inverse(full((t,), 1.0)),
         "raw_ard": positive_inverse(torch.clamp(ard0, min=0.1)),
         "raw_noise": positive_inverse(full((t,), 0.1)),
-        "phi_logits": near_uniform_assignments(generator, d, t).to(
-            device=device, dtype=dtype),
+        "phi_logits": near_uniform_assignments(r_phi, d, t,
+                                               dtype=dtype).to(device),
         "raw_gamma1": positive_inverse(full((t - 1,), 1.0)),
         "raw_gamma2": positive_inverse(full((t - 1,), config.alpha)),
     }

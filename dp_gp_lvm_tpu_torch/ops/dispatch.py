@@ -17,6 +17,7 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
     psi1_weighted,
     psi2_analytic,
 )
+from dp_gp_lvm_tpu_torch.models.bound import SuffStats, suff_stats_from_psi
 from dp_gp_lvm_tpu_torch.ops import psi as psi_ops
 
 KERNELS = {"ard_rbf": ard_rbf}
@@ -30,6 +31,14 @@ def _kernel(kernel: str):
 
 def gram(variance, ard, X1, X2=None, kernel: str = "ard_rbf"):
     return _kernel(kernel).gram(variance, ard, X1, X2)
+
+
+def expected_gram_diag(variance, ard, mu, s, kernel: str = "ard_rbf"):
+    """Per-row expected kernel diagonal E_q(x_n)[k(x_n, x_n)], (N,): the
+    constant signal variance for the RBF."""
+    _kernel(kernel)
+    return variance * torch.ones(mu.shape[0], dtype=mu.dtype,
+                                 device=mu.device)
 
 
 def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
@@ -110,3 +119,26 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
     n_eff = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
              if weights is None else torch.sum(weights))
     return p0, p1y, p2, torch.sum(Y * Yw, dim=0), n_eff
+
+
+def suff_stats(variance, ard, mu, s, Z, Y, weights=None, block_n=None,
+               use_fused="auto", kernel: str = "ard_rbf") -> SuffStats:
+    """SuffStats of the collapsed bound for one kernel (the SVI-GPLVM's
+    minibatch, a Bayesian GP-LVM, an MRD view). Fused, it is K1 at T = 1
+    with K2 in its backward, and Psi1 is never stored; else the plain psi
+    statistics. `"auto"` decides as `dp_batched_suffstats` does."""
+    _kernel(kernel)
+    if resolve_fused(use_fused, kernel, mu.device, *Z.shape, Y.shape[1]):
+        p2, p1y = psi_ops.suffstats_batched_fused(
+            variance[None], ard[None], mu, s, Z[None], Y, weights,
+            block_n or 64)
+        Yw = Y if weights is None else Y * weights[:, None]
+        n_eff = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype,
+                              device=Y.device)
+                 if weights is None else torch.sum(weights))
+        return SuffStats(psi0=ard_rbf.psi0(variance, mu, weights),
+                         psi1T_y=p1y[0], psi2=p2[0],
+                         yty=torch.sum(Y * Yw, dim=0), n=n_eff)
+    p0, p1, p2 = psi_stats(variance, ard, mu, s, Z, weights, block_n,
+                           use_fused=False, kernel=kernel)
+    return suff_stats_from_psi(p0, p1, p2, Y, weights)

@@ -23,11 +23,13 @@ written by hand:
     count + 1 and the rate schedule reads count (step 1 runs at
     schedule(0)). The NGD group has its count too.
 Schedules are optax's formulas, evaluated on the device from the count
-tensor. `fit`, `fit_lbfgs` and `make_streaming_scan_fn` wait for later
-slices.
+tensor. `TrainState` is what the SVI loop of the runner carries and
+`train/checkpoint.py` saves. `fit`, `fit_lbfgs` and
+`make_streaming_scan_fn` wait for later slices.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Callable
@@ -218,6 +220,27 @@ class GPOptimizer:
             p.copy_(torch.where(apply, p + u, p))
         return apply
 
+    def state_dict(self) -> dict:
+        """The parameters, the Adam moments, every group's count of applied
+        steps (which drives its schedule) and the non-finite count:
+        everything a step reads."""
+        return {"params": self.params, "mu": self.mu, "nu": self.nu,
+                "count": self.count,
+                "notfinite_count": self.notfinite_count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` into this optimizer's tensors in place (the
+        tensors a step function closes over stay the ones it updates)."""
+        for name in ("params", "mu", "nu", "count"):
+            mine = getattr(self, name)
+            if set(mine) != set(state[name]):
+                raise ValueError(f"{name}: keys {sorted(state[name])} do not "
+                                 f"match {sorted(mine)}")
+            for k, v in state[name].items():
+                mine[k].copy_(v)
+        self.notfinite_count.copy_(state["notfinite_count"])
+
 
 def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
                  clip: float = 100.0, skip_nonfinite: int = 100_000,
@@ -278,6 +301,21 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
     if "ngd" in labels.values():
         rates["ngd"] = ngd_rate
     return GPOptimizer(params, labels, rates, clip, skip_nonfinite)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the SVI loop carries from step to step (the reference's
+    TrainState(params, opt_state, step)): the optimizer, which holds the
+    parameters, its moments and its counts, and the global step, a host
+    integer (the loop knows it without reading the card)."""
+
+    optimizer: GPOptimizer
+    step: int = 0
+
+    @property
+    def params(self):
+        return self.optimizer.params
 
 
 class NonFiniteGuard:

@@ -15,6 +15,7 @@ import torch
 from dp_gp_lvm_tpu.data import synthetic as jsynthetic
 from dp_gp_lvm_tpu.models import bgplvm as jbg
 from dp_gp_lvm_tpu.models import bound as jbound
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.config import CONFIGS
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.data import synthetic
@@ -148,7 +149,7 @@ def test_optimal_qu_matches_jax(batch):
 
 
 def test_init_params_layout_and_generators_on_cpu():
-    gen = torch.Generator().manual_seed(3)
+    gen = prng.PRNGKey(3)
     Y, labels, X = synthetic.oil_flow_like(gen, n=60, d=5, device="cpu")
     assert Y.shape == (60, 5) and X.shape == (60, 2)
     assert labels.shape == (60,) and set(labels.tolist()) <= {0, 1, 2}

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.ops import psi
 
 T, N, M, Q, D = 3, 37, 6, 3, 4
@@ -23,6 +24,8 @@ C2 = dict(T=1, N=1000, M=50, Q=10, D=12)
 # 448-row train split: K1 and K2); both Q take the generic instantiations
 C1 = dict(T=1, N=100, M=20, Q=6, D=10)
 C5_POSE = dict(T=12, N=448, M=48, Q=8, D=32)
+# c6_svi_bigN's minibatch: K1 and K2 at T = 1 through dispatch.suff_stats
+C6 = dict(T=1, N=1024, M=64, Q=8, D=32)
 SHAPES = [TINY, C2, C1, C5_POSE]
 SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose"]
 TOL_K1, TOL_K2 = 1e-4, 5e-4   # scaled by max|ref|, as in chip_smoke.py
@@ -54,7 +57,8 @@ def _inputs(card, weighted, T=T, N=N, M=M, Q=Q, D=D):
 
 def _scaled_errors(got, want):
     return [float((g.double() - w).abs().max() / w.abs().max())
-            for g, w in zip(got, want)]
+            for g, w in zip((x.detach() for x in got),
+                            (x.detach() for x in want))]
 
 
 def _launched(**counts):
@@ -456,7 +460,7 @@ def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
     model, cfg = _model(family, "auto")
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
         Y = _m129_data(card, dtype)
-        params = model.init_params(torch.Generator().manual_seed(0), Y, cfg)
+        params = model.init_params(prng.PRNGKey(0), Y, cfg)
         policy = JitterPolicy(initial=JitterPolicy().initial_for(dtype))
         psi.reset_launch_counts()
         loss = model.loss(params, Y, cfg) if dtype == torch.float32 else (
@@ -476,7 +480,7 @@ def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
 def test_use_fused_true_raises_past_the_kernels_m(card, family):
     model, cfg = _model(family, True)
     Y = _m129_data(card, torch.float32)
-    params = model.init_params(torch.Generator().manual_seed(0), Y, cfg)
+    params = model.init_params(prng.PRNGKey(0), Y, cfg)
     with pytest.raises(ValueError, match="M=129"):
         model.loss(params, Y, cfg)
 
@@ -584,3 +588,85 @@ def test_k6_wrapper_refuses_what_the_kernel_does_not_take(card):
     _, wide = _inputs(card, False, T=1, N=4, M=3, Q=512)
     with pytest.raises(RuntimeError, match="no block fits an SM at Q=512"):
         psi.psi1(*_k6(wide))
+
+
+@pytest.mark.cuda
+def test_suff_stats_on_card_equals_the_plain_f64_path(card):
+    """`dispatch.suff_stats` at c6's minibatch shape: K1 (T = 1) on the
+    card, its value and gradient against the plain path in f64."""
+    from dp_gp_lvm_tpu_torch.ops import dispatch
+
+    a, f = _inputs(card, False, **C6)
+    assert dispatch.resolve_fused("auto", "ard_rbf", card, C6["M"], C6["Q"],
+                                  C6["D"])
+    one = ("vs", "ards", "Zs")     # the T = 1 atom's hypers and Z
+    leaves32, leaves64 = ([(t[k][0] if k in one else t[k]).clone()
+                           .requires_grad_()
+                           for k in ("vs", "ards", "mu", "s", "Zs")]
+                          for t in (f, a))
+    psi.reset_launch_counts()
+    got = dispatch.suff_stats(*leaves32, f["Y"])
+    want = dispatch.suff_stats(*leaves64, a["Y"], use_fused=False)
+    assert max(_scaled_errors((got.psi2, got.psi1T_y),
+                              (want.psi2, want.psi1T_y))) <= TOL_K1
+    assert abs(float(got.psi0) - float(want.psi0)) <= 1e-6 * float(want.psi0)
+    assert float(got.n) == C6["N"]
+    G2 = torch.as_tensor(np.random.default_rng(3).normal(size=(64, 64)),
+                         device=card)
+    g32 = torch.autograd.grad((got.psi2 * G2.float()).sum()
+                              + got.psi1T_y.sum(), leaves32)
+    g64 = torch.autograd.grad((want.psi2 * G2).sum() + want.psi1T_y.sum(),
+                              leaves64)
+    assert max(_scaled_errors(g32, g64)) <= TOL_K2
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_bwd_batched=1)
+
+
+def _svi_setup(card, n=2048, batch=1024):
+    """c6's widths (M=64, Q=8, D=32, batch 1024) on a mocap_like draw."""
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train.loop import TrainState, gp_optimizer
+
+    Y, _ = mocap_like(prng.PRNGKey(0), n=n, d=32, dtype=torch.float32,
+                      device=card)
+    cfg = svi_gplvm.Config(num_latent=8, num_inducing=64, batch=batch)
+    params = svi_gplvm.init_params(prng.PRNGKey(0), Y, cfg)
+    opt = gp_optimizer(params, lr=3e-3, ngd_lr=1.0, decay_steps=20)
+    step = svi_gplvm.make_svi_natgrad_step(cfg, n, opt, rho=0.2)
+    idx = prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(20)),
+                       (batch,), 0, n).long().to(card)
+    return Y, TrainState(opt), step, idx
+
+
+@pytest.mark.cuda
+def test_svi_natgrad_step_launches_k1_twice_and_k2_once(card):
+    """A step: K1 for the gradient pass, K2 in its backward, K1 again for
+    the blend at the updated parameters."""
+    Y, state, step, idx = _svi_setup(card)
+    psi.reset_launch_counts()
+    losses = torch.stack([step(t, idx[t], Y) for t in range(3)])
+    assert bool(torch.isfinite(losses).all())
+    assert psi.LAUNCHES == _launched(suffstats_batched=6, psi2_bwd_batched=3)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_on_card_is_bit_identical(card, tmp_path):
+    """Save at step 5, run on to 10; restore the checkpoint into a fresh
+    state and run the same five steps: the same bits."""
+    from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer
+
+    Y, state, step, idx = _svi_setup(card)
+    for t in range(5):
+        step(t, idx[t], Y)
+    state.step = 5
+    ck = Checkpointer(str(tmp_path / "ckpt"))
+    ck.save(state)
+    for t in range(5, 10):
+        step(t, idx[t], Y)
+    first = {k: v.detach().clone() for k, v in state.params.items()}
+    Y2, fresh, step2, _ = _svi_setup(card)
+    assert ck.restore(fresh).step == 5
+    for t in range(5, 10):
+        step2(t, idx[t], Y2)
+    for k, v in fresh.params.items():
+        assert torch.equal(v, first[k]), k

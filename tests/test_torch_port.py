@@ -13,7 +13,7 @@ import torch
 
 from dp_gp_lvm_tpu.core import transforms as jtr
 from dp_gp_lvm_tpu.distributions import stick_breaking as jsb
-from dp_gp_lvm_tpu_torch.core import transforms
+from dp_gp_lvm_tpu_torch.core import prng, transforms
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.data.synthetic import (
     mocap_like,
@@ -61,7 +61,7 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     """With no CUDA device and no `device`, entry points refuse instead of
     running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    gen = torch.Generator().manual_seed(0)
+    gen = prng.PRNGKey(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mocap_like(gen, n=16, d=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -91,7 +91,7 @@ def test_entry_points_without_a_card_raise(monkeypatch):
 
 
 def test_init_params_layout_on_cpu():
-    gen = torch.Generator().manual_seed(1)
+    gen = prng.PRNGKey(1)
     Y, _ = mocap_like(gen, n=40, d=7, device="cpu")
     cfg = dp_gp_lvm.Config(num_latent=3, num_inducing=5, truncation=4,
                            learn_alpha=True)

@@ -18,7 +18,7 @@ import torch
 from dp_gp_lvm_tpu.core import config as jconfig
 from dp_gp_lvm_tpu.data import synthetic as jsyn
 from dp_gp_lvm_tpu.train import logging as jlogging
-from dp_gp_lvm_tpu_torch.core import config
+from dp_gp_lvm_tpu_torch.core import config, prng
 from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.experiments import run as runner
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
@@ -26,7 +26,7 @@ from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
              "c4_dp_mocap": "c4", "c5_dp_missing": "c5",
-             "c5_pose_missing": "c5_pose"}
+             "c5_pose_missing": "c5_pose", "c6_svi_bigN": "c6"}
 
 
 @pytest.fixture(autouse=True)
@@ -112,10 +112,8 @@ def test_pose_like_from_the_references_draws():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
                                    atol=1e-12)
     # the port's own draw: the same shapes, standardized, and repeatable
-    Y, X, groups = synthetic.pose_like(torch.Generator().manual_seed(3),
-                                       n=n, device="cpu")
-    again, _, _ = synthetic.pose_like(torch.Generator().manual_seed(3),
-                                      n=n, device="cpu")
+    Y, X, groups = synthetic.pose_like(prng.PRNGKey(3), n=n, device="cpu")
+    again, _, _ = synthetic.pose_like(prng.PRNGKey(3), n=n, device="cpu")
     assert Y.shape == (n, 32) and X.shape == (n, q) and groups.shape == (16,)
     assert torch.equal(Y, again)
     np.testing.assert_allclose(Y.mean(0).numpy(), 0.0, atol=1e-12)
@@ -206,6 +204,9 @@ TINY = {
     # c5's own M = 64 does not fit a 56-row train split
     "c5_dp_missing": dict(n=64, d=10, m=8, t=3, q=3),
     "c1_bgplvm_toy": dict(n=40, d=5, m=6, q=4),
+    # the SVI loop at c6's widths (its 1024-row minibatches drawn with
+    # replacement from a 112-row train split)
+    "c6_svi_bigN": dict(n=128),
 }
 
 
@@ -229,6 +230,9 @@ def test_run_end_to_end_gives_the_references_keys(name, tmp_path):
     if name == "c5_dp_missing":
         assert result["imputation_rows"] == 8
         assert result["data"] == "given:mocap"
+    elif name == "c6_svi_bigN":
+        assert result["imputation_rows"] == 16 and result["batch"] == 1024
+        assert (tmp_path / "params.npz").exists()
     else:
         assert len(result["ard_weights"]) == cfg.q
 
