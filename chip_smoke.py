@@ -64,6 +64,25 @@ imputation servers built on them. Phases, each printing one JSON line:
          (50 inference steps) must be finite; also the host's draw of the
          minibatch indices and the host syncs a step makes (PyTorch's
          sync debug mode, at c6's widths on 4096 rows)
+  stream the same c6 run with the host-streamed feed (`--stream`: the
+         rows written to a file, gathered by the native loader built by
+         g++ from csrc/stream_loader.cpp into pinned buffers, copied to
+         the card chunk by chunk): the loader must be the native one;
+         launches, the resume from step 100 and K1/K2 on the run's inputs
+         are held as in svi; three streamed steps must equal three
+         resident steps on the same rows to the bit; it prints ms a step
+         streamed beside the svi phase's resident one, how long
+         next_chunk() waited for the gather a chunk against the chunk's
+         time, the copy of a chunk to the card, and host syncs a step
+  sgpr   SGPR's bound and predictive and the exact GP's marginal and
+         predictive at toy widths (N=200, M=10), f32 on the card against
+         f64 on the CPU at the same jitter; also reported, not held, at
+         N=500, M=30, where K_uu's condition number is near 4e4
+  trace  the first torch.profiler trace of a step: one c4_dp_mocap
+         training step and one streamed c6 chunk of 100 steps; CUDA and
+         CPU time of the DP loss's scopes (psi_stats, kuu_gram,
+         collapsed_bound), device time by kernel, wall time and the
+         card's idle share (numbers only, nothing held)
 
 then the card's name and power limit again, a `kernels` JSON line, and as
 its last line
@@ -1170,21 +1189,14 @@ def _train_rows(cfg):
     return cfg.n - len(range(7, cfg.n, 8))
 
 
-def _host_syncs_per_step(torch, cfg, steps=5):
-    """Host syncs of a c6 natural-gradient step as PyTorch's sync debug
-    mode reports them (the synchronizing calls PyTorch makes; a library's
-    own synchronization inside a call is not seen), over `steps` steps
-    after two warm-up steps, at c6's widths on a 4096-row draw; with the
-    source lines that made them."""
-    import os
-    import warnings
-
+def _c6_step(torch, cfg, streaming, n=4096, batch=1024):
+    """(Y, natural-gradient step, parameters) at c6's widths on an n-row
+    draw, fresh parameters; the step resident or streamed."""
     from dp_gp_lvm_tpu_torch.core import prng
     from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
     from dp_gp_lvm_tpu_torch.models import svi_gplvm
     from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
 
-    n, batch = 4096, 1024
     Y, _ = mocap_like(prng.PRNGKey(cfg.seed), n=n, d=cfg.d,
                       dtype=torch.float32)
     mcfg = svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
@@ -1192,24 +1204,350 @@ def _host_syncs_per_step(torch, cfg, steps=5):
     params = svi_gplvm.init_params(prng.PRNGKey(cfg.seed), Y, mcfg)
     opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
                        decay_steps=cfg.steps)
-    step = svi_gplvm.make_svi_natgrad_step(mcfg, n, opt, rho=0.2)
-    idx = prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(
-        2 + steps)), (batch,), 0, n).long().cuda()
-    for t in range(2):
-        step(t, idx[t], Y)
+    return Y, svi_gplvm.make_svi_natgrad_step(
+        mcfg, n, opt, rho=0.2, streaming=streaming), params
+
+
+def _c6_indices(torch, n, count, batch=1024):
+    from dp_gp_lvm_tpu_torch.core import prng
+
+    return prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(count)),
+                        (batch,), 0, n).long().cuda()
+
+
+def _host_syncs_per_step(torch, cfg, steps=5, streaming=False):
+    """Host syncs of a c6 natural-gradient step as PyTorch's sync debug
+    mode reports them (the synchronizing calls PyTorch makes; a library's
+    own synchronization inside a call is not seen), over `steps` steps
+    after two warm-up steps, at c6's widths on a 4096-row draw, resident
+    or streamed (the rows gathered before the window); with the source
+    lines that made them."""
+    import os
+    import warnings
+
+    Y, step, _ = _c6_step(torch, cfg, streaming)
+    idx = _c6_indices(torch, Y.shape[0], 2 + steps)
+    if streaming:
+        rows = [Y[i] for i in idx]
+        args = [(t, (idx[t], rows[t])) for t in range(2 + steps)]
+    else:
+        args = [(t, idx[t], Y) for t in range(2 + steps)]
+    for a in args[:2]:
+        step(*a)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for t in range(2, 2 + steps):
-                step(t, idx[t], Y)
+            for a in args[2:]:
+                step(*a)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
              if "synchroniz" in str(w.message)]
     return len(sites) / steps, {s: sites.count(s) / steps
                                 for s in sorted(set(sites))}
+
+
+def _streamed_equals_resident(torch, cfg, steps=3):
+    """Three steps from the same parameters on the same indices, the rows
+    gathered on the card (resident) or copied from pinned host memory
+    (streamed): whether every loss and parameter is the same to the bit."""
+    Y, res, p_res = _c6_step(torch, cfg, streaming=False)
+    _, st, p_str = _c6_step(torch, cfg, streaming=True)
+    idx = _c6_indices(torch, Y.shape[0], steps)
+    same = True
+    for t in range(steps):
+        rows = Y[idx[t]].cpu().pin_memory().cuda(non_blocking=True)
+        same &= bool(torch.equal(res(t, idx[t], Y), st(t, (idx[t], rows))))
+    return same and all(bool(torch.equal(p_res[k], p_str[k]))
+                        for k in p_res)
+
+
+def phase_stream(torch, seed, svi):
+    """c6_svi_bigN through the runner with the host-streamed feed, as the
+    svi phase runs it resident."""
+    import shutil
+
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.data import stream
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    if not stream.native_available():
+        raise AssertionError("stream: the native loader did not build from "
+                             f"{stream.SOURCE}")
+    cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
+    out = ROOT / "build" / "smoke_stream"
+    shutil.rmtree(out, ignore_errors=True)
+    kw = dict(steps=C6_STEPS, device="cuda", ckpt_every=C6_CKPT_EVERY,
+              impute_steps=C6_IMPUTE_STEPS, stream=True)
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen:
+        straight = runner.run(cfg, out=str(out / "straight"), **kw)
+    launches = dict(psi.LAUNCHES)
+    steps = loop.STEPS["taken"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=2 * steps, psi2_bwd_batched=steps)
+    held = _hold_first_inputs(torch, psi, seen)
+
+    resumed_dir = out / "resumed"
+    (resumed_dir / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "straight" / "ckpt" / f"ckpt_{C6_CKPT_EVERY}.pt",
+                resumed_dir / "ckpt")
+    loop.reset_step_count()
+    resumed = runner.run(cfg, out=str(resumed_dir), resume=True, **kw)
+    resumed_steps = loop.STEPS["taken"]
+    a, b = (load_npz(str(d / "params.npz"))
+            for d in (out / "straight", resumed_dir))
+    bitwise = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+    # the copy of one chunk's rows and indices from pinned memory
+    chunk = runner._svi_chunk(torch.device("cuda"), 50, C6_STEPS, None)
+    rows = torch.empty(chunk, runner.SVI_BATCH, cfg.d, pin_memory=True)
+    idx = torch.empty(chunk, runner.SVI_BATCH, dtype=torch.int32,
+                      pin_memory=True)
+    h2d_ms = _timed(lambda: (rows.cuda(non_blocking=True),
+                             idx.cuda(non_blocking=True)), torch, reps=10)
+    syncs, sync_sites = _host_syncs_per_step(torch, cfg, streaming=True)
+    chunk_ms = straight["ms_per_step"] * chunk
+    finiteness = config.evaluate_checks("", straight)
+    failures = config.evaluate_checks(cfg.name, straight)
+    row = dict(phase="stream", config=cfg.name, n=cfg.n,
+               batch=straight["batch"], chunk=chunk, steps=C6_STEPS,
+               steps_taken=steps, native_loader=straight["native_loader"],
+               loader_source=str(stream.SOURCE.relative_to(ROOT)),
+               loader_library=stream.library_path().name,
+               ms_per_step_streamed=straight["ms_per_step"],
+               ms_per_step_resident=svi["ms_per_step"],
+               rows_per_sec=straight["rows_per_sec"],
+               feed_wait_ms_per_chunk=straight["feed_wait_ms_per_chunk"],
+               chunk_ms=chunk_ms,
+               feed_wait_share=straight["feed_wait_ms_per_chunk"] / chunk_ms,
+               h2d_copy_ms_per_chunk=h2d_ms,
+               h2d_bytes_per_chunk=rows.numel() * 4 + idx.numel() * 4,
+               host_syncs_per_step=syncs, host_sync_sites=sync_sites,
+               seconds=straight["seconds"], elbo_f64=straight["elbo"],
+               **{k: straight[k] for k in (
+                   "imputation_mse", "predictive_loglik_per_dim",
+                   "calibration_ratio")},
+               launches=launches, expected_launches=expected,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               held_on_the_runs_inputs=held,
+               resumed_from=C6_CKPT_EVERY, resumed_steps=resumed_steps,
+               resume_bitwise_equal=bitwise and (
+                   resumed["elbo"] == straight["elbo"]),
+               streamed_equals_resident_bitwise=_streamed_equals_resident(
+                   torch, cfg),
+               nonfinite=finiteness,
+               missing=[f for f in failures if "MISSING" in f],
+               gates_not_held_at_these_steps=[
+                   f for f in failures if f not in finiteness])
+    emit(row)
+    if row["nonfinite"] or row["missing"] or not straight["streamed"]:
+        raise AssertionError(f"stream: broken result: {row}")
+    if not (row["native_loader"] and stream.library_path().exists()
+            and stream.SOURCE == ROOT / "dp_gp_lvm_tpu_torch" / "csrc"
+            / "stream_loader.cpp"):
+        raise AssertionError("stream: the run did not use the native loader "
+                             "built from the repository's source")
+    if launches != expected or steps != C6_STEPS:
+        raise AssertionError(f"stream: launched {launches} in {steps} steps, "
+                             f"expected {expected}")
+    if {h["kernel"] for h in held} != {"suffstats_batched",
+                                       "psi2_bwd_batched"}:
+        raise AssertionError(f"stream: held {held}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"stream: {h['kernel']} disagrees with its "
+                                 f"plain version on the run's inputs: {h}")
+    if resumed_steps != C6_STEPS - C6_CKPT_EVERY or not row[
+            "resume_bitwise_equal"]:
+        raise AssertionError("stream: the resumed run did not end on the "
+                             "uninterrupted run's bits")
+    if not row["streamed_equals_resident_bitwise"]:
+        raise AssertionError("stream: a streamed step differs from the "
+                             "resident step on the same rows")
+    return row
+
+
+TOL_SGPR = 1e-4   # relative, of the bound and the exact marginal
+# (N, M) of the sgpr phase: held at the first; the second, whose K_uu has
+# a condition number near 4e4, is reported only (f32 solves lose about
+# cond(K_uu) x 2^-24 there, in the reference's f32 as in the port's)
+SGPR_SHAPES = ((200, 10, True), (500, 30, False))
+
+
+def _sgpr_at(torch, seed, n, m):
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+    from dp_gp_lvm_tpu_torch.models import gp_regression, sparse_gp
+
+    r = np.random.default_rng(seed)
+    X, Y, Xs = (r.normal(size=s) for s in ((n, 3), (n, 4), (50, 3)))
+    policy = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    got, want = {}, {}
+    for out, dev, dtype in ((got, "cuda", torch.float32),
+                            (want, "cpu", torch.float64)):
+        x, y, xs = (torch.tensor(a, dtype=dtype, device=dev)
+                    for a in (X, Y, Xs))
+        ps = sparse_gp.init_params(prng.PRNGKey(seed), x, m)
+        pg = gp_regression.init_params(3, dtype=dtype, device=dev)
+        with torch.no_grad():
+            out["elbo"] = float(sparse_gp.elbo(ps, x, y, policy))
+            out["log_marginal"] = float(gp_regression.log_marginal(
+                pg, x, y, policy))
+            out["mean"], out["var"] = (t.double().cpu() for t in
+                                       sparse_gp.predict(ps, x, y, xs,
+                                                         policy))
+            out["gpr_mean"], out["gpr_var"] = (
+                t.double().cpu() for t in gp_regression.predict(
+                    pg, x, y, xs, policy))
+            kuu = ard_rbf.gram(torch.ones((), dtype=dtype, device=dev),
+                               torch.ones(3, dtype=dtype, device=dev),
+                               ps["z"])
+    rel = {k: abs(got[k] - want[k]) / abs(want[k])
+           for k in ("elbo", "log_marginal")}
+    scaled = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+              for k in ("mean", "var", "gpr_mean", "gpr_var")}
+    return dict(N=n, M=m, Q=3, D=4, N_star=50,
+                cond_kuu=float(torch.linalg.cond(kuu.double().cpu())),
+                elbo_f32=got["elbo"], elbo_f64=want["elbo"],
+                log_marginal_f32=got["log_marginal"],
+                log_marginal_f64=want["log_marginal"], rel_err=rel,
+                predictive_scaled_err=scaled,
+                bound_below_exact=want["elbo"] <= want["log_marginal"])
+
+
+def phase_sgpr(torch, seed):
+    """SGPR and exact GP regression at toy widths: f32 on the card against
+    f64 on the CPU at the same jitter (no kernel: Gram matrices)."""
+    shapes = []
+    for n, m, held in SGPR_SHAPES:
+        at = _sgpr_at(torch, seed, n, m)
+        at["held"] = held
+        at["ok"] = (max(at["rel_err"].values()) <= TOL_SGPR
+                    and max(at["predictive_scaled_err"].values()) <= TOL_PRED
+                    and at["bound_below_exact"])
+        shapes.append(at)
+    row = dict(phase="sgpr", tol=TOL_SGPR, tol_pred=TOL_PRED, shapes=shapes)
+    emit(row)
+    if not all(at["ok"] for at in shapes if at["held"]):
+        raise AssertionError(f"sgpr: f32 on the card off f64: {row}")
+    return row
+
+
+def _profiled(torch, fn):
+    """`fn` under torch.profiler (CPU and CUDA): its wall ms, each of the
+    DP loss's scopes (CUDA and CPU ms the profiler attributes to the
+    range, and how often it ran), the card's busy ms (every kernel's own
+    time), the count of kernel launches and the twelve kernels with the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def ms(event, attr):
+        value = getattr(event, attr, None)
+        if value is None:
+            value = getattr(event, attr.replace("device", "cuda"), math.nan)
+        return float(value) / 1e3
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    scopes = {}
+    for event in prof.events():
+        if event.name in SCOPES and "CPU" in str(event.device_type):
+            s = scopes.setdefault(event.name, dict(cuda_ms=0.0, cpu_ms=0.0,
+                                                   count=0))
+            s["cuda_ms"] += ms(event, "device_time_total")
+            s["cpu_ms"] += ms(event, "cpu_time_total")
+            s["count"] += 1
+    kernels = sorted(
+        ((e.key, ms(e, "self_device_time_total"), e.count)
+         for e in prof.key_averages()
+         if "CUDA" in str(e.device_type) and e.key not in SCOPES),
+        key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    return dict(wall_ms=wall_ms, scopes=scopes, busy_ms=busy,
+                idle_share=1.0 - busy / wall_ms,
+                kernel_launches=sum(k[2] for k in kernels),
+                kernels=[dict(name=n[:90], cuda_ms=t, count=c)
+                         for n, t, c in kernels[:12]])
+
+
+SCOPES = ("psi_stats", "kuu_gram", "collapsed_bound")
+TRACE_CHUNK = 100
+
+
+def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
+    """The first profiler trace of a step: one c4_dp_mocap training step
+    and one streamed c6_svi_bigN chunk (the stream phase's rows file).
+    Numbers only; nothing is held."""
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.data import stream
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm, svi_gplvm
+    from dp_gp_lvm_tpu_torch.train.loop import (
+        TrainState,
+        gp_optimizer,
+        make_step_fn,
+        make_streaming_scan_fn,
+    )
+
+    c4 = config.get("c4_dp_mocap")
+    opt = gp_optimizer(dp_params, lr=c4.lr, ngd_lr=c4.ngd_lr)
+    step = make_step_fn(lambda p, y: dp_gp_lvm.loss(p, y, dp_cfg), opt)
+    for _ in range(3):
+        step(dp_Y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(dp_Y)
+    torch.cuda.synchronize()
+    c4_row = dict(unprofiled_wall_ms=1e3 * (time.perf_counter() - t0),
+                  **_profiled(torch, lambda: step(dp_Y)))
+
+    cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
+    path = ROOT / "build" / "smoke_stream" / "straight" / "y_stream.f32"
+    Y = torch.from_numpy(np.fromfile(path, np.float32).reshape(
+        -1, cfg.d)).cuda()
+    mcfg = svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                            batch=1024, psi2_block=cfg.psi2_block)
+    params = svi_gplvm.init_params(prng.PRNGKey(seed), Y, mcfg)
+    opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                       decay_steps=cfg.steps)
+    scan_chunk = make_streaming_scan_fn(svi_gplvm.make_svi_natgrad_step(
+        mcfg, Y.shape[0], opt, rho=0.2, streaming=True))
+    state = TrainState(opt)
+    with stream.ChunkStream(stream.StreamLoader(str(path), *Y.shape),
+                            batch=1024, chunk=TRACE_CHUNK, seed=cfg.seed + 7,
+                            device="cuda") as cs:
+        def one_chunk():
+            idx, y = cs.next_chunk()
+            return scan_chunk(state, idx, y)[1].cpu()
+
+        one_chunk()                       # warm-up chunk
+        c6_row = _profiled(torch, one_chunk)
+    c6_row["wall_ms_per_step"] = c6_row["wall_ms"] / TRACE_CHUNK
+    row = dict(phase="trace", c4_step=c4_row,
+               c6_streamed_chunk=dict(steps=TRACE_CHUNK, **c6_row))
+    emit(row)
+    return row
 
 
 def phase_scale(torch, psi, gen):
@@ -1292,6 +1630,9 @@ def main(argv=None) -> int:
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
     runs = phase_runs(torch, args.seed)
     svi = phase_svi(torch, args.seed)
+    streamed = phase_stream(torch, args.seed, svi)
+    phase_sgpr(torch, args.seed)
+    phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
     # `launches` of a kernel is its count over the path named in
     # `launches_of`; `launches_by_phase` lists every driven path, the
@@ -1306,7 +1647,8 @@ def main(argv=None) -> int:
                   serve_dp_build=serve5["build_launches"],
                   **{f"runs_{name}": row["launches"]
                      for name, row in runs.items()},
-                  svi_c6_svi_bigN=svi["launches"])
+                  svi_c6_svi_bigN=svi["launches"],
+                  stream_c6_svi_bigN=streamed["launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -1333,6 +1675,8 @@ def main(argv=None) -> int:
              c6_bound_ms=svi["kernels_at_c6"]["suffstats_batched"][
                  "bound_ms"],
              c6_launches_per_step=svi["launches_per_step"][
+                 "suffstats_batched"],
+             c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "suffstats_batched"]),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
@@ -1344,6 +1688,8 @@ def main(argv=None) -> int:
              c6_bound_ms=svi["kernels_at_c6"]["psi2_bwd_batched"][
                  "bound_ms"],
              c6_launches_per_step=svi["launches_per_step"][
+                 "psi2_bwd_batched"],
+             c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "psi2_bwd_batched"]),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",

@@ -12,6 +12,8 @@ with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
     python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --device cpu \\
         --f64 --n 128 --steps 8 --batch 32 --log-every 2 --stop-after 4 \\
         --ckpt-every 2 --out build/runs/c6   # then again with --resume
+    python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --stream \\
+        --check
 
 It runs f32 on the card unless `--device cpu` is given. `--f64` is the
 CPU parity mode: the CUDA kernels take float32 only, so it is refused on
@@ -22,6 +24,7 @@ reference's draws: its `jax.random` keys in its order, through
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -37,6 +40,7 @@ from dp_gp_lvm_tpu_torch.core import config as config_lib
 from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
+from dp_gp_lvm_tpu_torch.data import stream as stream_lib
 from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.models import (
     bgplvm,
@@ -53,6 +57,7 @@ from dp_gp_lvm_tpu_torch.train.loop import (
     gp_optimizer,
     make_multi_step_fn,
     make_step_fn,
+    make_streaming_scan_fn,
     time_steps,
 )
 
@@ -177,26 +182,33 @@ def _svi_chunk(device, log_every, steps, stop_after):
 
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
-               inject_nonfinite_at):
+               inject_nonfinite_at, stream):
     """The generic SVI loop: q(u) by stochastic natural gradient, the rest
-    by `gp_optimizer`, in chunks of steps with one host read each. Step t
-    draws its minibatch with `randint(fold_in(r1, t), (B,), 0, N)`, r1 the
-    second half of `split(PRNGKey(seed + 100))`, so the minibatch sequence
-    depends on neither the chunk size nor a restart; a chunk's (chunk, B)
-    indices are drawn on the host in one call and copied once. Returns
-    (params, s per step after the first chunk, seconds, result keys)."""
+    by `gp_optimizer`, in chunks of steps with one host read each.
+
+    Resident (the default): step t draws its minibatch with
+    `randint(fold_in(r1, t), (B,), 0, N)`, r1 the second half of
+    `split(PRNGKey(seed + 100))`, so the sequence depends on neither the
+    chunk size nor a restart; a chunk's (chunk, B) indices are drawn on the
+    host in one call and copied once, and the step gathers its rows from Y
+    on the device. Streamed (`stream`): Y is written to
+    `out/y_stream.f32` and a `data.stream.ChunkStream` (seed + 7, the
+    native loader on the card) draws and gathers each chunk on the host;
+    the step gets the rows, never Y. Returns (params, s per step after the
+    first chunk, seconds, result keys)."""
     n_total = Y.shape[0]
     opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr, ard_lr=cfg.ard_lr,
                        decay_steps=steps, ngd_lr=ngd_lr)
-    step_fn = svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2)
+    step_fn = svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2,
+                                              streaming=stream)
     chunk = _svi_chunk(device, log_every, steps, stop_after)
-    _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
     state = TrainState(opt)
     ck = None
-    if ckpt_every or resume:
+    if ckpt_every or resume or stream:
         if out is None:
-            raise ValueError("--ckpt-every and --resume need an output "
-                             "directory")
+            raise ValueError("--ckpt-every, --resume and --stream need an "
+                             "output directory")
+    if ckpt_every or resume:
         ck = Checkpointer(os.path.join(out, "ckpt"))
         if resume and ck.restore(state) is not None:
             print(f"[{cfg.name}] resumed at step {state.step}", flush=True)
@@ -209,43 +221,77 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
         print(f"[{cfg.name}] note: --ckpt-every {ckpt_every} is not a "
               f"multiple of the chunk {chunk}; checkpoints are written only "
               f"at chunk ends divisible by it", flush=True)
-    guard = NonFiniteGuard()
-    t0 = time.perf_counter()
     done = start = state.step
-    t_post, draw_s = None, 0.0
-    while done < loop_steps:
-        t_draw = time.perf_counter()
-        keys = prng.fold_in(r1, torch.arange(done, done + chunk))
-        idx = prng.randint(keys, (mcfg.batch,), 0, n_total).long().to(device)
-        draw_s += time.perf_counter() - t_draw
-        losses = torch.stack([step_fn(done + i, idx[i], Y)
-                              for i in range(chunk)]).cpu()   # the host read
-        state.step = done + chunk
-        if t_post is None:
-            t_post = time.perf_counter()      # the first chunk builds
-        if inject_nonfinite_at is not None:   # fault injection (tests)
-            losses[max(0, inject_nonfinite_at - done):] = math.nan
-        if guard.update(losses, done):
-            _abort_nonfinite(cfg, out, guard, done + chunk)
-        done += chunk
-        elbo_now = -float(losses[-1])
-        logger.log(done - 1, elbo_estimate=elbo_now)
-        print(f"  step {done - 1}: elbo_estimate={elbo_now:.4g}", flush=True)
-        if ck is not None and ckpt_every and done % ckpt_every == 0:
-            ck.save(state)
+    extra = {"batch": mcfg.batch}
+    with contextlib.ExitStack() as feed:
+        if stream:
+            if done % chunk:
+                raise SystemExit(
+                    f"--resume at step {done}: the streaming Philox "
+                    f"fast-forward needs a chunk-multiple checkpoint "
+                    f"(chunk={chunk})")
+            y_path = stream_lib.write_rows(
+                os.path.join(out, "y_stream.f32"), Y.cpu().numpy())
+            # the card's feed is the native gather, never the numpy one
+            loader = (stream_lib.StreamLoader if device.type == "cuda"
+                      else stream_lib.open_loader)(y_path, n_total,
+                                                   Y.shape[1])
+            cs = feed.enter_context(stream_lib.ChunkStream(
+                loader, batch=mcfg.batch, chunk=chunk, seed=cfg.seed + 7,
+                skip_chunks=done // chunk, device=device))
+            scan_chunk = make_streaming_scan_fn(step_fn)
+            extra.update(streamed=True, native_loader=isinstance(
+                loader, stream_lib.StreamLoader))
+
+            def run_chunk(done):
+                idx, y = cs.next_chunk()
+                return scan_chunk(state, idx, y.to(Y.dtype))[1]
+        else:
+            _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
+
+            def run_chunk(done):
+                keys = prng.fold_in(r1, torch.arange(done, done + chunk))
+                idx = prng.randint(keys, (mcfg.batch,), 0,
+                                   n_total).long().to(device)
+                return torch.stack([step_fn(done + i, idx[i], Y)
+                                    for i in range(chunk)])
+
+        guard = NonFiniteGuard()
+        t0 = time.perf_counter()
+        t_post = None
+        while done < loop_steps:
+            losses = run_chunk(done).cpu()            # the host read
+            state.step = done + chunk
+            if t_post is None:
+                t_post = time.perf_counter()      # the first chunk builds
+            if inject_nonfinite_at is not None:   # fault injection (tests)
+                losses[max(0, inject_nonfinite_at - done):] = math.nan
+            if guard.update(losses, done):
+                _abort_nonfinite(cfg, out, guard, done + chunk)
+            done += chunk
+            elbo_now = -float(losses[-1])
+            logger.log(done - 1, elbo_estimate=elbo_now)
+            print(f"  step {done - 1}: elbo_estimate={elbo_now:.4g}",
+                  flush=True)
+            if ck is not None and ckpt_every and done % ckpt_every == 0:
+                ck.save(state)
     timed = done - start - chunk
     per_step = ((time.perf_counter() - t_post) / timed if timed > 0
                 else math.nan)
     total = time.perf_counter() - t0
-    rows_per_sec = (round(mcfg.batch / max(per_step, 1e-9))
-                    if per_step == per_step else None)
-    drawn = max(done - start, 1)
+    extra["rows_per_sec"] = (round(mcfg.batch / max(per_step, 1e-9))
+                             if per_step == per_step else None)
+    feed_note = ""
+    if stream:
+        chunks = max((done - start) // chunk, 1)
+        extra["feed_wait_ms_per_chunk"] = 1e3 * cs.wait_s / chunks
+        feed_note = (f"; the feed's gather held the host "
+                     f"{extra['feed_wait_ms_per_chunk']:.3f} ms a chunk "
+                     f"(native loader: {extra['native_loader']})")
     print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step "
-          f"after the first chunk, {rows_per_sec} rows/s; minibatch "
-          f"indices drawn on the host in {draw_s * 1e3 / drawn:.4f} "
-          f"ms/step", flush=True)
-    return opt.params, per_step, total, {"batch": mcfg.batch,
-                                         "rows_per_sec": rows_per_sec}
+          f"after the first chunk, {extra['rows_per_sec']} rows/s"
+          f"{feed_note}", flush=True)
+    return opt.params, per_step, total, extra
 
 
 def _abort_nonfinite(cfg, out, guard, done):
@@ -270,7 +316,7 @@ def run(cfg, *, steps: int | None = None, device=None,
         ckpt_every: int = 0, resume: bool = False,
         stop_after: int | None = None,
         inject_nonfinite_at: int | None = None,
-        impute_steps: int = 200) -> dict:
+        impute_steps: int = 200, stream: bool = False) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout) and
@@ -280,14 +326,18 @@ def run(cfg, *, steps: int | None = None, device=None,
     there. The SVI configs take `batch` (rows a step), `ckpt_every` and
     `resume` (checkpoints in `out/ckpt`), `stop_after` (stop the loop
     early; the schedules still span `steps`) and `inject_nonfinite_at`
-    (treat losses from that step on as NaN: the abort, exit 3);
-    `impute_steps` sizes the imputation's latent inference."""
+    (treat losses from that step on as NaN: the abort, exit 3) and
+    `stream` (feed the minibatches from the host, `data/stream.py`: Y is
+    written to `out/y_stream.f32`); `impute_steps` sizes the imputation's
+    latent inference."""
     device = resolve_device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
                          "CPU parity mode (--device cpu)")
     if cfg.model not in MODELS:
         raise ValueError(f"model {cfg.model!r} is not ported to the runner")
+    if stream and cfg.model != "svi_gplvm":
+        raise ValueError("--stream feeds the SVI configs only")
     if device.type == "cuda":
         pin_full_f32()
     steps = steps or cfg.steps
@@ -352,7 +402,8 @@ def run(cfg, *, steps: int | None = None, device=None,
             cfg, Y_train, mcfg, init(0), steps, device=device,
             log_every=log_every, hyper_lr=hyper_lr, ngd_lr=ngd_lr,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
-            stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at)
+            stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
+            stream=stream)
         logger.close()
         # the gated ELBO in host float64 over every training row
         with torch.no_grad():
@@ -460,6 +511,11 @@ def main(argv=None) -> int:
                     metavar="STEP",
                     help="SVI configs, fault injection: treat chunk losses "
                          "as NaN from this step on (the abort, exit 3)")
+    ap.add_argument("--stream", action="store_true",
+                    help="SVI configs: feed the minibatches from the host "
+                         "(data/stream.py: an mmap of <out>/y_stream.f32 "
+                         "and a native gather into pinned buffers) instead "
+                         "of gathering them from a resident Y")
     args = ap.parse_args(argv)
 
     cfg = config_lib.get(args.config)
@@ -475,7 +531,8 @@ def main(argv=None) -> int:
                  ngd_lr=args.ngd_lr, batch=args.batch,
                  ckpt_every=args.ckpt_every, resume=args.resume,
                  stop_after=args.stop_after,
-                 inject_nonfinite_at=args.inject_nonfinite_at)
+                 inject_nonfinite_at=args.inject_nonfinite_at,
+                 stream=args.stream)
     if args.check:
         failures = config_lib.evaluate_checks(cfg.name, result)
         if failures:

@@ -121,3 +121,17 @@ def psi2(variance, ard, mu, s, Z, weights=None, block_n=None):
         out = out + _psi2_block(variance, ard, mu[i:i + block_n],
                                 s[i:i + block_n], Z, log_e, w)
     return out
+
+
+def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None):
+    """(Psi0, Psi1, Psi2) in one call."""
+    return (psi0(variance, mu, weights),
+            psi1(variance, ard, mu, s, Z, weights),
+            psi2(variance, ard, mu, s, Z, weights, block_n))
+
+
+def observed_psi(variance, ard, X, Z):
+    """The psi statistics of observed inputs (s -> 0), the SGPR case:
+    Psi0 = N sigma_f^2, Psi1 = K_nm, Psi2 = K_mn K_nm."""
+    knm = gram(variance, ard, X, Z)
+    return variance * X.shape[0], knm, knm.T @ knm

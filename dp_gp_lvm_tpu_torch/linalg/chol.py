@@ -69,15 +69,17 @@ def safe_cholesky_spec(A, policy: JitterPolicy = JitterPolicy()):
 
 
 def safe_cholesky(A, policy: JitterPolicy = JitterPolicy()):
-    """Safe Cholesky of one matrix (the reference's search-first form):
-    (L, jitter) with jitter 0-d. For a single matrix, searching the
-    jitter before factoring and factoring at the initial jitter before
-    searching pick the same jitter and the same factor, so this is
-    `safe_cholesky_spec`: one factorization and one host sync on the
-    good path."""
-    if A.ndim != 2:
-        raise ValueError(f"safe_cholesky takes one matrix, got {A.shape}")
-    return safe_cholesky_spec(A, policy)
+    """Safe Cholesky in the reference's search-first form: (L, jitter) with
+    jitter 0-d. Over a leading batch the search, as the reference's
+    `lax.while_loop` over the whole batch, finds ONE relative jitter that
+    factors every member (each at its own scale); a caller that wants a
+    jitter per member calls it per member, as the reference's callers
+    that vmap it get. Searching first and factoring at the initial jitter
+    first pick the same jitter and the same factor, so this is
+    `safe_cholesky_spec`: one factorization and one host sync on the good
+    path."""
+    L, jitter = safe_cholesky_spec(A, policy)
+    return L, jitter.reshape(-1)[0] if jitter.ndim else jitter
 
 
 def tri_solve(L, B, lower: bool = True, trans: bool = False):
@@ -92,3 +94,23 @@ def logdet_from_chol(L):
     return 2.0 * torch.sum(
         torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1
     )
+
+
+def cho_solve(L, B):
+    """Solve (L L^T) X = B given the lower Cholesky factor L."""
+    return tri_solve(L, tri_solve(L, B), trans=True)
+
+
+def solve_psd(A, B, policy: JitterPolicy = JitterPolicy()):
+    """PSD solve A X = B through the safe Cholesky."""
+    L, _ = safe_cholesky(A, policy)
+    return cho_solve(L, B)
+
+
+def add_jitter(A, rel_jitter: float):
+    """A + rel_jitter * scale * I, scale the mean |diag| floored at 1 (a
+    gradient flows through the scale, as in the reference)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    scale = torch.clamp(torch.mean(torch.abs(torch.diagonal(
+        A, dim1=-2, dim2=-1)), dim=-1), min=1.0)[..., None, None]
+    return A + rel_jitter * scale * eye

@@ -34,6 +34,7 @@ from dp_gp_lvm_tpu_torch.train.init import (
     near_uniform_assignments,
     pca_latents,
 )
+from dp_gp_lvm_tpu_torch.train.logging import named_scope
 
 
 class Config(NamedTuple):
@@ -108,30 +109,36 @@ def per_dim_atom_bound(hyp, Y, config: Config,
         policy = JitterPolicy(max_tries=0)
     mu, s, z = hyp["qx_mean"], hyp["qx_var"], hyp["z"]
     variance, ard = hyp["variance"], hyp["ard"]
-    kuu_b = dispatch.gram(variance, ard, z, kernel=config.kernel)
-    p0_b = ard_rbf.psi0(variance, mu)
-    if dispatch.resolve_fused(config.use_fused, config.kernel, mu.device,
-                              *z.shape[1:], Y.shape[1]):
-        # one kernel gives Psi2 AND Psi1^T Y per atom; Psi1 never stored
-        p2_b, p1y_b = psi_ops.suffstats_batched_fused(
-            variance, ard, mu, s, z, Y, None, config.psi2_block or 64
-        )
-    else:
-        p1y, p2 = [], []
-        for t in range(z.shape[0]):
-            _, p1_t, p2_t = dispatch.psi_stats(
-                variance[t], ard[t], mu, s, z[t], block_n=config.psi2_block,
-                kernel=config.kernel,
+    # profiler regions (`train.logging.named_scope`), each around the
+    # batched call over every atom
+    with named_scope("kuu_gram"):
+        kuu_b = dispatch.gram(variance, ard, z, kernel=config.kernel)
+    with named_scope("psi_stats"):
+        p0_b = ard_rbf.psi0(variance, mu)
+        if dispatch.resolve_fused(config.use_fused, config.kernel,
+                                  mu.device, *z.shape[1:], Y.shape[1]):
+            # one kernel gives Psi2 AND Psi1^T Y per atom; Psi1 never stored
+            p2_b, p1y_b = psi_ops.suffstats_batched_fused(
+                variance, ard, mu, s, z, Y, None, config.psi2_block or 64
             )
-            p1y.append(p1_t.T @ Y)
-            p2.append(p2_t)
-        p1y_b, p2_b = torch.stack(p1y), torch.stack(p2)
-    stats = SuffStats(
-        psi0=p0_b, psi1T_y=p1y_b, psi2=p2_b,
-        yty=torch.sum(Y * Y, dim=0),
-        n=torch.tensor(float(Y.shape[0]), dtype=Y.dtype, device=Y.device),
-    )
-    return collapsed_bound(kuu_b, stats, hyp["noise"], policy).per_dim
+        else:
+            p1y, p2 = [], []
+            for t in range(z.shape[0]):
+                _, p1_t, p2_t = dispatch.psi_stats(
+                    variance[t], ard[t], mu, s, z[t],
+                    block_n=config.psi2_block, kernel=config.kernel,
+                )
+                p1y.append(p1_t.T @ Y)
+                p2.append(p2_t)
+            p1y_b, p2_b = torch.stack(p1y), torch.stack(p2)
+    with named_scope("collapsed_bound"):
+        stats = SuffStats(
+            psi0=p0_b, psi1T_y=p1y_b, psi2=p2_b,
+            yty=torch.sum(Y * Y, dim=0),
+            n=torch.tensor(float(Y.shape[0]), dtype=Y.dtype,
+                           device=Y.device),
+        )
+        return collapsed_bound(kuu_b, stats, hyp["noise"], policy).per_dim
 
 
 def elbo_terms(params, Y, config: Config,

@@ -14,9 +14,10 @@ Every data term is a sum over rows, so a minibatch estimate scales the
 batch's sufficient statistics (`dispatch.suff_stats`: K1 at T = 1 with K2
 in its backward on the card) and its rows' KL(q(X)) by N/B.
 
-This is the resident model: q(X) is an (N, Q) table. The amortized q(X)
-(c8), the device mesh (`parallel/`) and the host-streamed minibatches
-(`data/stream.py`) are not ported and raise.
+q(X) is an (N, Q) table on the device. Y is either resident there too, or
+streamed from the host a chunk at a time (`data/stream.py`, the step's
+`streaming=True`). The amortized q(X) (c8) and the device mesh
+(`parallel/`) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -461,11 +462,12 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     gradient pass.
 
     Returns step(t, idx, Y) -> loss (a 0-d device tensor): t is the global
-    step (for rho), idx the (B,) minibatch rows of the resident Y."""
+    step (for rho), idx the (B,) minibatch rows of the resident Y. With
+    `streaming` the host feeds the rows (`data/stream.py`) and the step is
+    step(t, (idx, y_b)): idx (B,) and y_b (B, D) on the device, nothing
+    gathered there; at equal rows it is the resident step, bit for bit."""
     if mesh is not None:
         raise _not_ported("the device mesh", "parallel/")
-    if streaming:
-        raise _not_ported("the streamed minibatch feed", "data/stream.py")
     if config.amortized:
         raise _not_ported("the amortized q(X)", "c8_amortized_svi")
     if blend_at not in ("updated", "grad"):
@@ -486,8 +488,7 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
                                            config.kernel)
         return -bound, a, A2, 1.0 / c["noise"]
 
-    def step(t: int, idx, Y):
-        y_b = Y[idx]
+    def one(t: int, idx, y_b):
         loss, a, A2, beta = loss_with_stats(y_b, idx)
         grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
         for k in QU_NAMES:
@@ -504,4 +505,10 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
         STEPS["taken"] += 1
         return loss.detach()
 
+    if streaming:
+        def step(t: int, batch):
+            return one(t, *batch)
+    else:
+        def step(t: int, idx, Y):
+            return one(t, idx, Y[idx])
     return step

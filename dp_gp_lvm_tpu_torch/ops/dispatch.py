@@ -33,6 +33,21 @@ def gram(variance, ard, X1, X2=None, kernel: str = "ard_rbf"):
     return _kernel(kernel).gram(variance, ard, X1, X2)
 
 
+def gram_diag(variance, ard, X, kernel: str = "ard_rbf"):
+    return _kernel(kernel).gram_diag(variance, ard, X)
+
+
+def observed_psi(variance, ard, X, Z, kernel: str = "ard_rbf"):
+    """(Psi0, Psi1, Psi2) of observed inputs: closed-form Gram matrices,
+    no kernel launch."""
+    return _kernel(kernel).observed_psi(variance, ard, X, Z)
+
+
+def psi0(variance, ard, mu, s, weights=None, kernel: str = "ard_rbf"):
+    _kernel(kernel)
+    return ard_rbf.psi0(variance, mu, weights)
+
+
 def expected_gram_diag(variance, ard, mu, s, kernel: str = "ard_rbf"):
     """Per-row expected kernel diagonal E_q(x_n)[k(x_n, x_n)], (N,): the
     constant signal variance for the RBF."""

@@ -1,7 +1,8 @@
 """Training: the optimizer of the GP-LVM family and the training driver
 (counterpart of `dp_gp_lvm_tpu/train/loop.py`: `gp_optimizer` with its
 schedules, `NonFiniteGuard`, `make_step_fn`, `make_multi_step_fn`,
-`time_steps`), and `STEPS`, the count of steps the driver has taken.
+`time_steps`, `make_streaming_scan_fn`, `fit`), and `STEPS`, the count of
+steps the training loop has taken.
 
 `gp_optimizer` reproduces the reference's optax chain
     apply_if_finite(chain(
@@ -24,8 +25,7 @@ written by hand:
     schedule(0)). The NGD group has its count too.
 Schedules are optax's formulas, evaluated on the device from the count
 tensor. `TrainState` is what the SVI loop of the runner carries and
-`train/checkpoint.py` saves. `fit`, `fit_lbfgs` and
-`make_streaming_scan_fn` wait for later slices.
+`train/checkpoint.py` saves. `fit_lbfgs` is not ported yet.
 """
 from __future__ import annotations
 
@@ -150,7 +150,8 @@ class GPOptimizer:
 
     `labels` maps each parameter to its group: "hyper", "var", "ard",
     "ngd" or "frozen". `rates` maps every group but "frozen" to its rate:
-    a float, or a schedule (integer count tensor -> rate tensor).
+    a float, or a schedule (integer count tensor -> rate tensor). `clip`
+    is the global-norm clip (None: no clip).
     `step(grads)` updates the parameter tensors in place and returns
     whether it applied the update (a 0-d bool tensor, not read here)."""
 
@@ -181,12 +182,15 @@ class GPOptimizer:
         else:
             apply = torch.ones((), dtype=torch.bool, device=finite.device)
 
-        g_norm = global_norm(grads)
-        clipped = {
-            k: torch.where(g_norm < self.clip, grads[k],
-                           (grads[k] / g_norm) * self.clip)
-            for k in keys
-        }
+        if self.clip is None:
+            clipped = grads
+        else:
+            g_norm = global_norm(grads)
+            clipped = {
+                k: torch.where(g_norm < self.clip, grads[k],
+                               (grads[k] / g_norm) * self.clip)
+                for k in keys
+            }
         updates = {}
         for group, rate_fn in self.rates.items():
             # a group's count advances with or without members, as optax's
@@ -406,3 +410,44 @@ def time_steps(step_fn, data: tuple, num_steps: int, warmup: int = 2):
         m = step_fn(*data)
     _wait(m["loss"])
     return (time.perf_counter() - t0) / num_steps
+
+
+def make_streaming_scan_fn(step_fn):
+    """`scan_chunk(state, idx, y) -> (state, losses)`: one host-fed chunk
+    of streamed minibatch steps, idx (chunk, B) and y (chunk, B, D) as
+    `data/stream.ChunkStream.next_chunk` gives them. `step_fn(t, (idx_b,
+    y_b))` is a streamed step (`svi_gplvm.make_svi_natgrad_step(...,
+    streaming=True)`), t the global step its rates read; `state` (a
+    `TrainState`) advances by the chunk. The losses stay on the device as
+    one (chunk,) tensor: nothing is read back here."""
+
+    def scan_chunk(state: TrainState, idx, y):
+        start = state.step
+        losses = torch.stack([step_fn(start + i, (idx[i], y[i]))
+                              for i in range(idx.shape[0])])
+        state.step = start + idx.shape[0]
+        return state, losses
+
+    return scan_chunk
+
+
+def fit(loss_fn: Callable, params, data: tuple, num_steps: int,
+        lr: float = 1e-2, log_every: int = 0,
+        callback: Callable | None = None):
+    """Convenience trainer: plain Adam (optax's `adam`: eps 1e-8, bias
+    correction, no clip) on every parameter of `params`, updated in place.
+    Returns (params, {"elbo": [...]}), the ELBO (-loss before the step)
+    read at steps 0, log_every, ... and the last, where `callback(i, elbo,
+    metrics)` is called too."""
+    opt = GPOptimizer(params, dict.fromkeys(params, "var"), {"var": lr},
+                      clip=None, skip_nonfinite=0)
+    step = make_step_fn(loss_fn, opt)
+    elbos = []
+    for i in range(num_steps):
+        metrics = step(*data)
+        if log_every and (i % log_every == 0 or i == num_steps - 1):
+            e = float(metrics["elbo"])
+            elbos.append(e)
+            if callback is not None:
+                callback(i, e, metrics)
+    return params, {"elbo": elbos}

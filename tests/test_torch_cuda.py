@@ -670,3 +670,89 @@ def test_checkpoint_restore_on_card_is_bit_identical(card, tmp_path):
         step2(t, idx[t], Y2)
     for k, v in fresh.params.items():
         assert torch.equal(v, first[k]), k
+
+
+def _svi_step(card, Y, streaming):
+    """A natural-gradient step at c6's widths on fresh parameters."""
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    cfg = svi_gplvm.Config(num_latent=8, num_inducing=64, batch=1024)
+    params = svi_gplvm.init_params(prng.PRNGKey(0), Y, cfg)
+    opt = gp_optimizer(params, lr=3e-3, ngd_lr=1.0, decay_steps=20)
+    return params, svi_gplvm.make_svi_natgrad_step(
+        cfg, Y.shape[0], opt, rho=0.2, streaming=streaming)
+
+
+@pytest.mark.cuda
+def test_streamed_step_is_the_resident_step_on_card(card):
+    """The same rows fed from the host or gathered on the card: the same
+    loss and parameters, bit for bit, over three steps."""
+    Y, _, _, idx = _svi_setup(card)
+    p_res, res = _svi_step(card, Y, streaming=False)
+    p_str, st = _svi_step(card, Y, streaming=True)
+    for t in range(3):
+        rows = Y[idx[t]].cpu().pin_memory().to(card, non_blocking=True)
+        assert torch.equal(res(t, idx[t], Y), st(t, (idx[t], rows)))
+    for k in p_res:
+        assert torch.equal(p_res[k], p_str[k]), k
+
+
+@pytest.mark.cuda
+def test_pinned_chunk_stream_feeds_the_card_without_a_torn_buffer(
+        card, tmp_path):
+    """The native gather into pinned buffers, copied to the card without
+    blocking while the card works on the previous chunk: every chunk of 24
+    holds exactly the rows at its indices (a refill racing its copy would
+    tear one), and the indices are the host stream's."""
+    from dp_gp_lvm_tpu_torch.data import stream
+
+    n, d, batch, chunk = 4096, 32, 1024, 4
+    Y = np.random.default_rng(0).standard_normal((n, d)).astype(np.float32)
+    path = stream.write_rows(str(tmp_path / "y.f32"), Y)
+    Y_card = torch.from_numpy(Y).to(card)
+    with stream.ChunkStream(stream.open_loader(path, n, d), batch=batch,
+                            chunk=chunk, seed=7) as host:
+        want = [host.next_chunk()[0].copy() for _ in range(24)]
+    assert stream.native_available()
+    work = torch.randn(2048, 2048, device=card)
+    with stream.ChunkStream(stream.StreamLoader(path, n, d), batch=batch,
+                            chunk=chunk, seed=7, device=card) as cs:
+        for k in range(24):
+            idx, y = cs.next_chunk()
+            assert idx.is_cuda and y.is_cuda and y.dtype == torch.float32
+            for _ in range(4):              # keep the card busy
+                work = torch.tanh(work @ work)
+            assert torch.equal(y, Y_card[idx]), k
+            assert torch.equal(idx.cpu(), torch.from_numpy(want[k]).long())
+    assert bool(torch.isfinite(work).all())
+
+
+@pytest.mark.cuda
+def test_sgpr_and_gp_regression_f32_on_card_match_f64(card):
+    """SGPR's bound and predictive and the exact marginal in float32 on the
+    card against float64 on the CPU, at the same 1e-4 jitter: 1e-4 of the
+    value (bound, marginal) and of max|ref| (predictive)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import gp_regression, sparse_gp
+
+    r = np.random.default_rng(0)
+    X, Y, Xs = (r.normal(size=s) for s in ((200, 3), (200, 4), (20, 3)))
+    policy = JitterPolicy(initial=1e-4)
+    got, want = {}, {}
+    for out, dev, dtype in ((got, card, torch.float32),
+                            (want, "cpu", torch.float64)):
+        x, y, xs = (torch.tensor(a, dtype=dtype, device=dev)
+                    for a in (X, Y, Xs))
+        ps = sparse_gp.init_params(prng.PRNGKey(0), x, 10)
+        pg = gp_regression.init_params(3, dtype=dtype, device=dev)
+        with torch.no_grad():
+            out["elbo"] = sparse_gp.elbo(ps, x, y, policy)
+            out["lm"] = gp_regression.log_marginal(pg, x, y, policy)
+            out["mean"], out["var"] = sparse_gp.predict(ps, x, y, xs, policy)
+    for k in ("elbo", "lm"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4 * abs(
+            float(want[k])), k
+    assert float(want["elbo"]) <= float(want["lm"])
+    for k in ("mean", "var"):
+        assert max(_scaled_errors([got[k]], [want[k].to(card)])) <= 1e-3, k
