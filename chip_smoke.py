@@ -40,16 +40,35 @@ imputation servers built on them. Phases, each printing one JSON line:
          posterior build must launch K6 and K5 once
   serve_dp  make_dp_imputer on the c4 parameters (the c5_dp_missing
          widths), batches 1, 8, 32, 128; the build must launch K1 once
+  cavi   one full-batch CAVI step of (phi, gamma) on those c4 parameters:
+         exactly one K1 launch (T = 20), held against its plain version on
+         the step's input; the ELBO must not fall (beyond the f32
+         tolerance), phi's rows sum to 1, and phi and gamma agree with the
+         f64 plain step
+  linear 20 Bayesian GP-LVM steps with the linear kernel at c2's N, D and
+         Q with M = Q: no kernel may launch, the f32 ELBO at init agrees
+         with f64 relative to the bound's largest term (at M = Q two terms
+         of ~9e5 cancel exactly) and the ELBO rises; the gap at c2's
+         M = 50 (a rank-Q K_uu) is reported
   runs   the by-name runner (`dp_gp_lvm_tpu_torch.experiments.run.run`)
          trains each gated config (c1_bgplvm_toy, c2_sparse_oil,
-         c4_dp_mocap, c5_dp_missing, c5_pose_missing) at full width for
-         100 steps, its rates decayed over those 100; every numeric leaf of
-         the result must be finite and every gated key present (the gates
-         themselves are reported, not held, at 100 steps); every step must
-         launch K6, K5 and K2 (c1, c2) or K1 and K2 (c4, c5, c5_pose); the
+         c3_mrd_twoview, c4_dp_mocap, c5_dp_missing, c5_pose_missing) at
+         full width for 100 steps a restart, its rates decayed over those
+         100; every numeric leaf of the result must be finite and every
+         gated key present (the gates themselves are reported, not held, at
+         100 steps); every step must launch K6, K5 and K2 (c1, c2), K1 and
+         K2 per view (c3, plus K6 and K5 per view for the cross-view
+         posterior) or K1 and K2 (c4, c5, c5_pose); the
          first inputs each kernel got at each of its shapes in the run are
          kept, and the kernel is held on them against its plain version
-         in f64 (at its phase's tolerance) and repeated to the bit
+         in f64 (at its phase's tolerance) and repeated to the bit; at
+         c3's widths each is also timed there (device ms, bound)
+  serve_mrd  make_mrd_cross_view_predictor on that c3 run's parameters
+         observes view 0 of held-out rows and predicts view 1, batches 1,
+         4, 8, 32; the build must launch K6 and K5 once per view, and
+         "auto" must take the kernels at c3's widths; the predictive at a
+         fixed q(x*) and the caches' weights are held against f64, a whole
+         request's f32-against-f64 gap is reported
   svi    the runner trains c6_svi_bigN (the minibatch SVI-GPLVM) at full
          width, N=131072 and 1024 rows a step, for 200 steps with a
          checkpoint every 100; a second run resumes from the step-100
@@ -931,9 +950,293 @@ def phase_serve_dp(torch, seed, params, Y, cfg):
     return row
 
 
-RUN_CONFIGS = ("c1_bgplvm_toy", "c2_sparse_oil", "c4_dp_mocap",
-               "c5_dp_missing", "c5_pose_missing")
-RUN_STEPS = 100       # two chunks of the runner's 50
+def _nested(flat):
+    """A runner's params.npz (MRD's views under `views/<i>/<key>`) as the
+    model's parameter dict, on the card."""
+    import torch
+
+    params, views = {}, {}
+    for k, v in flat.items():
+        t = torch.as_tensor(v, device="cuda")
+        if k.startswith("views/"):
+            _, i, leaf = k.split("/")
+            views.setdefault(int(i), {})[leaf] = t
+        else:
+            params[k] = t
+    params["views"] = [views[i] for i in sorted(views)]
+    return params
+
+
+MRD_BATCHES = (1, 4, 8, 32)
+
+
+def phase_serve_mrd(torch, seed):
+    """MRD's cross-view server on the c3 parameters the runs phase trained:
+    observe view 0 of held-out rows, predict view 1."""
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+    from dp_gp_lvm_tpu_torch.ops import dispatch, psi
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    cfg = dataclasses.replace(config.get("c3_mrd_twoview"), seed=seed)
+    mcfg = runner._model_config(cfg, None)
+    views, _ = runner.load_data(cfg, torch.float32, "cuda")
+    keep = torch.as_tensor(runner._holdout_rows(cfg.n), device="cuda")
+    Ys = [y[keep] for y in views]
+    y_test = views[0][~keep]
+    params = _nested(load_npz(str(RUN_OUT / cfg.name / "params.npz")))
+    N, M, Q, D = Ys[0].shape[0], cfg.m, cfg.q, cfg.views[0]
+    fits = dict(suff_stats=dispatch.resolve_fused("auto", "ard_rbf", "cuda",
+                                                  M, Q, D),
+                psi2_only=dispatch.resolve_fused("auto", "ard_rbf", "cuda",
+                                                 M, Q, 0))
+
+    psi.reset_launch_counts()
+    predict = serving.make_mrd_cross_view_predictor(
+        params, Ys, mcfg, observed_view=0, target_view=1,
+        num_steps=SERVE_STEPS)
+    launches = dict(psi.LAUNCHES)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi1=2, psi2_single=2)
+
+    caches32 = prediction.mrd_posterior(params, Ys, mcfg)
+    p64 = {k: v.double() for k, v in params.items() if k != "views"}
+    p64["views"] = [{k: v.double() for k, v in view.items()}
+                    for view in params["views"]]
+    Ys64 = [y.double() for y in Ys]
+    plain64 = mcfg._replace(use_fused=False)
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+    caches64 = prediction.mrd_posterior(p64, Ys64, plain64, same_jitter)
+    rows = []
+    for b in MRD_BATCHES:
+        y = y_test[:b]
+        times = []
+        for i in range(4):                       # one warm call, then 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = predict(y)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+        if not (mean.shape == var.shape == (b, cfg.views[1])
+                and bool(torch.isfinite(mean).all())
+                and bool(torch.isfinite(var).all())
+                and bool((var > 0).all())):
+            raise AssertionError(f"serve_mrd: bad answer at batch {b}")
+        tol, steps = serving._resolve("auto", SERVE_STEPS, b)
+        m0 = prediction.init_latent_from_nearest(
+            params["qx_mean"], Ys[0], y, torch.ones_like(y))
+        trace = prediction.mrd_infer_latent(caches32, {0: y}, m0, steps,
+                                            tol=tol)[2]
+        if not float(trace[-1]) > float(trace[0]):
+            raise AssertionError(f"serve_mrd: objective fell at batch {b}: "
+                                 f"{float(trace[0])} -> {float(trace[-1])}")
+        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
+                         step_cap=steps,
+                         steps_taken=_steps_from_trace(trace),
+                         ms_per_request=statistics.median(times),
+                         objective_first=float(trace[0]),
+                         objective_last=float(trace[-1])))
+    # held: the predictive at a fixed q(x*) and the caches' weights, f32
+    # through the kernels against f64 plain; reported: the whole request
+    # (inference included) in f32 against f64 plain on the same rows
+    qx = params["qx_mean"]
+    m_fix, s_fix = qx[:32], torch.full_like(qx[:32], 0.1)
+    with torch.no_grad():
+        m64, v64 = prediction.predict_from_latent(caches64[1],
+                                                  m_fix.double(),
+                                                  s_fix.double())
+        m32, v32 = prediction.predict_from_latent(caches32[1], m_fix, s_fix)
+    pred_err = dict(
+        mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
+        var=float((v32.double() - v64).abs().max() / v64.abs().max()),
+        cache_w=max(float((c32.w.double() - c64.w).abs().max()
+                          / c64.w.abs().max())
+                    for c32, c64 in zip(caches32, caches64)))
+    predict64 = serving.make_mrd_cross_view_predictor(
+        p64, Ys64, plain64, observed_view=0, target_view=1,
+        num_steps=SERVE_STEPS, device="cuda")
+    full32, full64 = predict(y_test), predict64(y_test.double())
+    request_gap = {k: float((a.double() - w).abs().max() / w.abs().max())
+                   for k, a, w in zip(("mean", "var"), full32, full64)}
+    row = dict(phase="serve_mrd", config=cfg.name,
+               shape=dict(N=N, M=M, Q=Q, D=list(cfg.views)),
+               resolve_fused_auto=fits, num_steps=SERVE_STEPS,
+               build_launches=launches, requests=rows,
+               predict_f32_vs_f64_scaled_err=pred_err, tol=TOL_PRED,
+               tol_cache_w=TOL_CACHE_W,
+               request_f32_vs_f64_scaled_gap_batch_32=request_gap,
+               trained_restart=int(np.argmax(json.loads(
+                   (RUN_OUT / cfg.name / "result.json").read_text())[
+                       "restart_elbos"])))
+    emit(row)
+    if not all(fits.values()):
+        raise AssertionError(f"serve_mrd: auto refuses the kernels at c3's "
+                             f"widths: {fits}")
+    if launches != expected:
+        raise AssertionError(f"mrd_posterior launched {launches}, expected "
+                             "K6 and K5 once per view")
+    _check_serve("serve_mrd", pred_err)
+    return row
+
+
+# the CAVI step in f32 against f64: phi moves by at most
+# phi (exp(2 delta) - 1) for a logit error delta, and c4's per-dim atom
+# bounds (~1e4) carry f32 errors near 2e-3 (an f32 run of the step on the
+# CPU), so 1e-2 covers delta up to 5e-3; gamma sums phi over dims
+TOL_CAVI = 1e-2
+
+
+def phase_cavi(torch, params, Y, cfg):
+    """One full-batch CAVI step of (phi, gamma) on the train phase's c4
+    parameters: one K1 launch at T = 20 and no K2."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    with torch.no_grad():
+        elbo_before = float(dp_gp_lvm.elbo(params, Y, cfg))
+    psi.reset_launch_counts()
+    with _first_inputs(torch, psi) as seen:
+        new = dp_gp_lvm.cavi_step(params, Y, cfg)
+    launches = dict(psi.LAUNCHES)
+    held = _hold_first_inputs(torch, psi, seen)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=1)
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+    plain = cfg._replace(use_fused=False)
+    p64 = {k: v.detach().double() for k, v in params.items()}
+    with torch.no_grad():
+        elbo_after = float(dp_gp_lvm.elbo(new, Y, cfg))
+        new64 = dp_gp_lvm.cavi_step(p64, Y.double(), plain, same_jitter)
+        f32 = dp_gp_lvm.per_dim_atom_bound(dp_gp_lvm.constrain(params), Y,
+                                           cfg)
+        f64 = dp_gp_lvm.per_dim_atom_bound(dp_gp_lvm.constrain(p64),
+                                           Y.double(), plain, same_jitter)
+    phi, phi64 = (dp_gp_lvm.expected_assignments(p) for p in (new, new64))
+    errs = dict(
+        phi_abs=float((phi.double() - phi64).abs().max()),
+        **{k: float((new[k].double() - new64[k]).abs().max()
+                    / new64[k].abs().max())
+           for k in ("raw_gamma1", "raw_gamma2")})
+    row_sums = float((phi.sum(-1) - 1.0).abs().max())
+    row = dict(phase="cavi", config="c4_dp_mocap", shape=C4,
+               launches=launches, held_on_the_steps_inputs=held,
+               elbo_before=elbo_before, elbo_after=elbo_after,
+               tol_elbo=TOL_ELBO, f32_vs_f64=errs, tol=TOL_CAVI,
+               per_dim_bound_max_abs_err=float((f32.double() - f64).abs()
+                                               .max()),
+               phi_row_sum_max_err=row_sums,
+               atoms_used=int((phi.sum(0) > 0.5).sum()))
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"cavi launched {launches}, expected K1 once")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"cavi: K1 disagrees with its plain version "
+                                 f"on the step's inputs: {h}")
+    if not elbo_after >= elbo_before - TOL_ELBO * abs(elbo_before):
+        raise AssertionError(f"cavi lowered the ELBO: {elbo_before} -> "
+                             f"{elbo_after}")
+    if not row_sums <= 1e-5:
+        raise AssertionError(f"cavi: phi rows do not sum to 1: {row_sums}")
+    if not max(errs.values()) <= TOL_CAVI:
+        raise AssertionError(f"cavi: f32 step off the f64 one: {errs}")
+    return row
+
+
+LINEAR_STEPS = 20
+
+
+def phase_linear(torch, seed):
+    """The Bayesian GP-LVM with the linear kernel at c2's N, D and Q: its
+    psi statistics are plain matrix products, so nothing may launch. M is
+    Q: at c2's M = 50 > Q the linear K_uu has rank Q, and f32 solves
+    against it lose the ELBO (reported at init, not held).
+
+    With M = Q the inducing points span the kernel's whole feature space,
+    so psi0 = tr(K_uu^-1 Psi2) exactly and the bound's terms
+    -beta psi0 / 2 and +beta tr(K_uu^-1 Psi2) / 2, each D beta psi0 / 2
+    (~9e5 here) over the D dims, cancel: the f32 ELBO is held against f64
+    relative to that term, the largest of the bound, not to the ELBO."""
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.data.synthetic import oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    c2 = CONFIGS["c2_sparse_oil"]
+    key = prng.PRNGKey(seed)
+    Y, _, _ = oil_flow_like(key, n=c2.n, d=c2.d, dtype=torch.float32)
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+
+    def at_init(m):
+        cfg = bgplvm.Config(num_latent=c2.q, num_inducing=m,
+                            kernel="linear")
+        params = bgplvm.init_params(key, Y, cfg)
+        with torch.no_grad():
+            e32 = float(bgplvm.elbo(params, Y, cfg))
+            t64 = bgplvm.elbo_terms({k: v.double() for k, v in
+                                     params.items()}, Y.double(), cfg,
+                                    same_jitter)
+        # the bound's largest term: D tr(beta K_uu^-1 Psi2) / 2
+        largest = 0.5 * c2.d * abs(float(t64["trace_a"]))
+        return params, cfg, e32, float(t64["elbo"]), largest
+
+    params, cfg, e32, e64, largest = at_init(c2.q)
+    _, _, e32_m, e64_m, _ = at_init(c2.m)
+    rel = abs(e32 - e64) / abs(e64)
+    rel_largest = abs(e32 - e64) / max(abs(e64), largest)
+    opt = gp_optimizer(params, lr=c2.lr, ngd_lr=c2.ngd_lr)
+    psi.reset_launch_counts()
+    losses, step_ms = [], []
+    keys = list(params)
+    for _ in range(LINEAR_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = bgplvm.loss(params, Y, cfg)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        opt.step(dict(zip(keys, grads)))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss.detach()))
+    launches = dict(psi.LAUNCHES)
+    row = dict(phase="linear", config="c2_sparse_oil", kernel="linear",
+               shape=dict(N=c2.n, M=c2.q, Q=c2.q, D=c2.d),
+               elbo_init_f32=e32, elbo_init_f64=e64, elbo_rel_err=rel,
+               largest_term=largest, err_over_largest_term=rel_largest,
+               tol=TOL_ELBO,
+               at_c2_m=dict(M=c2.m, elbo_init_f32=e32_m, elbo_init_f64=e64_m,
+                            elbo_rel_err=abs(e32_m - e64_m) / abs(e64_m)),
+               losses=losses, ms_per_step_median=statistics.median(step_ms),
+               launches=launches)
+    emit(row)
+    if any(launches.values()):
+        raise AssertionError(f"linear: a psi kernel launched: {launches}")
+    if not rel_largest <= TOL_ELBO:
+        raise AssertionError(f"linear: f32 ELBO {e32} vs f64 {e64} "
+                             f"(largest term {largest})")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"linear: the ELBO did not rise: {losses}")
+    return row
+
+
+RUN_CONFIGS = ("c1_bgplvm_toy", "c2_sparse_oil", "c3_mrd_twoview",
+               "c4_dp_mocap", "c5_dp_missing", "c5_pose_missing")
+RUN_STEPS = 100       # two chunks of the runner's 50 (a restart each)
+RUN_OUT = ROOT / "build" / "smoke_runs"   # each run's result and params
 # each kernel wrapper: its plain version (which takes the same
 # arguments), the tolerance it is held to, and where its row weights sit
 # among its positional arguments
@@ -1000,6 +1303,67 @@ def _hold_first_inputs(torch, psi, seen):
     return held
 
 
+def _work_of(name, args):
+    """(shape, bound_ms, bound_by) of one kernel call on `args`."""
+    if name in ("psi2_single", "psi1"):
+        (M, Q), N = args[4].shape, args[2].shape[0]
+        shape = dict(N=N, M=M, Q=Q)
+        work = (k5_work if name == "psi2_single" else k6_work)(**shape)
+    else:
+        T, M, Q = args[4].shape
+        shape = dict(T=T, N=args[2].shape[0], M=M, Q=Q)
+        if name == "suffstats_batched":
+            shape["D"] = args[5].shape[1]
+        work = dict(suffstats_batched=k1_work, psi2_bwd_batched=k2_work,
+                    psi2_batched=k4_work)[name](**shape)
+    return (shape, *_bound_ms(*work))
+
+
+def _timed_on_inputs(torch, psi, seen, plain=False):
+    """Each kernel on the first inputs a run gave it (`_first_inputs`):
+    its device ms against its bound, and with `plain` the wrapper's ms
+    and its plain version's on the same inputs."""
+    timing = {}
+    for key, args in seen.items():
+        name = key[0]
+        shape, bound, by = _work_of(name, args)
+        dev = _device_ms(lambda: getattr(psi, name)(*args), torch)
+        timing[name] = dict(shape=shape, device_ms=dev, bound_ms=bound,
+                            bound_by=by, device_over_bound=dev / bound)
+        if plain:
+            ref = getattr(psi, RUN_KERNELS[name][0])
+            timing[name].update(
+                ms=_timed(lambda: getattr(psi, name)(*args), torch),
+                plain_ms=_timed(lambda: ref(*args), torch, reps=5,
+                                warmup=1))
+    return timing
+
+
+def _expected_run_launches(psi, cfg, steps):
+    """The kernel launches of the runner's run of `cfg` that took `steps`
+    optimizer steps (training and timing)."""
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    if cfg.model == "bgplvm":
+        # per step K6 and K5 forward, K2 backward; K6 and K5 once more
+        # for the result's ELBO terms
+        expected.update(psi1=steps + 1, psi2_single=steps + 1,
+                        psi2_bwd_batched=steps)
+    elif cfg.model == "mrd":
+        # per view and step K1 forward, K2 backward; K1 once more per view
+        # for the ELBO terms, and per view K6 and K5 once for the
+        # cross-view prediction's posterior build
+        V = len(cfg.views)
+        expected.update(suffstats_batched=V * (steps + 1),
+                        psi2_bwd_batched=V * steps, psi1=V, psi2_single=V)
+    else:
+        # per step K1 forward, K2 backward; K1 once more for the ELBO
+        # terms, and once for the imputation's posterior build
+        expected.update(
+            suffstats_batched=steps + 1 + (cfg.missing_fraction > 0),
+            psi2_bwd_batched=steps)
+    return expected
+
+
 def phase_runs(torch, seed):
     import dataclasses
 
@@ -1014,21 +1378,11 @@ def phase_runs(torch, seed):
         psi.reset_launch_counts()
         loop.reset_step_count()
         with _first_inputs(torch, psi) as seen:
-            result = runner.run(cfg, steps=RUN_STEPS, device="cuda")
+            result = runner.run(cfg, steps=RUN_STEPS, device="cuda",
+                                out=str(RUN_OUT / name))
         launches = dict(psi.LAUNCHES)
         steps = loop.STEPS["taken"]      # training and timing
-        expected = dict.fromkeys(psi.LAUNCHES, 0)
-        if cfg.model == "bgplvm":
-            # per step K6 and K5 forward, K2 backward; K6 and K5 once more
-            # for the result's ELBO terms
-            expected.update(psi1=steps + 1, psi2_single=steps + 1,
-                            psi2_bwd_batched=steps)
-        else:
-            # per step K1 forward, K2 backward; K1 once more for the ELBO
-            # terms, and once for the imputation's posterior build
-            expected.update(
-                suffstats_batched=steps + 1 + (cfg.missing_fraction > 0),
-                psi2_bwd_batched=steps)
+        expected = _expected_run_launches(psi, cfg, steps)
         held = _hold_first_inputs(torch, psi, seen)
         finiteness = config.evaluate_checks("", result)   # no gates
         failures = config.evaluate_checks(name, result)
@@ -1046,8 +1400,19 @@ def phase_runs(torch, seed):
                                              "predictive_loglik_per_dim",
                                              "imputation_seconds",
                                              "ard_recall_top2",
-                                             "ard_separation_ratio")
+                                             "ard_separation_ratio",
+                                             "restart_elbos",
+                                             "cross_view_mse_ratio",
+                                             "cross_view_pll_per_dim",
+                                             "ard_cross_private_ratio",
+                                             "calibration_ratio",
+                                             "cross_view_seconds")
                       if k in result})
+        if cfg.model == "mrd":
+            # c3's kernels on the run's own first inputs: the widths no
+            # other phase times
+            row["kernels_at_c3"] = _timed_on_inputs(torch, psi, seen,
+                                                    plain=True)
         emit(row)
         if row["nonfinite"] or row["missing"]:
             raise AssertionError(f"runs: {name} gave a broken result: {row}")
@@ -1117,19 +1482,7 @@ def phase_svi(torch, seed):
         np.array_equal(a[k], b[k]) for k in a)
 
     # K1 and K2 on the run's first minibatch: device time and bound
-    timing = {}
-    for key, args in seen.items():
-        name = key[0]
-        T, M, Q = args[4].shape
-        shape = dict(T=T, N=args[2].shape[0], M=M, Q=Q)
-        if name == "suffstats_batched":
-            shape["D"] = args[5].shape[1]
-        work = (k1_work if name == "suffstats_batched" else k2_work)(**shape)
-        bound, by = _bound_ms(*work)
-        dev = _device_ms(lambda: getattr(psi, name)(*args), torch)
-        timing[name] = dict(shape=shape,
-                            device_ms=dev, bound_ms=bound, bound_by=by,
-                            device_over_bound=dev / bound)
+    timing = _timed_on_inputs(torch, psi, seen)
     # the host's draw of one chunk of minibatch indices
     _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
     t0 = time.perf_counter()
@@ -1628,7 +1981,10 @@ def main(argv=None) -> int:
     train2, bg_params, bg_Y, bg_cfg = phase_train_bgplvm(torch, args.seed)
     serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
+    cavi = phase_cavi(torch, dp_params, dp_Y, dp_cfg)
+    linear = phase_linear(torch, args.seed)
     runs = phase_runs(torch, args.seed)
+    serve3 = phase_serve_mrd(torch, args.seed)
     svi = phase_svi(torch, args.seed)
     streamed = phase_stream(torch, args.seed, svi)
     phase_sgpr(torch, args.seed)
@@ -1636,8 +1992,8 @@ def main(argv=None) -> int:
 
     # `launches` of a kernel is its count over the path named in
     # `launches_of`; `launches_by_phase` lists every driven path, the
-    # server builds (one posterior each) and the runner's 100-step run of
-    # each gated config included
+    # server builds (one posterior each), the CAVI step, the linear
+    # kernel's training (none) and the runner's run of each gated config
     paths = dict(train="10 training steps of c4_dp_mocap",
                  train_bgplvm="10 training steps of c2_sparse_oil",
                  gate="one value and gradient of sum Psi2^2")
@@ -1645,6 +2001,8 @@ def main(argv=None) -> int:
                   gate=gate["launches"],
                   serve_bgplvm_build=serve2["build_launches"],
                   serve_dp_build=serve5["build_launches"],
+                  cavi=cavi["launches"], linear=linear["launches"],
+                  serve_mrd_build=serve3["build_launches"],
                   **{f"runs_{name}": row["launches"]
                      for name, row in runs.items()},
                   svi_c6_svi_bigN=svi["launches"],
@@ -1656,13 +2014,30 @@ def main(argv=None) -> int:
         return dict(name=name, route="cuda", source=f"{csrc}/{source}",
                     replaces=f"{pallas}:{line}",
                     launches=phases[main][name], launches_of=paths[main],
-                    launches_by_phase={ph: c[name] for ph, c in phases.items()
-                                       if c[name]},
+                    launches_by_phase={ph: c[name]
+                                       for ph, c in phases.items()},
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     device_ms=res["device_ms"],
                     device_over_bound=res["device_ms"] / res["bound_ms"],
                     plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                     bound_by=res["bound_by"], library_ms=None)
+
+    c3 = runs["c3_mrd_twoview"]
+
+    def at_c3(name, build=False):
+        """A kernel's device ms and bound at c3's widths, on the first
+        inputs the runs phase's c3 run gave it, and its launches in that
+        run (c3_run_steps optimizer steps, training and timing) or in the
+        serve_mrd phase's posterior build."""
+        t = c3["kernels_at_c3"][name]
+        launches = ({"c3_build_launches": serve3["build_launches"][name]}
+                    if build else
+                    {"c3_run_launches": c3["launches"][name],
+                     "c3_run_steps": c3["steps_taken"]})
+        return {"c3_shape": t["shape"], "c3_device_ms": t["device_ms"],
+                "c3_ms": t["ms"], "c3_plain_ms": t["plain_ms"],
+                "c3_bound_ms": t["bound_ms"], "c3_bound_by": t["bound_by"],
+                **launches}
 
     kernels = [
         dict(kernel_row("suffstats_batched", "psi_suffstats.cu", 610,
@@ -1677,7 +2052,9 @@ def main(argv=None) -> int:
              c6_launches_per_step=svi["launches_per_step"][
                  "suffstats_batched"],
              c6_streamed_launches_per_step=streamed["launches_per_step"][
-                 "suffstats_batched"]),
+                 "suffstats_batched"],
+             cavi_launches=cavi["launches"]["suffstats_batched"],
+             **at_c3("suffstats_batched")),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
@@ -1690,7 +2067,8 @@ def main(argv=None) -> int:
              c6_launches_per_step=svi["launches_per_step"][
                  "psi2_bwd_batched"],
              c6_streamed_launches_per_step=streamed["launches_per_step"][
-                 "psi2_bwd_batched"]),
+                 "psi2_bwd_batched"],
+             **at_c3("psi2_bwd_batched")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],
@@ -1699,11 +2077,13 @@ def main(argv=None) -> int:
                         "train_bgplvm", k5),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k5["scale_device_ms"],
-             scale_bound_ms=k5["scale_bound_ms"]),
+             scale_bound_ms=k5["scale_bound_ms"],
+             **at_c3("psi2_single", build=True)),
         dict(kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
              redesigned_in="seventh slice of the port",
              scale_device_ms=k6["scale_device_ms"],
-             scale_bound_ms=k6["scale_bound_ms"]),
+             scale_bound_ms=k6["scale_bound_ms"],
+             **at_c3("psi1", build=True)),
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {kernels}")

@@ -1,9 +1,9 @@
 """Named experiment configurations and their regression gates
 (counterpart of `dp_gp_lvm_tpu/core/config.py`). Only the configurations
 whose models the port runs are copied, with their gates: the Bayesian
-GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, the DP-GP-LVM's
-`c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`, and the minibatch
-SVI-GPLVM's `c6_svi_bigN`.
+GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, MRD's `c3_mrd_twoview`, the
+DP-GP-LVM's `c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`, and the
+minibatch SVI-GPLVM's `c6_svi_bigN`.
 """
 from __future__ import annotations
 
@@ -51,6 +51,19 @@ CONFIGS: dict[str, ExperimentConfig] = {
         name="c2_sparse_oil", model="bgplvm", dataset="oil_flow",
         n=1000, d=12, q=10, m=50, steps=3000, lr=1e-2, ngd_lr=1.0,
     ),
+    # two views sharing 2 of 4 latent dims, the privates at half weight
+    # (`data/synthetic.two_view`): at 1 of 2 dims shared and 2000 steps
+    # MRD falls into the "independent encodings" optimum (each view in
+    # disjoint latent dims, cross-view ratio ~1.0). This recipe recovers
+    # the shared structure; the reference measured a cross-view MSE ratio
+    # of 0.645 under Adam and 0.621 with ngd_lr=1.0 (results/c3), against
+    # 0.485 for an exact GP given the held-out rows' true shared latents
+    # (results/mrd_ceiling.json). Non-convex: 3 restarts, best ELBO kept.
+    "c3_mrd_twoview": ExperimentConfig(
+        name="c3_mrd_twoview", model="mrd", dataset="two_view",
+        n=256, d=16, q=4, m=32, views=(8, 8), steps=8000, lr=2e-2,
+        restarts=3, ngd_lr=1.0,
+    ),
     "c4_dp_mocap": ExperimentConfig(
         name="c4_dp_mocap", model="dp_gp_lvm", dataset="mocap",
         n=1024, d=59, q=10, m=64, t=20, steps=8000, lr=3e-3, ngd_lr=1.0,
@@ -94,6 +107,20 @@ CHECKS: dict[str, dict[str, tuple[str, float] | list[tuple[str, float]]]] = {
     },
     "c2_sparse_oil": {
         "elbo": (">=", -9000.0),
+    },
+    # the reference's calibration runs: elbo -4087, ratio 0.645, pll/dim
+    # -1.100; the true-latent ceiling of the ratio is 0.485
+    "c3_mrd_twoview": {
+        "elbo": (">=", -4700.0),
+        # cross-view prediction must beat predicting the training mean
+        "cross_view_mse_ratio": ("<=", 0.70),
+        "cross_view_pll_per_dim": (">=", -1.3),
+        # shared/private structure: the weakest per-view ARD weight (the
+        # other view's private dim, generator truth 0) over the mean of
+        # the two strongest, max over views; flat relevance gives 1.0
+        "ard_cross_private_ratio": ("<=", 0.05),
+        # err^2 over the mean predictive variance
+        "calibration_ratio": [(">=", 0.2), ("<=", 5.0)],
     },
     "c4_dp_mocap": {
         "elbo": (">=", 7000.0),

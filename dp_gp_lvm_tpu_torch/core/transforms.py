@@ -30,3 +30,10 @@ def positive_variational_var(raw):
 def positive_inverse(value):
     """Inverse softplus: value + log(-expm1(-value)), exact for value > 0."""
     return value + torch.log(-torch.expm1(-value))
+
+
+def probability_simplex(logits, dim: int = -1):
+    """Unconstrained logits -> the simplex by softmax (assignment
+    posteriors)."""
+    e = torch.exp(logits - torch.amax(logits, dim=dim, keepdim=True))
+    return e / torch.sum(e, dim=dim, keepdim=True)

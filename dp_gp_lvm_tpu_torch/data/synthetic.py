@@ -1,9 +1,9 @@
 """Synthetic datasets (counterpart of `dp_gp_lvm_tpu/data/synthetic.py`):
-`toy_gplvm` (c1), `oil_flow_like` (c2), `mocap_like` (c4, c5, c6) and
-`pose_like` (c5_pose). Each takes a key of the reference's random stream
-(`core/prng.py`) and draws what the reference draws from it, in the same
-order, on the CPU; the result is moved to `device` (the card unless the
-caller says "cpu")."""
+`toy_gplvm` (c1), `oil_flow_like` (c2), `two_view` (c3), `mocap_like`
+(c4, c5, c6) and `pose_like` (c5_pose). Each takes a key of the
+reference's random stream (`core/prng.py`) and draws what the reference
+draws from it, in the same order, on the CPU; the result is moved to
+`device` (the card unless the caller says "cpu")."""
 from __future__ import annotations
 
 import math
@@ -53,6 +53,30 @@ def toy_gplvm(key, n: int = 100, d: int = 10, q_true: int = 2,
                      torch.zeros(q_total - q_true, dtype=dtype)])
     Y = _standardize(_gp_draws(r2, X, ard, d, noise))
     return Y.to(device), X.to(device)
+
+
+def two_view(key, n: int = 100, d1: int = 8, d2: int = 8,
+             q_shared: int = 1, q_private: int = 1, noise: float = 0.01,
+             dtype=torch.float64, private_weight: float = 1.0,
+             device=None):
+    """Config-3 data: two views sharing q_shared latent dims, each with its
+    own q_private dims, X = [shared, private 1, private 2]. Each view is a
+    GP draw whose ARD weights are 1 on the shared dims, `private_weight`
+    on its own private dims and 0 on the other view's, standardized over
+    the whole series. Returns (Y1, Y2, X) on `device` (the card unless the
+    caller says "cpu")."""
+    device = resolve_device(device)
+    r0, r1, r2 = prng.split(key, 3)
+    q = q_shared + 2 * q_private
+    X = prng.normal(r0, (n, q), dtype)
+    ones = torch.ones(q_shared, dtype=dtype)
+    own = private_weight * torch.ones(q_private, dtype=dtype)
+    off = torch.zeros(q_private, dtype=dtype)
+    Y1 = _standardize(_gp_draws(r1, X, torch.cat([ones, own, off]), d1,
+                                noise))
+    Y2 = _standardize(_gp_draws(r2, X, torch.cat([ones, off, own]), d2,
+                                noise))
+    return Y1.to(device), Y2.to(device), X.to(device)
 
 
 def oil_flow_like(key, n: int = 1000, d: int = 12, dtype=torch.float64,

@@ -73,3 +73,29 @@ def dp_kl_terms(phi, gamma1, gamma2, alpha, logits=None):
 def alpha_log_prior(alpha, a0: float = 1.0, b0: float = 1.0):
     """log Gamma(alpha | a0, b0) up to constants."""
     return (a0 - 1.0) * torch.log(alpha) - b0 * alpha
+
+
+def alpha_cavi_update(gamma1, gamma2, a0: float = 1.0, b0: float = 1.0):
+    """Variational mean of alpha under a Gamma(a0, b0) prior (Blei and
+    Jordan 2006): q(alpha) = Gamma(a0 + T - 1, b0 - sum_t E[log(1 - v_t)]),
+    one pseudo-count per stick."""
+    _, e_log_1mv = expected_log_sticks(gamma1, gamma2)
+    return (a0 + gamma1.shape[0]) / (b0 - torch.sum(e_log_1mv))
+
+
+def gamma_cavi_update(phi, alpha):
+    """Closed-form stick update, t = 1..T-1:
+    gamma_t1 = 1 + sum_d phi_dt, gamma_t2 = alpha + sum_d sum_{s>t} phi_ds.
+    """
+    counts = torch.sum(phi, dim=0)                          # (T,)
+    # rev_csum[t] = sum_{s >= t} counts_s; the tail starts one later
+    rev_csum = torch.flip(torch.cumsum(torch.flip(counts, (0,)), dim=0),
+                          (0,))
+    return 1.0 + counts[:-1], alpha + rev_csum[1:]
+
+
+def phi_cavi_update(per_dim_bound, gamma1, gamma2):
+    """Closed-form assignment update phi_dt ∝ exp(F_dt + E[log pi_t]) from
+    the (D, T) per-dimension, per-atom free energies."""
+    logits = per_dim_bound + expected_log_pi(gamma1, gamma2)[None, :]
+    return torch.softmax(logits, dim=-1)

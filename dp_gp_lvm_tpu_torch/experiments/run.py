@@ -1,11 +1,14 @@
 """Run a named config end to end (counterpart of `experiments/run.py` for
-the Bayesian GP-LVM, the DP-GP-LVM and the minibatch SVI-GPLVM): data ->
-init -> chunked training (restarts for the full-batch models, the SVI loop
-with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
+the Bayesian GP-LVM, MRD, the DP-GP-LVM and the minibatch SVI-GPLVM):
+data -> init -> chunked training (restarts for the full-batch models, the
+SVI loop with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
 `result.json`, a `params.npz`, and the committed regression gates with
 `--check`.
 
     python -m dp_gp_lvm_tpu_torch.experiments.run c4_dp_mocap --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c3_mrd_twoview --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c3_mrd_twoview \
+        --device cpu --f64 --n 64 --steps 40 --restarts 1
     python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --check
     python -m dp_gp_lvm_tpu_torch.experiments.run c5_dp_missing \\
         --device cpu --f64 --n 128 --steps 40
@@ -46,6 +49,7 @@ from dp_gp_lvm_tpu_torch.models import (
     bgplvm,
     dp_gp_lvm,
     eval_f64,
+    mrd,
     prediction,
     svi_gplvm,
 )
@@ -62,18 +66,27 @@ from dp_gp_lvm_tpu_torch.train.loop import (
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-MODELS = {"bgplvm": bgplvm, "dp_gp_lvm": dp_gp_lvm, "svi_gplvm": svi_gplvm}
+MODELS = {"bgplvm": bgplvm, "mrd": mrd, "dp_gp_lvm": dp_gp_lvm,
+          "svi_gplvm": svi_gplvm}
 SVI_BATCH = 1024        # rows a step of the SVI configs (the reference's)
 SVI_TEST_ROWS = 256     # held-out rows the SVI imputation metric reads
+MRD_PREDICT_STEPS = 400  # latent-inference steps of the cross-view metric
 
 
 def load_data(cfg, dtype, device):
     """(Y, source tag) of the config's dataset, drawn from the reference's
-    key `PRNGKey(cfg.seed)`. The oil-flow surrogate is drawn from key 0
-    whatever the config's seed, and at its fixed 1000 x 12, as the
-    reference's loader does without a data directory."""
+    key `PRNGKey(cfg.seed)`; Y is the tuple of views for MRD. The oil-flow
+    surrogate is drawn from key 0 whatever the config's seed, and at its
+    fixed 1000 x 12, as the reference's loader does without a data
+    directory."""
     kw = dict(dtype=dtype, device=device)
     key = prng.PRNGKey(cfg.seed)
+    if cfg.dataset == "two_view":
+        # the shared-dominant generator of c3's calibration
+        Y1, Y2, _ = synthetic.two_view(key, n=cfg.n, d1=cfg.views[0],
+                                       d2=cfg.views[1], q_shared=2,
+                                       private_weight=0.5, **kw)
+        return (Y1, Y2), "two_view"
     if cfg.dataset == "toy_gplvm":
         Y, _ = synthetic.toy_gplvm(key, n=cfg.n, d=cfg.d, q_true=2,
                                    q_total=cfg.q, **kw)
@@ -91,18 +104,69 @@ def load_data(cfg, dtype, device):
     raise ValueError(f"dataset {cfg.dataset!r} is not ported")
 
 
+def _holdout_rows(n: int):
+    """The row holdout of the missing-data and cross-view protocols: every
+    8th row is a test row. A boolean mask of the kept (training) rows."""
+    keep = np.ones(n, bool)
+    keep[7::8] = False
+    return keep
+
+
 def holdout_split(Y):
     """The missing-data protocol: every 8th row is held out (interpolation,
     not extrapolation), and both splits are standardized with the train
     split's statistics only (numpy, ddof 0, + 1e-8). numpy in, numpy out:
     (Y_train, Y_test)."""
     Y_all = np.asarray(Y)
-    keep = np.ones(Y_all.shape[0], bool)
-    keep[7::8] = False
+    keep = _holdout_rows(Y_all.shape[0])
     Y_train, Y_test = Y_all[keep], Y_all[~keep]
     mu = Y_train.mean(axis=0)
     sd = Y_train.std(axis=0) + 1e-8
     return (Y_train - mu) / sd, (Y_test - mu) / sd
+
+
+def ard_cross_private_ratio(rel) -> float:
+    """MRD's shared/private signature as one gateable scalar: per view, the
+    weakest ARD weight (the other view's private dim, which the generator
+    weights 0) over the mean of the two strongest (the shared dims), the
+    max over views. Truth on the two_view generator: 0; flat relevance: 1.
+    numpy float64."""
+    rel = np.asarray(rel, dtype=np.float64)
+    ratios = []
+    for row in rel:
+        w = np.sort(row)[::-1]
+        ratios.append(w[-1] / max(w[:2].mean(), 1e-30))
+    return float(max(ratios))
+
+
+def _cross_view(trained, Ys_train, Ys_test, mcfg, num_steps) -> dict:
+    """The cross-view metrics on the held-out rows: observe view 0, predict
+    view 1; the baseline predicts the training split's mean of view 1."""
+    Y1_test, Y2_test = Ys_test
+    t0 = time.perf_counter()
+    mean, var, *_ = prediction.predict_view_from_views(
+        trained, list(Ys_train), mcfg, observed={0: Y1_test}, target_view=1,
+        num_steps=num_steps)
+    if mean.is_cuda:
+        torch.cuda.synchronize(mean.device)
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        ones = torch.ones_like(Y2_test)
+        mse = float(torch.mean((mean - Y2_test) ** 2))
+        base = float(torch.mean((Ys_train[1].mean(dim=0) - Y2_test) ** 2))
+        pll = float(prediction.gaussian_predictive_loglik(
+            Y2_test, mean, var, ones) / ones.numel())
+        rel = mrd.ard_relevance(trained).cpu().numpy()
+    return {
+        "cross_view_mse": mse,
+        "cross_view_mse_baseline": base,
+        "cross_view_mse_ratio": mse / base,
+        "cross_view_pll_per_dim": pll,
+        "cross_view_seconds": round(seconds, 3),
+        "calibration_ratio": mse / float(torch.mean(var)),
+        "ard_relevance": [[round(float(a), 6) for a in row] for row in rel],
+        "ard_cross_private_ratio": ard_cross_private_ratio(rel),
+    }
 
 
 def ard_metrics(ard) -> dict:
@@ -156,6 +220,10 @@ def _model_config(cfg, batch):
     if cfg.model == "bgplvm":
         return bgplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                              psi2_block=cfg.psi2_block)
+    if cfg.model == "mrd":
+        return mrd.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                          num_views=len(cfg.views),
+                          psi2_block=cfg.psi2_block)
     if cfg.model == "dp_gp_lvm":
         return dp_gp_lvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                                 truncation=cfg.t, alpha=cfg.alpha,
@@ -319,9 +387,10 @@ def run(cfg, *, steps: int | None = None, device=None,
         impute_steps: int = 200, stream: bool = False) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
-    `data` replaces the config's dataset (Y before any holdout) and
-    `params` the first restart's initial parameters, both as numpy (for
-    example the JAX package's, to hold the two packages together). With
+    `data` replaces the config's dataset (Y before any holdout, a tuple of
+    views for MRD) and `params` the first restart's initial parameters,
+    both as numpy (for example the JAX package's, to hold the two packages
+    together). With
     `out`, `train.jsonl`, `result.json` and `params.npz` are written
     there. The SVI configs take `batch` (rows a step), `ckpt_every` and
     `resume` (checkpoints in `out/ckpt`), `stop_after` (stop the loop
@@ -329,7 +398,8 @@ def run(cfg, *, steps: int | None = None, device=None,
     (treat losses from that step on as NaN: the abort, exit 3) and
     `stream` (feed the minibatches from the host, `data/stream.py`: Y is
     written to `out/y_stream.f32`); `impute_steps` sizes the imputation's
-    latent inference."""
+    latent inference. MRD's cross-view prediction takes 400 inference
+    steps, the reference's."""
     device = resolve_device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
@@ -347,20 +417,32 @@ def run(cfg, *, steps: int | None = None, device=None,
         os.makedirs(out, exist_ok=True)
     logger = JsonlLogger(os.path.join(out, "train.jsonl") if out else None)
 
+    views = cfg.model == "mrd"
     if data is None:
         Y, tag = load_data(cfg, dtype, device)
     else:
-        Y, tag = torch.tensor(np.asarray(data), dtype=dtype,
-                              device=device), f"given:{cfg.dataset}"
+        def given(y):
+            return torch.tensor(np.asarray(y), dtype=dtype, device=device)
+
+        Y = tuple(map(given, data)) if views else given(data)
+        tag = f"given:{cfg.dataset}"
     mcfg = _model_config(cfg, batch)
-    imputing = cfg.model != "bgplvm" and cfg.missing_fraction > 0
+    imputing = cfg.model not in ("bgplvm", "mrd") and cfg.missing_fraction > 0
     if imputing:
         Y_train, Y_test = (torch.as_tensor(y, dtype=dtype, device=device)
                            for y in holdout_split(Y.cpu().numpy()))
         if svi:
             Y_test = Y_test[:SVI_TEST_ROWS]
+    elif views:
+        # the views were standardized over the whole series; the split
+        # keeps that scale (no re-standardization, unlike the imputation)
+        keep = torch.as_tensor(_holdout_rows(Y[0].shape[0]), device=device)
+        Y_train = tuple(y[keep] for y in Y)
+        Ys_test = tuple(y[~keep] for y in Y)
     else:
         Y_train = Y
+    # what a training step takes: each view, or the one Y
+    step_data = Y_train if views else (Y_train,)
 
     def init(r):
         if r == 0 and params is not None:
@@ -369,8 +451,8 @@ def run(cfg, *, steps: int | None = None, device=None,
         # reference does
         return model.init_params(prng.PRNGKey(cfg.seed + r), Y_train, mcfg)
 
-    def loss_fn(p, y):
-        return model.loss(p, y, mcfg)
+    def loss_fn(p, *ys):
+        return model.loss(p, list(ys) if views else ys[0], mcfg)
 
     print(f"[{cfg.name}] data={tag} model={cfg.model} steps={steps} "
           f"device={device}"
@@ -382,19 +464,23 @@ def run(cfg, *, steps: int | None = None, device=None,
     chunk = max(1, min(log_every, steps))
 
     def train_from(p0, label):
+        """(p0 trained in place, its optimizer, the last ELBO). The
+        optimizer holds the leaves flat (MRD's views too); the loss closes
+        over p0 itself."""
         opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr,
                            ard_lr=cfg.ard_lr, decay_steps=steps,
                            ngd_lr=ngd_lr)
-        multi_step = make_multi_step_fn(loss_fn, opt, chunk)
+        multi_step = make_multi_step_fn(lambda _, *d: loss_fn(p0, *d), opt,
+                                        chunk)
         done = 0
         while done < steps:
-            losses = multi_step(Y_train)
+            losses = multi_step(*step_data)
             done += chunk
             elbo_now = -float(losses[-1])
             logger.log(done - 1, elbo=elbo_now)
             print(f"  step {done - 1}{label}: elbo={elbo_now:.3f}",
                   flush=True)
-        return opt, elbo_now
+        return p0, opt, elbo_now
 
     extra, restart_elbos = {}, []
     if svi:
@@ -414,20 +500,25 @@ def run(cfg, *, steps: int | None = None, device=None,
         # non-convex models train from cfg.restarts init seeds; the best
         # final ELBO is kept
         t0 = time.perf_counter()
-        opt, best_elbo = train_from(init(0),
-                                    " [r0]" if cfg.restarts > 1 else "")
+        trained, opt, best_elbo = train_from(
+            init(0), " [r0]" if cfg.restarts > 1 else "")
         restart_elbos = [best_elbo]
         for r in range(1, cfg.restarts):
-            opt_r, elbo_r = train_from(init(r), f" [r{r}]")
+            p_r, opt_r, elbo_r = train_from(init(r), f" [r{r}]")
             restart_elbos.append(elbo_r)
             if elbo_r > best_elbo:
-                opt, best_elbo = opt_r, elbo_r
+                trained, opt, best_elbo = p_r, opt_r, elbo_r
         total = time.perf_counter() - t0
-        per_step = time_steps(make_step_fn(loss_fn, opt), (Y_train,), 10)
+        if cfg.restarts > 1:
+            print(f"[{cfg.name}] restart elbos: "
+                  f"{[round(e, 2) for e in restart_elbos]} -> best "
+                  f"{best_elbo:.2f}", flush=True)
+        per_step = time_steps(
+            make_step_fn(lambda _, *d: loss_fn(trained, *d), opt), step_data,
+            10)
         print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} "
               "ms/step", flush=True)
         logger.close()
-        trained = opt.params
         with torch.no_grad():
             terms = _scalar_terms(model.elbo_terms(trained, Y_train, mcfg))
     result = {"config": cfg.name, "data": tag, "steps": steps,
@@ -443,6 +534,15 @@ def run(cfg, *, steps: int | None = None, device=None,
         print(f"[{cfg.name}] ard={result['ard_weights']} "
               f"recall={result['ard_recall_top2']} "
               f"sep={result['ard_separation_ratio']:.1f}", flush=True)
+    if views:
+        result.update(_cross_view(trained, Y_train, Ys_test, mcfg,
+                                  MRD_PREDICT_STEPS))
+        print(f"[{cfg.name}] cross-view mse={result['cross_view_mse']:.4f} "
+              f"(baseline {result['cross_view_mse_baseline']:.4f}, ratio "
+              f"{result['cross_view_mse_ratio']:.3f}) "
+              f"pll={result['cross_view_pll_per_dim']:.4f} "
+              f"sig={result['ard_cross_private_ratio']:.4f} "
+              f"({result['cross_view_seconds']:.2f}s)", flush=True)
     if imputing:
         if svi:
             def impute_fn(y, mask):
@@ -458,10 +558,12 @@ def run(cfg, *, steps: int | None = None, device=None,
               f"({result['imputation_seconds']:.2f}s for "
               f"{result['imputation_rows']} rows)", flush=True)
     if out is not None:
-        # the SVI export is of the raw parameters, which its serving entry
-        # points take; the collapsed models export constrained values
+        # the SVI and MRD exports are of the raw parameters, which their
+        # serving entry points take; the other collapsed models export
+        # constrained values
         export_npz(os.path.join(out, "params.npz"),
-                   dict(trained) if svi else model.constrain(trained))
+                   dict(trained) if svi or views
+                   else model.constrain(trained))
         with open(os.path.join(out, "result.json"), "w") as fh:
             json.dump(result, fh, indent=2)
     print(json.dumps(result), flush=True)

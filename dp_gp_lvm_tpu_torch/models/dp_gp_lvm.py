@@ -114,23 +114,24 @@ def per_dim_atom_bound(hyp, Y, config: Config,
     with named_scope("kuu_gram"):
         kuu_b = dispatch.gram(variance, ard, z, kernel=config.kernel)
     with named_scope("psi_stats"):
-        p0_b = ard_rbf.psi0(variance, mu)
         if dispatch.resolve_fused(config.use_fused, config.kernel,
                                   mu.device, *z.shape[1:], Y.shape[1]):
             # one kernel gives Psi2 AND Psi1^T Y per atom; Psi1 never stored
+            p0_b = ard_rbf.psi0(variance, mu)
             p2_b, p1y_b = psi_ops.suffstats_batched_fused(
                 variance, ard, mu, s, z, Y, None, config.psi2_block or 64
             )
         else:
-            p1y, p2 = [], []
+            p0, p1y, p2 = [], [], []
             for t in range(z.shape[0]):
-                _, p1_t, p2_t = dispatch.psi_stats(
+                p0_t, p1_t, p2_t = dispatch.psi_stats(
                     variance[t], ard[t], mu, s, z[t],
                     block_n=config.psi2_block, kernel=config.kernel,
                 )
+                p0.append(p0_t)
                 p1y.append(p1_t.T @ Y)
                 p2.append(p2_t)
-            p1y_b, p2_b = torch.stack(p1y), torch.stack(p2)
+            p0_b, p1y_b, p2_b = (torch.stack(x) for x in (p0, p1y, p2))
     with named_scope("collapsed_bound"):
         stats = SuffStats(
             psi0=p0_b, psi1T_y=p1y_b, psi2=p2_b,
@@ -177,3 +178,37 @@ def elbo(params, Y, config: Config, policy: JitterPolicy = JitterPolicy()):
 
 def loss(params, Y, config: Config):
     return -elbo(params, Y, config)
+
+
+@torch.no_grad()
+def cavi_step(params, Y, config: Config,
+              policy: JitterPolicy = JitterPolicy()):
+    """Closed-form coordinate updates of (phi, gamma) (and alpha when it is
+    learned) at the other parameters held: a new params dict with
+    `phi_logits`, `raw_gamma1`, `raw_gamma2` (and `raw_alpha`) replaced by
+    their CAVI optima and every other leaf the same tensor, so an
+    optimizer over `params` still holds its own tensors. On the card the
+    per-atom bound is one K1 launch over every atom, and nothing is
+    differentiated."""
+    if Y.device.type == "cuda":
+        pin_full_f32()
+    hyp = constrain(params)
+    alpha = hyp.get("alpha", torch.tensor(config.alpha, dtype=Y.dtype,
+                                          device=Y.device))
+    f_td = per_dim_atom_bound(hyp, Y, config, policy)
+    phi = stick_breaking.phi_cavi_update(f_td.T, hyp["gamma1"],
+                                         hyp["gamma2"])
+    g1, g2 = stick_breaking.gamma_cavi_update(phi, alpha)
+    out = dict(params)
+    out["phi_logits"] = torch.log(torch.clamp(phi, min=1e-30))
+    out["raw_gamma1"] = positive_inverse(g1)
+    out["raw_gamma2"] = positive_inverse(g2)
+    if "raw_alpha" in params:
+        out["raw_alpha"] = positive_inverse(
+            stick_breaking.alpha_cavi_update(g1, g2))
+    return out
+
+
+def expected_assignments(params):
+    """phi (D, T): the posterior over output-dimension group assignments."""
+    return torch.softmax(params["phi_logits"], dim=-1)

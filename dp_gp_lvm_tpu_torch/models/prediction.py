@@ -1,5 +1,5 @@
-r"""Test-time latent inference and missing-data prediction (counterpart of
-`dp_gp_lvm_tpu/models/prediction.py`, without its MRD part).
+r"""Test-time latent inference, missing-data prediction and MRD's
+cross-view prediction (counterpart of `dp_gp_lvm_tpu/models/prediction.py`).
 
 Given a trained model and test points y* with only a subset of output dims
 observed (mask = 1 where observed):
@@ -17,12 +17,15 @@ observed (mask = 1 where observed):
 For DP-GP-LVM the cache carries a leading atom dim T and the predictions
 mix over atoms with the assignment posterior phi. Every function below is
 batch-polymorphic over that leading dim instead of vmapped: one
-broadcasting call serves the (T, N*, M, M) stack.
+broadcasting call serves the (T, N*, M, M) stack. For MRD there is one
+cache per view; the observed views' expected log-likelihoods fit the
+shared q(x*), and the target view's cache predicts from it.
 
 The posterior caches are built once per served model and go through the
-fused CUDA kernels on the card (K6 and K5 for the Bayesian GP-LVM, K1 for
-the DP stack). The per-request psi statistics of the test points are plain
-torch, as they are plain JAX outside any kernel in the reference.
+fused CUDA kernels on the card (K6 and K5 for the Bayesian GP-LVM and for
+each MRD view, K1 for the DP stack). The per-request psi statistics of
+the test points are plain torch, as they are plain JAX outside any kernel
+in the reference.
 """
 from __future__ import annotations
 
@@ -31,12 +34,16 @@ from typing import NamedTuple
 
 import torch
 
-from dp_gp_lvm_tpu_torch.core.transforms import positive, positive_inverse
+from dp_gp_lvm_tpu_torch.core.transforms import (
+    positive,
+    positive_inverse,
+    positive_variational_var,
+)
 from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
 from dp_gp_lvm_tpu_torch.distributions import gaussian
-from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf, linear
 from dp_gp_lvm_tpu_torch.linalg import tri_solve
-from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
+from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, mrd
 from dp_gp_lvm_tpu_torch.models.bound import (
     SuffStats,
     optimal_qu,
@@ -82,7 +89,17 @@ def bgplvm_posterior(params, Y, config: bgplvm.Config,
 def _test_psi(cache: PosteriorCache, m_star, s_star, kernel="ard_rbf"):
     """Per-point psi statistics of the test points (no sum over n):
     psi0* (..., N*), psi1* (..., N*, M), psi2* (..., N*, M, M)."""
-    dispatch._kernel(kernel)
+    if dispatch._kernel(kernel) is linear:
+        v, ard = cache.variance, cache.ard
+        p1 = linear.psi1(v, ard, m_star, s_star, cache.z)
+        # per point: sigma_f^4 (Z A) (m m^T + diag(s)) (Z A)^T
+        za = (cache.z * ard[..., None, :])[..., None, :, :]
+        second = (m_star[:, :, None] * m_star[:, None, :]
+                  + torch.diag_embed(s_star))
+        p2 = (v * v)[..., None, None, None] * ((za @ second) @ za.mT)
+        p0 = v[..., None] * torch.sum(
+            ard[..., None, :] * (m_star * m_star + s_star), dim=-1)
+        return p0, p1, p2
     p1 = ard_rbf.psi1(cache.variance, cache.ard, m_star, s_star, cache.z)
     # per-point psi2: the block formulation with each point its own block
     _, _, expo = ard_rbf._forward_pieces(
@@ -317,6 +334,148 @@ def impute_dp(params, Y, config: dp_gp_lvm.Config, y_star, mask,
                                       tol=tol)
     mean, var = dp_predict_from_latent(caches, phi, m_s, s_s,
                                        kernel=config.kernel)
+    return mean, var, m_s, s_s, trace
+
+
+# ---------------------------------------------------------------------------
+# MRD: infer the shared latent from the observed views, predict another
+# ---------------------------------------------------------------------------
+
+
+def _expected_loglik_per_point(cache: PosteriorCache, y, mask, m_star,
+                               s_star, kernel="ard_rbf"):
+    """(N*,) per-point sums of the expected log-likelihood: q(x*) factorizes
+    over test points, so each point's value scores its own restarts."""
+    return torch.sum(
+        _expected_loglik_terms(cache, y, m_star, s_star, kernel) * mask,
+        dim=-1)
+
+
+def init_latent_knn(qx_mean, Y, y_star, mask, k: int):
+    """(k, N*, Q) inits: the latent means of the k masked-nearest training
+    rows, nearest first (ties to the lower row, as `lax.top_k` breaks
+    them)."""
+    d2 = torch.sum(
+        mask[:, None, :] * (y_star[:, None, :] - Y[None, :, :]) ** 2, dim=-1
+    )  # (N*, N)
+    idx = torch.sort(d2, dim=-1, stable=True).indices[:, :k]     # (N*, k)
+    return qx_mean[idx].transpose(0, 1)
+
+
+@torch.no_grad()
+def mrd_posterior(params, Ys, config: mrd.Config,
+                  policy: JitterPolicy = JitterPolicy()):
+    """One PosteriorCache per view (a list: the views' D differ). On the
+    card each view's psi statistics are K6 and K5, one launch each."""
+    mu = params["qx_mean"]
+    s = positive_variational_var(params["raw_qx_var"])
+    caches = []
+    for vp, Y in zip(params["views"], Ys):
+        hyp = mrd.constrain_view(vp)
+        p0, p1, p2 = dispatch.psi_stats(
+            hyp["variance"], hyp["ard"], mu, s, hyp["z"],
+            block_n=config.psi2_block, use_fused=config.use_fused,
+            kernel=config.kernel,
+        )
+        kuu = dispatch.gram(hyp["variance"], hyp["ard"], hyp["z"],
+                            kernel=config.kernel)
+        stats = suff_stats_from_psi(p0, p1, p2, Y)
+        w, L, LB = optimal_qu(kuu, stats, hyp["noise"], policy)
+        caches.append(PosteriorCache(
+            w=w, L=L, LB=LB, variance=hyp["variance"], ard=hyp["ard"],
+            z=hyp["z"].detach(), noise=hyp["noise"],
+        ))
+    return caches
+
+
+def mrd_infer_latent(caches, observed: dict, m_init, num_steps: int = 200,
+                     lr: float = 0.05, kernel: str = "ard_rbf",
+                     tol: float | None = None, anneal: bool = False):
+    """Fit q(x*) from the observed views (`observed`: view index ->
+    (N*, D_v)). Returns (m*, s*, objective trace)."""
+    items = sorted(observed.items())
+
+    def objective(vp):
+        s = positive(vp["raw_s"])
+        ell = 0.0
+        for v_idx, y in items:
+            ell = ell + _expected_loglik(caches[v_idx], y,
+                                         torch.ones_like(y), vp["m"], s,
+                                         kernel)
+        return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
+
+    vp, trace, _ = _fit_variational(
+        objective, _latent_var_params(m_init, m_init.dtype), num_steps, lr,
+        tol, anneal=anneal)
+    return vp["m"], positive(vp["raw_s"]), -trace
+
+
+def _per_point_objective(caches, items, m, s, kernel):
+    """(N*,) separable test-time ELBO: sum_v ELL_v(n) - KL(n)."""
+    ell = 0.0
+    for v_idx, y in items:
+        ell = ell + _expected_loglik_per_point(caches[v_idx], y,
+                                               torch.ones_like(y), m, s,
+                                               kernel)
+    kl = 0.5 * torch.sum(m * m + s - torch.log(s) - 1.0, dim=-1)
+    return ell - kl
+
+
+def mrd_infer_latent_restarts(caches, observed: dict, m_inits,
+                              num_steps: int = 200, lr: float = 0.05,
+                              kernel: str = "ard_rbf",
+                              tol: float | None = None,
+                              anneal: bool = False):
+    """Latent inference from each of the (K, N*, Q) `m_inits`, the best
+    restart kept per point by its own test-time ELBO (the joint objective
+    is separable over points). Returns (m (N*, Q), s (N*, Q),
+    per-point objective (N*,))."""
+    items = sorted(observed.items())
+    ms, ss, objs = [], [], []
+    for k in range(m_inits.shape[0]):
+        m_k, s_k, _ = mrd_infer_latent(caches, observed, m_inits[k],
+                                       num_steps, lr, kernel, tol,
+                                       anneal=anneal)
+        with torch.no_grad():
+            objs.append(_per_point_objective(caches, items, m_k, s_k,
+                                             kernel))
+        ms.append(m_k)
+        ss.append(s_k)
+    ms, ss, objs = torch.stack(ms), torch.stack(ss), torch.stack(objs)
+    best = torch.argmax(objs, dim=0)                     # (N*,)
+    n_idx = torch.arange(ms.shape[1], device=ms.device)
+    return ms[best, n_idx], ss[best, n_idx], objs[best, n_idx]
+
+
+def predict_view_from_views(params, Ys, config: mrd.Config, observed: dict,
+                            target_view: int, num_steps: int = 200,
+                            lr: float = 0.05, tol: float | None = None,
+                            restarts: int = 0, anneal: bool = False):
+    """MRD cross-view prediction: observe some views of new points, infer
+    the shared q(x*), and predict the target view's mean and variance.
+    The inference starts from the nearest training row in the first
+    observed view; restarts=K > 0 runs K + 1 inferences (the K nearest
+    rows' latents and the prior mean) and keeps the best per point.
+    anneal cosine-decays the inner Adam rate.
+    Returns (mean, var, m*, s*, trace)."""
+    caches = mrd_posterior(params, Ys, config)
+    qx_mean = params["qx_mean"].detach()
+    v0, y0 = sorted(observed.items())[0]
+    ones = torch.ones_like(y0)
+    if restarts > 0:
+        m_knn = init_latent_knn(qx_mean, Ys[v0], y0, ones, restarts)
+        m_inits = torch.cat([m_knn, torch.zeros_like(m_knn[:1])], dim=0)
+        m_s, s_s, trace = mrd_infer_latent_restarts(
+            caches, observed, m_inits, num_steps, lr, kernel=config.kernel,
+            tol=tol, anneal=anneal)
+    else:
+        m0 = init_latent_from_nearest(qx_mean, Ys[v0], y0, ones)
+        m_s, s_s, trace = mrd_infer_latent(
+            caches, observed, m0, num_steps, lr, kernel=config.kernel,
+            tol=tol, anneal=anneal)
+    with torch.no_grad():
+        mean, var = predict_from_latent(caches[target_view], m_s, s_s,
+                                        kernel=config.kernel)
     return mean, var, m_s, s_s, trace
 
 

@@ -1,6 +1,7 @@
 """Build-once serving closures for trained models (counterpart of
-`dp_gp_lvm_tpu/models/serving.py`; its other five factories are not ported
-yet).
+`dp_gp_lvm_tpu/models/serving.py`: the Bayesian GP-LVM's and the
+DP-GP-LVM's imputers and MRD's cross-view predictor; its other four
+factories are not ported yet).
 
 Serving means repeated missing-data imputation against a FIXED trained
 model. A factory does all the train-data-dependent work once (the
@@ -19,7 +20,7 @@ from typing import Callable
 import torch
 
 from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
-from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, prediction
+from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, mrd, prediction
 
 # tol="auto" serves a batch of at most TOL_MAX_BATCH rows with early
 # stopping and a larger one with the fixed unroll. The crossover is
@@ -48,6 +49,15 @@ def _on_device(params, Y, device):
         pin_full_f32()
     return ({k: v.detach().to(device) for k, v in params.items()},
             Y.to(device), device)
+
+
+def _mrd_on_device(params, Ys, device):
+    """MRD's parameters (with their `views` list) and views on `device`."""
+    top = {k: v for k, v in params.items() if k != "views"}
+    top, _, device = _on_device(top, Ys[0], device)
+    top["views"] = [{k: v.detach().to(device) for k, v in vp.items()}
+                    for vp in params["views"]]
+    return top, [Y.to(device) for Y in Ys], device
 
 
 def make_bgplvm_imputer(params, Y, config: bgplvm.Config,
@@ -97,3 +107,32 @@ def make_dp_imputer(params, Y, config: dp_gp_lvm.Config,
                                                      kernel=config.kernel)
 
     return impute
+
+
+def make_mrd_cross_view_predictor(params, Ys, config: mrd.Config,
+                                  observed_view: int, target_view: int,
+                                  num_steps: int = 150, lr: float = 0.05,
+                                  tol: float | str | None = "auto",
+                                  device=None) -> Callable:
+    """Returns `predict(y_observed_view) -> (mean, var)` of the target view
+    on `device` (the card unless the caller says "cpu"). The per-view
+    posterior caches are built once; tol="auto" picks the latent-inference
+    mode per batch size."""
+    params, Ys, device = _mrd_on_device(params, Ys, device)
+    caches = prediction.mrd_posterior(params, Ys, config)
+    qx_mean = params["qx_mean"]
+    Y_obs_train = Ys[observed_view]
+
+    def predict(y_obs):
+        y_obs = y_obs.to(device)
+        t, steps = _resolve(tol, num_steps, y_obs.shape[0])
+        m0 = prediction.init_latent_from_nearest(
+            qx_mean, Y_obs_train, y_obs, torch.ones_like(y_obs))
+        m_s, s_s, _ = prediction.mrd_infer_latent(
+            caches, {observed_view: y_obs}, m0, steps, lr,
+            kernel=config.kernel, tol=t)
+        with torch.no_grad():
+            return prediction.predict_from_latent(
+                caches[target_view], m_s, s_s, kernel=config.kernel)
+
+    return predict

@@ -1,18 +1,21 @@
 """Kernel and psi-statistic dispatch (counterpart of
 `dp_gp_lvm_tpu/ops/dispatch.py`).
 
-Only the ARD-RBF kernel is ported. `use_fused` (True | False | "auto")
-takes the meaning of the reference's `use_pallas`: "auto" takes the fused
-CUDA kernels (`ops/psi.py`) for tensors on the card where every kernel of
-the path takes the shape (`psi.fused_fits`: M <= 128, blocks that fit an
-SM), and the non-fused plain path otherwise. The reference's M >= 96 and
-5e8 cut-overs were measured against XLA on a TPU and are not carried over.
+Two kernels: "ard_rbf" and "linear". `use_fused` (True | False |
+"auto") takes the meaning of the reference's `use_pallas`: "auto" takes
+the fused CUDA kernels (`ops/psi.py`) for tensors on the card where every
+kernel of the path takes the shape (`psi.fused_fits`: M <= 128, blocks
+that fit an SM), and the non-fused plain path otherwise. The reference's
+M >= 96 and 5e8 cut-overs were measured against XLA on a TPU and are not
+carried over. The linear kernel's psi statistics are plain matrix
+products (`kernels/linear.py`): no CUDA kernel takes them, whatever
+`use_fused` says.
 """
 from __future__ import annotations
 
 import torch
 
-from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf, linear
 from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
     psi1_weighted,
     psi2_analytic,
@@ -20,12 +23,12 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
 from dp_gp_lvm_tpu_torch.models.bound import SuffStats, suff_stats_from_psi
 from dp_gp_lvm_tpu_torch.ops import psi as psi_ops
 
-KERNELS = {"ard_rbf": ard_rbf}
+KERNELS = {"ard_rbf": ard_rbf, "linear": linear}
 
 
 def _kernel(kernel: str):
     if kernel not in KERNELS:
-        raise ValueError(f"kernel {kernel!r} is not ported")
+        raise ValueError(f"unknown kernel {kernel!r}")
     return KERNELS[kernel]
 
 
@@ -44,14 +47,17 @@ def observed_psi(variance, ard, X, Z, kernel: str = "ard_rbf"):
 
 
 def psi0(variance, ard, mu, s, weights=None, kernel: str = "ard_rbf"):
-    _kernel(kernel)
+    if _kernel(kernel) is linear:
+        return linear.psi0(variance, ard, mu, s, weights)
     return ard_rbf.psi0(variance, mu, weights)
 
 
 def expected_gram_diag(variance, ard, mu, s, kernel: str = "ard_rbf"):
     """Per-row expected kernel diagonal E_q(x_n)[k(x_n, x_n)], (N,): the
-    constant signal variance for the RBF."""
-    _kernel(kernel)
+    constant signal variance for the RBF, the latent second moment's
+    weighted sum for the linear kernel."""
+    if _kernel(kernel) is linear:
+        return variance * torch.sum(ard[None, :] * (mu * mu + s), dim=-1)
     return variance * torch.ones(mu.shape[0], dtype=mu.dtype,
                                  device=mu.device)
 
@@ -62,7 +68,8 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
     hand-derived backward. Fused: K6 and K5 forward (`ops/psi.py`).
     `use_fused` defaults to False as the reference's `use_pallas` does
     here; the model configs pass their own "auto"."""
-    _kernel(kernel)
+    if _kernel(kernel) is linear:
+        return linear.psi_stats(variance, ard, mu, s, Z, weights, block_n)
     p0 = ard_rbf.psi0(variance, mu, weights)
     if not resolve_fused(use_fused, kernel, mu.device, *Z.shape):
         return (
@@ -98,12 +105,12 @@ def psi2_batched(variance, ard, mu, s, Zs, weights=None, block_n=None,
                  use_fused="auto", kernel: str = "ard_rbf"):
     """Per-atom Psi2 stack (T, M, M): K4 with the K2 pullback when fused,
     else the non-fused path atom by atom."""
-    _kernel(kernel)
     if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:]):
         return psi_ops.psi2_batched_fused(variance, ard, mu, s, Zs, weights,
                                           block_n or 64)
+    psi2 = linear.psi2 if _kernel(kernel) is linear else psi2_analytic
     return torch.stack([
-        psi2_analytic(variance[t], ard[t], mu, s, Zs[t], weights, block_n)
+        psi2(variance[t], ard[t], mu, s, Zs[t], weights, block_n)
         for t in range(Zs.shape[0])
     ])
 
@@ -115,11 +122,20 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
     (psi0 (T,), psi1T_y (T, M, D), psi2 (T, M, M), yty (D,), n)."""
     _kernel(kernel)
     Yw = Y if weights is None else Y * weights[:, None]
+    p0 = ard_rbf.psi0(variance, mu, weights)
     if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:],
                      Y.shape[1]):
         p2, p1y = psi_ops.suffstats_batched_fused(
             variance, ard, mu, s, Zs, Y, weights, block_n or 64
         )
+    elif kernel != "ard_rbf":
+        # any other kernel atom by atom through its own psi statistics
+        per_atom = [psi_stats(variance[t], ard[t], mu, s, Zs[t], weights,
+                              block_n, kernel=kernel)
+                    for t in range(Zs.shape[0])]
+        p0 = torch.stack([p0_t for p0_t, _, _ in per_atom])
+        p1y = torch.stack([p1_t.T @ Y for _, p1_t, _ in per_atom])
+        p2 = torch.stack([p2_t for _, _, p2_t in per_atom])
     else:
         p2 = torch.stack([
             psi2_analytic(variance[t], ard[t], mu, s, Zs[t], weights,
@@ -130,7 +146,6 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
             psi1_weighted(variance[t], ard[t], mu, s, Zs[t], None).T @ Yw
             for t in range(Zs.shape[0])
         ])
-    p0 = ard_rbf.psi0(variance, mu, weights)
     n_eff = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
              if weights is None else torch.sum(weights))
     return p0, p1y, p2, torch.sum(Y * Yw, dim=0), n_eff

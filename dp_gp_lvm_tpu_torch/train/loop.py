@@ -139,6 +139,27 @@ def ngd_precondition(grads, params):
     }
 
 
+def flat_leaves(params) -> dict:
+    """{name: tensor} over `params`, MRD's `views` list of per-view dicts
+    flattened as `views.{i}.{key}` over the same tensors. A loss over the
+    nested dict closes over it; the optimizer takes the flat one."""
+    leaves = {}
+    for k, v in params.items():
+        if k == "views":
+            for i, view in enumerate(v):
+                for kk, vv in view.items():
+                    leaves[f"views.{i}.{kk}"] = vv
+        else:
+            leaves[k] = v
+    return leaves
+
+
+def leaf_name(path: str) -> str:
+    """The parameter's own key of a `flat_leaves` name: `raw_ard` of
+    `views.1.raw_ard`."""
+    return path.rsplit(".", 1)[-1]
+
+
 def global_norm(grads) -> torch.Tensor:
     """optax.global_norm of a dict of tensors."""
     return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
@@ -263,7 +284,10 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
     decay_steps a warmup-cosine (default warmup min(2000, decay_steps //
     10)), without it a linear ramp (default 2000 steps), then constant.
     `freeze` leaves get a zero update; `slow` leaves move at the hyper
-    rate. The NGD group is dropped when no leaf carries its label.
+    rate. The NGD group is dropped when no leaf carries its label. MRD's
+    per-view leaves are labelled by their own key, as the reference
+    labels its `views` subtree; the optimizer holds them flat
+    (`flat_leaves`).
     """
     hyper_lr = lr / 10.0 if hyper_lr is None else hyper_lr
     lr_rate, hyper_rate, ngd_rate, ard_rate = lr, hyper_lr, ngd_lr, None
@@ -298,13 +322,14 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
             return "ngd"
         return "var"
 
-    labels = {k: label(k) for k in params}
+    leaves = flat_leaves(params)
+    labels = {k: label(leaf_name(k)) for k in leaves}
     rates = {"hyper": hyper_rate, "var": lr_rate}
     if ard_lr is not None:
         rates["ard"] = ard_rate
     if "ngd" in labels.values():
         rates["ngd"] = ngd_rate
-    return GPOptimizer(params, labels, rates, clip, skip_nonfinite)
+    return GPOptimizer(leaves, labels, rates, clip, skip_nonfinite)
 
 
 @dataclasses.dataclass

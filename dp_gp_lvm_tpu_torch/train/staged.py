@@ -16,23 +16,12 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-from dp_gp_lvm_tpu_torch.train.loop import GPOptimizer, make_step_fn
-
-
-def _flat_leaves(params, trainable):
-    """({key: tensor}, {key: "var" | "frozen"}) over `params`, MRD's
-    `views` list of sub-dicts masked key by key."""
-    leaves, labels = {}, {}
-    for k, v in params.items():
-        if k == "views":
-            for i, view in enumerate(v):
-                for kk, vv in view.items():
-                    leaves[f"views.{i}.{kk}"] = vv
-                    labels[f"views.{i}.{kk}"] = ("var" if trainable(kk)
-                                                 else "frozen")
-        else:
-            leaves[k], labels[k] = v, "var" if trainable(k) else "frozen"
-    return leaves, labels
+from dp_gp_lvm_tpu_torch.train.loop import (
+    GPOptimizer,
+    flat_leaves,
+    leaf_name,
+    make_step_fn,
+)
 
 
 def masked_optimizer(lr: float, params, trainable: Callable[[str], bool],
@@ -40,7 +29,9 @@ def masked_optimizer(lr: float, params, trainable: Callable[[str], bool],
     """Adam at `lr` over the parameters `trainable` selects, after a
     global-norm clip over all of them; the rest held. It updates the
     tensors of `params` in place."""
-    leaves, labels = _flat_leaves(params, trainable)
+    leaves = flat_leaves(params)
+    labels = {k: "var" if trainable(leaf_name(k)) else "frozen"
+              for k in leaves}
     return GPOptimizer(leaves, labels, {"var": lr}, clip=clip,
                        skip_nonfinite=0)
 

@@ -26,8 +26,11 @@ C1 = dict(T=1, N=100, M=20, Q=6, D=10)
 C5_POSE = dict(T=12, N=448, M=48, Q=8, D=32)
 # c6_svi_bigN's minibatch: K1 and K2 at T = 1 through dispatch.suff_stats
 C6 = dict(T=1, N=1024, M=64, Q=8, D=32)
-SHAPES = [TINY, C2, C1, C5_POSE]
-SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose"]
+# c3_mrd_twoview, one view: its 224 training rows, M below the 4 x 4
+# tiles' sweet spot and Q = 4 (the generic instantiations)
+C3 = dict(T=1, N=224, M=32, Q=4, D=8)
+SHAPES = [TINY, C2, C1, C5_POSE, C3]
+SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose", "c3"]
 TOL_K1, TOL_K2 = 1e-4, 5e-4   # scaled by max|ref|, as in chip_smoke.py
 
 
@@ -499,10 +502,12 @@ def test_auto_asks_the_kernels_occupancy_queries(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [C1, C5_POSE], ids=["c1", "c5_pose"])
+@pytest.mark.parametrize("shape", [C1, C5_POSE, C3],
+                         ids=["c1", "c5_pose", "c3"])
 def test_auto_takes_the_kernels_at_the_gated_shapes(card, shape):
-    """"auto" takes the kernels at c1's and c5_pose's widths: the Psi2-only
-    path (D = 0: K6, K5, K2) and the DP path (K1, K2)."""
+    """"auto" takes the kernels at c1's, c5_pose's and c3's widths: the
+    Psi2-only path (D = 0: K6, K5, K2; c3's posterior build) and the
+    suff-stats path (K1, K2; the DP models and each MRD view)."""
     from dp_gp_lvm_tpu_torch.ops import dispatch
 
     M_, Q_, D_ = shape["M"], shape["Q"], shape["D"]
@@ -619,6 +624,71 @@ def test_suff_stats_on_card_equals_the_plain_f64_path(card):
                               leaves64)
     assert max(_scaled_errors(g32, g64)) <= TOL_K2
     assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_bwd_batched=1)
+
+
+def _mrd_setup(card, dtype):
+    """c3's widths on a two_view draw: 224 rows, two views of 8 dims."""
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.models import mrd
+
+    Y1, Y2, _ = synthetic.two_view(prng.PRNGKey(0), n=C3["N"], d1=C3["D"],
+                                   d2=C3["D"], q_shared=2,
+                                   private_weight=0.5, dtype=dtype,
+                                   device=card)
+    cfg = mrd.Config(num_latent=C3["Q"], num_inducing=C3["M"], num_views=2)
+    return [Y1, Y2], mrd.init_params(prng.PRNGKey(0), [Y1, Y2], cfg), cfg
+
+
+@pytest.mark.cuda
+def test_mrd_loss_and_gradient_fused_match_plain_on_card(card):
+    """MRD at c3's widths: each view's K1 forward and K2 backward, value and
+    every leaf's gradient against the plain path in f64 at the same
+    jitter."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import mrd
+    from dp_gp_lvm_tpu_torch.train.loop import flat_leaves
+
+    Ys, params, cfg = _mrd_setup(card, torch.float32)
+    leaves = flat_leaves(params)
+    p64 = {"qx_mean": params["qx_mean"].detach().double().requires_grad_(),
+           "raw_qx_var": params["raw_qx_var"].detach().double()
+           .requires_grad_(),
+           "views": [{k: v.detach().double().requires_grad_()
+                      for k, v in view.items()}
+                     for view in params["views"]]}
+    same_jitter = JitterPolicy(
+        initial=JitterPolicy().initial_for(torch.float32))
+    psi.reset_launch_counts()
+    loss32 = mrd.loss(params, Ys, cfg)
+    g32 = torch.autograd.grad(loss32, list(leaves.values()))
+    assert psi.LAUNCHES == _launched(suffstats_batched=2, psi2_bwd_batched=2)
+    loss64 = -mrd.elbo(p64, [y.double() for y in Ys],
+                       cfg._replace(use_fused=False), same_jitter)
+    g64 = torch.autograd.grad(loss64, list(flat_leaves(p64).values()))
+    assert abs(float(loss32) - float(loss64)) <= 1e-4 * abs(float(loss64))
+    assert max(_scaled_errors(g32, g64)) <= 5e-3   # chip_smoke's TOL_GRAD
+
+
+@pytest.mark.cuda
+def test_mrd_cross_view_predictor_defaults_to_the_card(card):
+    """Given CPU tensors and no device, the server builds its two caches on
+    the card (K6 and K5 once per view) and answers there."""
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    Ys, params, cfg = _mrd_setup(card, torch.float32)
+    cpu = {"qx_mean": params["qx_mean"].detach().cpu(),
+           "raw_qx_var": params["raw_qx_var"].detach().cpu(),
+           "views": [{k: v.detach().cpu() for k, v in view.items()}
+                     for view in params["views"]]}
+    psi.reset_launch_counts()
+    predict = serving.make_mrd_cross_view_predictor(
+        cpu, [y.cpu() for y in Ys], cfg, observed_view=0, target_view=1,
+        num_steps=20)
+    assert psi.LAUNCHES == _launched(psi1=2, psi2_single=2)
+    mean, var = predict(Ys[0][:8].cpu())
+    assert mean.device.type == var.device.type == "cuda"
+    assert mean.shape == var.shape == (8, C3["D"])
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
 
 
 def _svi_setup(card, n=2048, batch=1024):

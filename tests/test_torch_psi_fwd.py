@@ -222,10 +222,20 @@ def test_dispatch_psi2_batched_matches_jax(use_fused):
 
 
 def test_psi_stats_refuses_the_linear_kernel():
-    t = _t(_single(_inputs(11, False)))
-    with pytest.raises(ValueError, match="not ported"):
+    """No fused kernel takes the linear kernel: asked for the fused path,
+    psi_stats gives the linear kernel's plain statistics, the reference's
+    dispatch; a kernel neither package has is refused."""
+    a = _single(_inputs(11, True))
+    j, t = _j(a), _t(a)
+    want = jdispatch.psi_stats(j["v"], j["ard"], j["mu"], j["s"], j["Z"],
+                               j["w"], kernel="linear")
+    got = dispatch.psi_stats(t["v"], t["ard"], t["mu"], t["s"], t["Z"],
+                             t["w"], use_fused=True, kernel="linear")
+    for g, w in zip(got, want):
+        _close(g, w)
+    with pytest.raises(ValueError, match="unknown kernel"):
         dispatch.psi_stats(t["v"], t["ard"], t["mu"], t["s"], t["Z"],
-                           kernel="linear")
+                           kernel="matern")
 
 
 def test_new_wrappers_reject_a_tensor_off_cpu_and_cuda():

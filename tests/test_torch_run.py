@@ -2,8 +2,10 @@
 on the CPU: the configs and gates (`core/config.py`), `evaluate_checks`
 on crafted results and on the committed artifacts, `pose_like`'s
 deterministic part, the missing-data holdout, the ARD metrics,
-`JsonlLogger`, and `experiments/run.py` end to end at tiny f64 widths."""
+`JsonlLogger`, and `experiments/run.py` end to end at tiny f64 widths
+(c3 on the reference runner's own data and first init)."""
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -17,16 +19,19 @@ import torch
 
 from dp_gp_lvm_tpu.core import config as jconfig
 from dp_gp_lvm_tpu.data import synthetic as jsyn
+from dp_gp_lvm_tpu.models import mrd as jmrd
 from dp_gp_lvm_tpu.train import logging as jlogging
 from dp_gp_lvm_tpu_torch.core import config, prng
 from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.experiments import run as runner
+from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
-             "c4_dp_mocap": "c4", "c5_dp_missing": "c5",
-             "c5_pose_missing": "c5_pose", "c6_svi_bigN": "c6"}
+             "c3_mrd_twoview": "c3", "c4_dp_mocap": "c4",
+             "c5_dp_missing": "c5", "c5_pose_missing": "c5_pose",
+             "c6_svi_bigN": "c6"}
 
 
 @pytest.fixture(autouse=True)
@@ -51,7 +56,7 @@ def test_configs_and_gates_are_the_references():
         assert config.CHECKS[name] == jconfig.CHECKS[name]
     assert set(config.CHECKS) == set(ARTIFACTS)
     with pytest.raises(KeyError, match="unknown config"):
-        config.get("c3_mrd_twoview")
+        config.get("c7_dp_svi")
 
 
 CRAFTED = {
@@ -273,3 +278,58 @@ def test_f64_is_refused_on_the_card():
     cfg = config.get("c4_dp_mocap")
     with pytest.raises(ValueError, match="float32 only"):
         runner.run(cfg, steps=1, device="cuda", dtype=torch.float64)
+
+
+def _reference_runner():
+    """The reference's experiments/run.py as a module (its imports of JAX
+    are inside main)."""
+    spec = importlib.util.spec_from_file_location(
+        "reference_run", ROOT / "experiments" / "run.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_c3_run_on_the_references_data_and_init(tmp_path):
+    """c3 at n=48 (42 training rows, every 8th of the 48 held out) for a
+    few steps of its three restarts, f64, given the reference runner's
+    draw and first init (experiments/run.py:168-181, 237-242)."""
+    cfg = dataclasses.replace(config.get("c3_mrd_twoview"), n=48)
+    mcfg = jmrd.Config(num_latent=cfg.q, num_inducing=cfg.m, num_views=2)
+
+    @jax.jit
+    def reference(key):
+        Y1, Y2, _ = jsyn.two_view(key, n=cfg.n, d1=8, d2=8, q_shared=2,
+                                  private_weight=0.5, dtype=jnp.float64)
+        keep = np.flatnonzero(np.arange(cfg.n) % 8 != 7)
+        return (Y1, Y2), jmrd.init_params(key, [Y1[keep], Y2[keep]], mcfg)
+
+    views, init = jax.tree.map(np.asarray, reference(jax.random.PRNGKey(0)))
+    result = runner.run(cfg, steps=4, device="cpu", dtype=torch.float64,
+                        data=views, params=init, out=str(tmp_path),
+                        log_every=2)
+    assert set(result) == set(_artifact("c3_mrd_twoview"))
+    assert result["data"] == "given:two_view"
+    assert len(result["restart_elbos"]) == 3
+    assert config.evaluate_checks("", result) == []     # finite throughout
+    for key in config.CHECKS["c3_mrd_twoview"]:
+        assert math.isfinite(result[key]), key
+    # the holdout: rows 7, 15, ... are test rows, and keep the scale of the
+    # whole series (the baseline predicts the training mean of view 1)
+    test = np.arange(cfg.n) % 8 == 7
+    Y2 = views[1]
+    base = np.mean((Y2[~test].mean(axis=0) - Y2[test]) ** 2)
+    np.testing.assert_allclose(result["cross_view_mse_baseline"], base,
+                               rtol=1e-12)
+    # the raw parameters are exported, views included, and their ARD
+    # weights give the result's signature by the reference's function
+    exported = load_npz(str(tmp_path / "params.npz"))
+    assert {"qx_mean", "raw_qx_var", "views/0/z", "views/1/raw_ard"} <= set(
+        exported)
+    rel = np.logaddexp(0.0, np.stack([exported[f"views/{i}/raw_ard"]
+                                      for i in range(2)]))
+    np.testing.assert_allclose(result["ard_relevance"], rel, atol=1e-6)
+    want = _reference_runner().ard_cross_private_ratio(rel)
+    assert runner.ard_cross_private_ratio(rel) == want
+    np.testing.assert_allclose(result["ard_cross_private_ratio"], want,
+                               rtol=1e-12)
