@@ -93,6 +93,22 @@ imputation servers built on them. Phases, each printing one JSON line:
          streamed beside the svi phase's resident one, how long
          next_chunk() waited for the gather a chunk against the chunk's
          time, the copy of a chunk to the card, and host syncs a step
+  dp_svi the runner trains c7_dp_svi (the minibatch DP-GP-LVM) at full
+         width, N=131072 in four planted groups and 2048 rows a step,
+         through its staged recipe for 250 steps (chunks of 125: stage 1
+         at T = 1, the 50-step warmup, stage 2b, stage 2c at T = 8; 425
+         steps in all): every step must launch K1 and K2 once (the blend
+         reuses the gradient pass's statistics), checked stage by stage,
+         plus K1 once over every row at T = 1 (the residual ladder) and
+         once at T = 8 (the ELBO); each kernel is held against f64 on the
+         first inputs the run gave it at each shape (K2 on the first with
+         a nonzero cotangent) and timed there (device ms, bound, plain
+         ms); the six c7 metrics are printed (gates not held at this
+         depth) and must be finite; host syncs and ms of a T = 8 step
+         (sync debug mode, 8192 rows); make_dp_svi_imputer on the run's
+         parameters (its build launches nothing: the prediction's psi
+         statistics are plain) answers batches 1, 32, 512, and its f32
+         predictive at a fixed q(x*) is held against f64
   sgpr   SGPR's bound and predictive and the exact GP's marginal and
          predictive at toy widths (N=200, M=10), f32 on the card against
          f64 on the CPU at the same jitter; also reported, not held, at
@@ -1568,16 +1584,35 @@ def _c6_indices(torch, n, count, batch=1024):
                         (batch,), 0, n).long().cuda()
 
 
-def _host_syncs_per_step(torch, cfg, steps=5, streaming=False):
-    """Host syncs of a c6 natural-gradient step as PyTorch's sync debug
-    mode reports them (the synchronizing calls PyTorch makes; a library's
-    own synchronization inside a call is not seen), over `steps` steps
-    after two warm-up steps, at c6's widths on a 4096-row draw, resident
-    or streamed (the rows gathered before the window); with the source
-    lines that made them."""
+def _syncs_per_step(torch, step, args):
+    """Host syncs a step as PyTorch's sync debug mode reports them (the
+    synchronizing calls PyTorch makes; a library's own synchronization
+    inside a call is not seen) over the calls `step(*a)` for a in `args`,
+    with the source lines that made them. The mode's one-time notice that
+    it is a prototype is not a sync and is not counted."""
     import os
     import warnings
 
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for a in args:
+                step(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    n = len(args)
+    return len(sites) / n, {s: sites.count(s) / n for s in sorted(set(sites))}
+
+
+def _host_syncs_per_step(torch, cfg, steps=5, streaming=False):
+    """Host syncs of a c6 natural-gradient step (`_syncs_per_step`) over
+    `steps` steps after two warm-up steps, at c6's widths on a 4096-row
+    draw, resident or streamed (the rows gathered before the window)."""
     Y, step, _ = _c6_step(torch, cfg, streaming)
     idx = _c6_indices(torch, Y.shape[0], 2 + steps)
     if streaming:
@@ -1587,19 +1622,7 @@ def _host_syncs_per_step(torch, cfg, steps=5, streaming=False):
         args = [(t, idx[t], Y) for t in range(2 + steps)]
     for a in args[:2]:
         step(*a)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for a in args[2:]:
-                step(*a)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
-    return len(sites) / steps, {s: sites.count(s) / steps
-                                for s in sorted(set(sites))}
+    return _syncs_per_step(torch, step, args[2:])
 
 
 def _streamed_equals_resident(torch, cfg, steps=3):
@@ -1729,6 +1752,236 @@ def phase_stream(torch, seed, svi):
     if not row["streamed_equals_resident_bitwise"]:
         raise AssertionError("stream: a streamed step differs from the "
                              "resident step on the same rows")
+    return row
+
+
+C7_STEPS = 250       # chunks of 125: stage 1, the 50-step warmup, 2b, 2c
+# c7's f32 mixture predictive against f64 at the same jitter, scaled by
+# max|ref|: its trained K_uu have condition numbers near 1e4 (the 1e-4
+# jitter's cap), and sigma^2 - tr(K_uu^-1 Psi2_n) + tr(S A2_n) cancels at
+# that scale, so f32 keeps ~1e-3 of the variance (an H100: 1.06e-3;
+# on the CPU 9.0e-4 in the port's form, 1.3e-3 in the reference's per-row
+# solves); the mean keeps ~1e-5
+TOL_PRED_C7 = 5e-3
+C7_IMPUTE_STEPS = 50
+C7_BATCHES = (1, 32, 512)
+
+
+@contextlib.contextmanager
+def _stage_launches(torch, psi, loop):
+    """While the block runs, the launches and steps of each stage the
+    runner's recipe drives (stage 1, 2b, 2c): a list filled as they end."""
+    from dp_gp_lvm_tpu_torch.train import dp_recipe
+
+    original = dp_recipe.staged_dp_svi
+    stages = []
+
+    def counted(*args, drive, **kw):
+        def counting(step_fn, state, n_steps, key, Y, label=""):
+            launches, steps = dict(psi.LAUNCHES), loop.STEPS["taken"]
+            out = drive(step_fn, state, n_steps, key, Y, label=label)
+            taken = loop.STEPS["taken"] - steps
+            stages.append(dict(
+                stage=label.strip(" []"), steps=taken,
+                launches_per_step={k: (psi.LAUNCHES[k] - n) / taken
+                                   for k, n in launches.items()
+                                   if psi.LAUNCHES[k] > n}))
+            return out
+        return original(*args, drive=counting, **kw)
+
+    dp_recipe.staged_dp_svi = counted
+    try:
+        yield stages
+    finally:
+        dp_recipe.staged_dp_svi = original
+
+
+def _c7_step_syncs(torch, cfg, n=8192, steps=5):
+    """Host syncs (`_syncs_per_step`) and ms of a c7 stage-2c step (T = 8,
+    phi locked) at c7's widths on an n-row draw, over `steps` steps after
+    two warm-up steps."""
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.data.synthetic import grouped_dims_big
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import dp_svi
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    Y, _, _ = grouped_dims_big(
+        prng.PRNGKey(cfg.seed), n=n,
+        dims_per_group=runner.grouped_dims_per_group(cfg.d), q=cfg.q,
+        dtype=torch.float32)
+    mcfg = runner._model_config(cfg, None)
+    params = dp_svi.init_params(prng.PRNGKey(cfg.seed), Y, mcfg)
+    opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                       decay_steps=cfg.steps)
+    step = dp_svi.make_dp_svi_step(mcfg, n, opt, rho=0.3,
+                                   phi_update="frozen")
+    idx = step.indices(prng.fold_in(prng.PRNGKey(1),
+                                    torch.arange(2 + steps)))
+    for t in range(2):
+        step(t, idx[t], Y)
+    syncs, sites = _syncs_per_step(torch, step, [
+        (t, idx[t], Y) for t in range(2, 2 + steps)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(2, 2 + steps):
+        step(t, idx[t], Y)
+    torch.cuda.synchronize()
+    return syncs, sites, 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _shape_key(key):
+    """"name T=.. N=..": a kernel signature of `_first_inputs`."""
+    name, T, N = key[0], key[5][0], key[3][0]
+    return f"{name} T={T} N={N}"
+
+
+def phase_dp_svi(torch, seed):
+    """c7_dp_svi through the runner at full width for a short staged
+    budget; the imputer built on its parameters."""
+    import shutil
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import dp_svi, serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    cfg = dataclasses.replace(config.get("c7_dp_svi"), seed=seed)
+    out = ROOT / "build" / "smoke_dp_svi"
+    shutil.rmtree(out, ignore_errors=True)
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    # K2's cotangent is zero at a step whose q(u | t) is the prior (stage
+    # 1's first): K2 is held on its first call with a nonzero one
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen, \
+            _stage_launches(torch, psi, loop) as stages:
+        result = runner.run(cfg, steps=C7_STEPS, device="cuda", out=str(out),
+                            impute_steps=C7_IMPUTE_STEPS)
+    launches = dict(psi.LAUNCHES)
+    steps = loop.STEPS["taken"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    # a K1 and a K2 a step (blend_at="grad": the blend reuses the gradient
+    # pass's statistics); K1 once more over every row for the residual
+    # ladder (T = 1) and once for the final ELBO (T = 8)
+    expected.update(suffstats_batched=steps + 2, psi2_bwd_batched=steps)
+    held = _hold_first_inputs(torch, psi, seen)
+    timing = {}
+    for key, args in seen.items():
+        shape, bound, by = _work_of(key[0], args)
+        ref = getattr(psi, RUN_KERNELS[key[0]][0])
+        timing[_shape_key(key)] = dict(
+            shape=shape, bound_ms=bound, bound_by=by,
+            device_ms=_device_ms(lambda: getattr(psi, key[0])(*args), torch),
+            ms=_timed(lambda: getattr(psi, key[0])(*args), torch),
+            plain_ms=_timed(lambda: ref(*args), torch, reps=3, warmup=1))
+    syncs, sync_sites, step_ms = _c7_step_syncs(torch, cfg)
+
+    # the server on the run's parameters: requests of each batch, and its
+    # f32 predictive against f64 at a fixed q(x*) (the first 64 training
+    # latents) at the same jitter
+    mcfg = runner._model_config(cfg, None)
+    raw = {k: torch.as_tensor(v) for k, v in
+           load_npz(str(out / "params.npz")).items()}
+    psi.reset_launch_counts()
+    t0 = time.perf_counter()
+    impute = serving.make_dp_svi_imputer(raw, mcfg)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    build_launches = dict(psi.LAUNCHES)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    requests = []
+    for b in C7_BATCHES:
+        times = []
+        for i in range(3):                      # one warm call, then 2
+            y = torch.randn(b, cfg.d, generator=gen, device="cuda")
+            mask = torch.zeros(b, cfg.d, device="cuda")
+            mask[:, ::2] = 1.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = impute(y, mask)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            if not (mean.shape == var.shape == (b, cfg.d)
+                    and bool(torch.isfinite(mean).all())
+                    and bool((var > 0).all())):
+                raise AssertionError(f"dp_svi: bad answer at batch {b}")
+        tol, cap = serving._resolve("auto", 150, b)
+        requests.append(dict(batch=b, mode="tol" if tol else "unroll",
+                             step_cap=cap,
+                             ms_per_request=statistics.median(times)))
+    p32 = {k: v.cuda() for k, v in raw.items()}
+    p64 = {k: v.double() for k, v in p32.items()}
+    c32 = dp_svi.constrain(p32, mcfg)
+    same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    x_m, x_v = c32["qx_mean"][:64], c32["qx_var"][:64]
+    m32, v32 = dp_svi.predict_from_latent(p32, x_m, x_v, mcfg)
+    m64, v64 = dp_svi.predict_from_latent(p64, x_m.double(), x_v.double(),
+                                          mcfg, same)
+    pred_err = dict(
+        mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
+        var=float((v32.double() - v64).abs().max() / v64.abs().max()))
+
+    finiteness = config.evaluate_checks("", result)
+    failures = config.evaluate_checks(cfg.name, result)
+    row = dict(phase="dp_svi", config=cfg.name, n=cfg.n,
+               batch=result["batch"], steps=C7_STEPS, steps_taken=steps,
+               stage_steps=dict(stage1=result["stage1_steps"],
+                                stage2=result["stage2_steps"]),
+               stages=stages, seconds=result["seconds"],
+               ms_per_step_stage2c=result["ms_per_step"],
+               rows_per_sec=result["rows_per_sec"],
+               ms_per_step_t8=step_ms, host_syncs_per_step=syncs,
+               host_sync_sites=sync_sites,
+               **{k: result[k] for k in (
+                   "elbo", "noise_min", "group_purity_min", "group_purities",
+                   "distinct_atoms_for_groups", "predictive_loglik_per_dim",
+                   "calibration_ratio", "imputation_mse",
+                   "imputation_mse_baseline", "imputation_seconds")},
+               launches=launches, expected_launches=expected,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               held_on_the_runs_inputs=held, kernels_at_c7=timing,
+               imputer_build_ms=build_ms,
+               imputer_build_launches=build_launches,
+               imputer_requests=requests, predictive_f32_vs_f64=pred_err,
+               tol_pred=TOL_PRED_C7, nonfinite=finiteness,
+               missing=[f for f in failures if "MISSING" in f],
+               gates_not_held_at_these_steps=[
+                   f for f in failures if f not in finiteness])
+    emit(row)
+    if row["nonfinite"] or row["missing"]:
+        raise AssertionError(f"dp_svi: broken result: {row}")
+    if launches != expected:
+        raise AssertionError(f"dp_svi: launched {launches} in {steps} steps, "
+                             f"expected {expected}")
+    if [s["stage"] for s in stages] != [
+            "stage1 T=1", f"stage2b assign T={cfg.t}",
+            f"stage2c joint T={cfg.t}"] or any(
+            s["launches_per_step"] != {"suffstats_batched": 1.0,
+                                       "psi2_bwd_batched": 1.0}
+            for s in stages):
+        raise AssertionError(f"dp_svi: per-stage launches {stages}")
+    want_keys = {f"suffstats_batched T={t} N={n}"
+                 for t, n in ((1, 2048), (cfg.t, 2048), (1, cfg.n),
+                              (cfg.t, cfg.n))} | {
+        f"psi2_bwd_batched T={t} N=2048" for t in (1, cfg.t)}
+    if set(timing) != want_keys:
+        raise AssertionError(f"dp_svi: kernels seen {sorted(timing)}, "
+                             f"expected {sorted(want_keys)}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"dp_svi: {h['kernel']} disagrees with its "
+                                 f"plain version on the run's inputs: {h}")
+    if any(build_launches.values()):
+        raise AssertionError(f"dp_svi: the imputer's build launched "
+                             f"{build_launches}; its psi statistics are plain")
+    if not max(pred_err.values()) <= TOL_PRED_C7:
+        raise AssertionError(f"dp_svi: f32 predictive off: {pred_err}")
     return row
 
 
@@ -1987,6 +2240,7 @@ def main(argv=None) -> int:
     serve3 = phase_serve_mrd(torch, args.seed)
     svi = phase_svi(torch, args.seed)
     streamed = phase_stream(torch, args.seed, svi)
+    dp = phase_dp_svi(torch, args.seed)
     phase_sgpr(torch, args.seed)
     phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
@@ -2006,7 +2260,8 @@ def main(argv=None) -> int:
                   **{f"runs_{name}": row["launches"]
                      for name, row in runs.items()},
                   svi_c6_svi_bigN=svi["launches"],
-                  stream_c6_svi_bigN=streamed["launches"])
+                  stream_c6_svi_bigN=streamed["launches"],
+                  dp_svi_c7_dp_svi=dp["launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -2039,6 +2294,18 @@ def main(argv=None) -> int:
                 "c3_bound_ms": t["bound_ms"], "c3_bound_by": t["bound_by"],
                 **launches}
 
+    def at_c7(name):
+        """A kernel at c7's minibatch (T = 8, N = 2048) on the first inputs
+        the dp_svi phase's run gave it, and its launches a step there."""
+        t = dp["kernels_at_c7"][f"{name} T=8 N=2048"]
+        return {"c7_shape": t["shape"], "c7_device_ms": t["device_ms"],
+                "c7_ms": t["ms"], "c7_plain_ms": t["plain_ms"],
+                "c7_bound_ms": t["bound_ms"], "c7_bound_by": t["bound_by"],
+                "c7_launches_per_step": {
+                    s["stage"]: s["launches_per_step"][name]
+                    for s in dp["stages"]}}
+
+    c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
     kernels = [
         dict(kernel_row("suffstats_batched", "psi_suffstats.cu", 610,
                         "train", k1),
@@ -2054,7 +2321,11 @@ def main(argv=None) -> int:
              c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "suffstats_batched"],
              cavi_launches=cavi["launches"]["suffstats_batched"],
-             **at_c3("suffstats_batched")),
+             **at_c3("suffstats_batched"), **at_c7("suffstats_batched"),
+             c7_full_n_device_ms=c7_full["device_ms"],
+             c7_full_n_bound_ms=c7_full["bound_ms"],
+             c7_full_n_ms=c7_full["ms"],
+             c7_full_n_plain_ms=c7_full["plain_ms"]),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
@@ -2068,7 +2339,7 @@ def main(argv=None) -> int:
                  "psi2_bwd_batched"],
              c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "psi2_bwd_batched"],
-             **at_c3("psi2_bwd_batched")),
+             **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],

@@ -2,8 +2,9 @@
 (counterpart of `dp_gp_lvm_tpu/core/config.py`). Only the configurations
 whose models the port runs are copied, with their gates: the Bayesian
 GP-LVM's `c1_bgplvm_toy` and `c2_sparse_oil`, MRD's `c3_mrd_twoview`, the
-DP-GP-LVM's `c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`, and the
-minibatch SVI-GPLVM's `c6_svi_bigN`.
+DP-GP-LVM's `c4_dp_mocap`, `c5_dp_missing` and `c5_pose_missing`, the
+minibatch SVI-GPLVM's `c6_svi_bigN` and the minibatch DP-GP-LVM's
+`c7_dp_svi`.
 """
 from __future__ import annotations
 
@@ -86,6 +87,15 @@ CONFIGS: dict[str, ExperimentConfig] = {
         n=131072, d=32, q=8, m=64, steps=6000, lr=3e-3, ngd_lr=1.0,
         missing_fraction=0.5, psi2_block=8192,
     ),
+    # minibatch DP-GP-LVM at the same N, on four planted groups of output
+    # dims that differ in noise (`data/synthetic.grouped_dims_big`); batch
+    # rows a step come from the runner (2048), the staged split-init
+    # recipe is `train/dp_recipe.py`
+    "c7_dp_svi": ExperimentConfig(
+        name="c7_dp_svi", model="dp_svi", dataset="grouped_big",
+        n=131072, d=32, q=8, m=64, t=8, steps=4000, lr=3e-3, ngd_lr=1.0,
+        psi2_block=8192,
+    ),
 }
 
 
@@ -143,6 +153,18 @@ CHECKS: dict[str, dict[str, tuple[str, float] | list[tuple[str, float]]]] = {
         # the full-data ELBO in float64 at the trained parameters
         "elbo": (">=", -6.0e6),
         "calibration_ratio": [(">=", 0.01), ("<=", 5.0)],
+    },
+    # the reference's calibration run: elbo -4.33e6, purity 0.75, 4 of 4
+    # groups on distinct atoms, pll/dim -0.844, calibration 0.639
+    "c7_dp_svi": {
+        "elbo": (">=", -5.0e6),
+        # every planted group's dims mostly on one atom ...
+        "group_purity_min": (">=", 0.6),
+        # ... and the four groups on four distinct atoms
+        "distinct_atoms_for_groups": (">=", 4.0),
+        "rows_per_sec": (">=", 100000.0),
+        "predictive_loglik_per_dim": (">=", -1.15),
+        "calibration_ratio": [(">=", 0.1), ("<=", 5.0)],
     },
 }
 

@@ -1,6 +1,7 @@
 """Synthetic datasets (counterpart of `dp_gp_lvm_tpu/data/synthetic.py`):
 `toy_gplvm` (c1), `oil_flow_like` (c2), `two_view` (c3), `mocap_like`
-(c4, c5, c6) and `pose_like` (c5_pose). Each takes a key of the
+(c4, c5, c6), `pose_like` (c5_pose), `grouped_dims` and `grouped_dims_big`
+(c7). Each takes a key of the
 reference's random stream (`core/prng.py`) and draws what the reference
 draws from it, in the same order, on the CPU; the result is moved to
 `device` (the card unless the caller says "cpu")."""
@@ -77,6 +78,65 @@ def two_view(key, n: int = 100, d1: int = 8, d2: int = 8,
     Y2 = _standardize(_gp_draws(r2, X, torch.cat([ones, off, own]), d2,
                                 noise))
     return Y1.to(device), Y2.to(device), X.to(device)
+
+
+def grouped_dims(key, n: int = 100, dims_per_group=(6, 6), q: int = 3,
+                 noise: float = 0.01, dtype=torch.float64, device=None):
+    """Planted-group recovery data: groups of output dims, group g a GP
+    draw on latent dim g (mod q) alone, standardized. Returns (Y, labels,
+    X) on `device` (the card unless the caller says "cpu")."""
+    device = resolve_device(device)
+    keys = prng.split(key, len(dims_per_group) + 1)
+    X = prng.normal(keys[0], (n, q), dtype)
+    Ys, labels = [], []
+    for g, dg in enumerate(dims_per_group):
+        ard = torch.zeros(q, dtype=dtype)
+        ard[g % q] = 1.0
+        Ys.append(_gp_draws(keys[g + 1], X, ard, dg, noise))
+        labels += [g] * dg
+    Y = _standardize(torch.cat(Ys, dim=1))
+    return Y.to(device), torch.tensor(labels).to(device), X.to(device)
+
+
+def grouped_dims_big(key, n: int = 65536, dims_per_group=(16, 16),
+                     q: int = 4, noise=(0.05, 0.25, 0.6, 1.2),
+                     lengthscales=4.0, num_features: int = 64,
+                     dtype=torch.float64, device=None):
+    """Big-N planted groups (c7): group g's dims are random-Fourier-feature
+    functions of latent dim g (mod q) alone (an O(n) stand-in for the GP
+    draw), scaled to unit signal, plus noise of standard deviation
+    noise[g]; the groups differ in noise, which a single atom cannot absorb
+    (the reference's docstring says why). noise and lengthscales: a scalar
+    or one per group. Returns (Y, labels, X) on `device` (the card unless
+    the caller says "cpu")."""
+    device = resolve_device(device)
+    num_groups = len(dims_per_group)
+    if not isinstance(noise, (tuple, list)):
+        noise = (float(noise),) * num_groups
+    if not isinstance(lengthscales, (tuple, list)):
+        lengthscales = (float(lengthscales),) * num_groups
+    keys = prng.split(key, 2 * num_groups + 2)
+    X = prng.normal(keys[0], (n, q), dtype)
+    Ys, labels = [], []
+    for g, dg in enumerate(dims_per_group):
+        x_g = X[:, g % q][:, None]
+        w = prng.normal(keys[2 * g + 1], (1, num_features),
+                        dtype) / lengthscales[g]
+        b = prng.uniform(keys[2 * g + 2], (num_features,), dtype, 0.0,
+                         2.0 * math.pi)
+        feats = math.sqrt(2.0 / num_features) * torch.cos(x_g @ w + b[None])
+        amp = prng.normal(prng.fold_in(keys[-1], g), (num_features, dg),
+                          dtype)
+        y_g = feats @ amp
+        # unit signal, then noise: the noise level survives the final
+        # standardization
+        y_g = y_g / y_g.std(dim=0, correction=0)
+        y_g = y_g + noise[g] * prng.normal(prng.fold_in(keys[-1], 1000 + g),
+                                           tuple(y_g.shape), dtype)
+        Ys.append(y_g)
+        labels += [g] * dg
+    Y = _standardize(torch.cat(Ys, dim=1))
+    return Y.to(device), torch.tensor(labels).to(device), X.to(device)
 
 
 def oil_flow_like(key, n: int = 1000, d: int = 12, dtype=torch.float64,

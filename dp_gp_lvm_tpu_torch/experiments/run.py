@@ -1,7 +1,9 @@
 """Run a named config end to end (counterpart of `experiments/run.py` for
-the Bayesian GP-LVM, MRD, the DP-GP-LVM and the minibatch SVI-GPLVM):
-data -> init -> chunked training (restarts for the full-batch models, the
-SVI loop with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
+the Bayesian GP-LVM, MRD, the DP-GP-LVM, the minibatch SVI-GPLVM and the
+minibatch DP-GP-LVM): data -> init -> chunked training (restarts for the
+full-batch models, the SVI loop with checkpoints for `svi_gplvm` and the
+DP-SVI at T = 1, the staged split-init recipe with stage-boundary
+checkpoints for the DP-SVI at T > 1) -> metrics, a JSONL log, a
 `result.json`, a `params.npz`, and the committed regression gates with
 `--check`.
 
@@ -17,6 +19,11 @@ SVI loop with checkpoints for `svi_gplvm`) -> metrics, a JSONL log, a
         --ckpt-every 2 --out build/runs/c6   # then again with --resume
     python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --stream \\
         --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --check \\
+        --resume      # after an interruption: from <out>/stages
+    python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --device cpu \\
+        --f64 --n 256 --steps 40 --batch 32
 
 It runs f32 on the card unless `--device cpu` is given. `--f64` is the
 CPU parity mode: the CUDA kernels take float32 only, so it is refused on
@@ -48,11 +55,13 @@ from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.models import (
     bgplvm,
     dp_gp_lvm,
+    dp_svi,
     eval_f64,
     mrd,
     prediction,
     svi_gplvm,
 )
+from dp_gp_lvm_tpu_torch.train import dp_recipe
 from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer, export_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 from dp_gp_lvm_tpu_torch.train.loop import (
@@ -67,9 +76,11 @@ from dp_gp_lvm_tpu_torch.train.loop import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 MODELS = {"bgplvm": bgplvm, "mrd": mrd, "dp_gp_lvm": dp_gp_lvm,
-          "svi_gplvm": svi_gplvm}
+          "svi_gplvm": svi_gplvm, "dp_svi": dp_svi}
 SVI_BATCH = 1024        # rows a step of the SVI configs (the reference's)
+DP_SVI_BATCH = 2048     # rows a step of the DP-SVI configs (the reference's)
 SVI_TEST_ROWS = 256     # held-out rows the SVI imputation metric reads
+GROUPED_TEST_ROWS = 512  # held-out rows drawn beside c7's training rows
 MRD_PREDICT_STEPS = 400  # latent-inference steps of the cross-view metric
 
 
@@ -101,7 +112,20 @@ def load_data(cfg, dtype, device):
     if cfg.dataset == "mocap":
         Y, _ = synthetic.mocap_like(key, n=cfg.n, d=cfg.d, **kw)
         return Y, "synthetic:mocap_like"
+    if cfg.dataset == "grouped_big":
+        # cfg.n training rows and the held-out rows from ONE draw (a
+        # second draw would be another function, unimputable)
+        Y, _, _ = synthetic.grouped_dims_big(
+            key, n=cfg.n + GROUPED_TEST_ROWS,
+            dims_per_group=grouped_dims_per_group(cfg.d), q=cfg.q, **kw)
+        return Y, "synthetic:grouped_big"
     raise ValueError(f"dataset {cfg.dataset!r} is not ported")
+
+
+def grouped_dims_per_group(d: int) -> tuple[int, ...]:
+    """c7's four planted groups of output dims, the last taking the rest."""
+    per = d // 4
+    return (per, per, per, d - 3 * per)
 
 
 def _holdout_rows(n: int):
@@ -188,14 +212,20 @@ def _scalar_terms(terms) -> dict:
             if not torch.is_tensor(v) or v.ndim == 0}
 
 
-def _impute(impute_fn, Y_test, missing_fraction) -> dict:
-    """The missing-data metrics: the last `missing_fraction` of the dims
-    of every held-out row are masked and imputed by
-    `impute_fn(Y_test, mask) -> (mean, var, ...)`."""
-    d = Y_test.shape[1]
-    n_miss = int(d * missing_fraction)
+def _last_dims_missing(Y_test, missing_fraction):
+    """The missing-data protocol's mask (1 = observed): the last
+    `missing_fraction` of the dims of every held-out row are missing."""
+    n_miss = int(Y_test.shape[1] * missing_fraction)
     mask = torch.ones_like(Y_test)
     mask[:, -n_miss:] = 0.0
+    return mask
+
+
+def _impute(impute_fn, Y_test, mask, baseline: bool = False) -> dict:
+    """The missing-data metrics of the held-out rows, their dims where
+    `mask` is 0 imputed by `impute_fn(Y_test, mask) -> (mean, var, ...)`;
+    with `baseline`, also the mse of predicting 0 (the training mean of
+    standardized data)."""
     t0 = time.perf_counter()
     mean, var, *_ = impute_fn(Y_test, mask)
     if mean.is_cuda:
@@ -207,8 +237,10 @@ def _impute(impute_fn, Y_test, missing_fraction) -> dict:
         pll = float(prediction.gaussian_predictive_loglik(
             Y_test, mean, var, miss) / torch.sum(miss))
         mean_var = float(torch.sum(var * miss) / torch.sum(miss))
+        base = float(torch.sum(Y_test ** 2 * miss) / torch.sum(miss))
     return {
         "imputation_mse": mse,
+        **({"imputation_mse_baseline": base} if baseline else {}),
         "predictive_loglik_per_dim": pll,
         "calibration_ratio": mse / mean_var,
         "imputation_seconds": round(seconds, 3),
@@ -228,6 +260,15 @@ def _model_config(cfg, batch):
         return dp_gp_lvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                                 truncation=cfg.t, alpha=cfg.alpha,
                                 psi2_block=cfg.psi2_block)
+    if cfg.model == "dp_svi":
+        # ARD at 1/Q keeps the cold init's kernel distances O(1), so that
+        # stage 1's ARD pruning reaches the data's scale in its budget
+        return dp_svi.Config(num_latent=cfg.q, num_inducing=cfg.m,
+                             truncation=cfg.t, alpha=cfg.alpha,
+                             batch=batch or DP_SVI_BATCH,
+                             psi2_block=cfg.psi2_block,
+                             ard_init=1.0 / cfg.q, amortized=cfg.amortized,
+                             noise_floor=cfg.noise_floor)
     return svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                             batch=batch or SVI_BATCH,
                             psi2_block=cfg.psi2_block,
@@ -248,27 +289,83 @@ def _svi_chunk(device, log_every, steps, stop_after):
     return chunk
 
 
+def _resident_chunks(step_fn, key, chunk, batch, Y):
+    """run_chunk(done) -> (chunk,) losses of the steps done, ...,
+    done + chunk - 1 on the resident Y: step t draws its rows with
+    `randint(fold_in(key, t), (batch,), 0, N)` (int32), so the sequence
+    depends on neither the chunk size nor a restart; a chunk's indices
+    are drawn on the host in one call and copied once."""
+    def run_chunk(done):
+        keys = prng.fold_in(key, torch.arange(done, done + chunk))
+        idx = dp_svi.minibatch_indices(keys, batch, Y.shape[0]).to(Y.device)
+        return torch.stack([step_fn(done + i, idx[i], Y)
+                            for i in range(chunk)])
+    return run_chunk
+
+
+def _chunk_loop(cfg, run_chunk, start, n_steps, chunk, *, out, logger,
+                inject_nonfinite_at, label="", on_chunk_end=None):
+    """Whole chunks of steps from `start` until `n_steps` is reached (past
+    it where the chunk does not divide it, as the reference's loop), one
+    host read of the chunk's losses each; the abort (exit 3) after three
+    chunks with a non-finite loss. Returns (steps done, seconds a step
+    after the first chunk (NaN with one chunk), seconds)."""
+    guard = NonFiniteGuard()
+    t0 = time.perf_counter()
+    t_post = None
+    done = start
+    while done < n_steps:
+        losses = run_chunk(done).cpu()            # the host read
+        if t_post is None:
+            t_post = time.perf_counter()      # the first chunk builds
+        if inject_nonfinite_at is not None:   # fault injection (tests)
+            losses[max(0, inject_nonfinite_at - done):] = math.nan
+        if guard.update(losses, done):
+            _abort_nonfinite(cfg, out, guard, done + chunk)
+        done += chunk
+        elbo_now = -float(losses[-1])
+        logger.log(done - 1, elbo_estimate=elbo_now)
+        print(f"  {label}step {done - 1}: elbo_estimate={elbo_now:.4g}",
+              flush=True)
+        if on_chunk_end is not None:
+            on_chunk_end(done)
+    timed = done - start - chunk
+    per_step = ((time.perf_counter() - t_post) / timed if timed > 0
+                else math.nan)
+    return done, per_step, time.perf_counter() - t0
+
+
+def _rows_per_sec(batch, per_step):
+    return round(batch / max(per_step, 1e-9)) if per_step == per_step \
+        else None
+
+
+def _svi_step(cfg, mcfg, n_total, opt, stream):
+    if cfg.model == "dp_svi":
+        return dp_svi.make_dp_svi_step(mcfg, n_total, opt, rho=0.3,
+                                       rho_phi=0.1, streaming=stream)
+    return svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2,
+                                           streaming=stream)
+
+
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
                inject_nonfinite_at, stream):
-    """The generic SVI loop: q(u) by stochastic natural gradient, the rest
-    by `gp_optimizer`, in chunks of steps with one host read each.
+    """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1): q(u)
+    by stochastic natural gradient, the rest by `gp_optimizer`, in chunks
+    of steps with one host read each.
 
-    Resident (the default): step t draws its minibatch with
-    `randint(fold_in(r1, t), (B,), 0, N)`, r1 the second half of
-    `split(PRNGKey(seed + 100))`, so the sequence depends on neither the
-    chunk size nor a restart; a chunk's (chunk, B) indices are drawn on the
-    host in one call and copied once, and the step gathers its rows from Y
-    on the device. Streamed (`stream`): Y is written to
-    `out/y_stream.f32` and a `data.stream.ChunkStream` (seed + 7, the
-    native loader on the card) draws and gathers each chunk on the host;
-    the step gets the rows, never Y. Returns (params, s per step after the
-    first chunk, seconds, result keys)."""
+    Resident (the default): `_resident_chunks` with the key r1, the second
+    half of `split(PRNGKey(seed + 100))`; the step gathers its rows from Y
+    on the device. Streamed (`stream`): Y is written to `out/y_stream.f32`
+    and a `data.stream.ChunkStream` (seed + 7, the native loader on the
+    card) draws and gathers each chunk on the host; the step gets the rows,
+    never Y. Returns (params, s per step after the first chunk, seconds,
+    result keys)."""
     n_total = Y.shape[0]
     opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr, ard_lr=cfg.ard_lr,
                        decay_steps=steps, ngd_lr=ngd_lr)
-    step_fn = svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2,
-                                              streaming=stream)
+    step_fn = _svi_step(cfg, mcfg, n_total, opt, stream)
     chunk = _svi_chunk(device, log_every, steps, stop_after)
     state = TrainState(opt)
     ck = None
@@ -289,13 +386,13 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
         print(f"[{cfg.name}] note: --ckpt-every {ckpt_every} is not a "
               f"multiple of the chunk {chunk}; checkpoints are written only "
               f"at chunk ends divisible by it", flush=True)
-    done = start = state.step
+    start = state.step
     extra = {"batch": mcfg.batch}
     with contextlib.ExitStack() as feed:
         if stream:
-            if done % chunk:
+            if start % chunk:
                 raise SystemExit(
-                    f"--resume at step {done}: the streaming Philox "
+                    f"--resume at step {start}: the streaming Philox "
                     f"fast-forward needs a chunk-multiple checkpoint "
                     f"(chunk={chunk})")
             y_path = stream_lib.write_rows(
@@ -306,7 +403,7 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                                                    Y.shape[1])
             cs = feed.enter_context(stream_lib.ChunkStream(
                 loader, batch=mcfg.batch, chunk=chunk, seed=cfg.seed + 7,
-                skip_chunks=done // chunk, device=device))
+                skip_chunks=start // chunk, device=device))
             scan_chunk = make_streaming_scan_fn(step_fn)
             extra.update(streamed=True, native_loader=isinstance(
                 loader, stream_lib.StreamLoader))
@@ -316,39 +413,18 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                 return scan_chunk(state, idx, y.to(Y.dtype))[1]
         else:
             _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
+            run_chunk = _resident_chunks(step_fn, r1, chunk, mcfg.batch, Y)
 
-            def run_chunk(done):
-                keys = prng.fold_in(r1, torch.arange(done, done + chunk))
-                idx = prng.randint(keys, (mcfg.batch,), 0,
-                                   n_total).long().to(device)
-                return torch.stack([step_fn(done + i, idx[i], Y)
-                                    for i in range(chunk)])
-
-        guard = NonFiniteGuard()
-        t0 = time.perf_counter()
-        t_post = None
-        while done < loop_steps:
-            losses = run_chunk(done).cpu()            # the host read
-            state.step = done + chunk
-            if t_post is None:
-                t_post = time.perf_counter()      # the first chunk builds
-            if inject_nonfinite_at is not None:   # fault injection (tests)
-                losses[max(0, inject_nonfinite_at - done):] = math.nan
-            if guard.update(losses, done):
-                _abort_nonfinite(cfg, out, guard, done + chunk)
-            done += chunk
-            elbo_now = -float(losses[-1])
-            logger.log(done - 1, elbo_estimate=elbo_now)
-            print(f"  step {done - 1}: elbo_estimate={elbo_now:.4g}",
-                  flush=True)
+        def on_chunk_end(done):
+            state.step = done
             if ck is not None and ckpt_every and done % ckpt_every == 0:
                 ck.save(state)
-    timed = done - start - chunk
-    per_step = ((time.perf_counter() - t_post) / timed if timed > 0
-                else math.nan)
-    total = time.perf_counter() - t0
-    extra["rows_per_sec"] = (round(mcfg.batch / max(per_step, 1e-9))
-                             if per_step == per_step else None)
+
+        done, per_step, total = _chunk_loop(
+            cfg, run_chunk, start, loop_steps, chunk, out=out, logger=logger,
+            inject_nonfinite_at=inject_nonfinite_at,
+            on_chunk_end=on_chunk_end)
+    extra["rows_per_sec"] = _rows_per_sec(mcfg.batch, per_step)
     feed_note = ""
     if stream:
         chunks = max((done - start) // chunk, 1)
@@ -360,6 +436,60 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
           f"after the first chunk, {extra['rows_per_sec']} rows/s"
           f"{feed_note}", flush=True)
     return opt.params, per_step, total, extra
+
+
+def _train_staged_dp_svi(cfg, Y, mcfg, steps, *, device, log_every, ngd_lr,
+                         logger, out, resume, inject_nonfinite_at):
+    """The DP-SVI at T > 1 through the staged split-init recipe
+    (`train/dp_recipe.py`) on the resident Y: the init drawn from
+    PRNGKey(seed), the minibatches from PRNGKey(seed + 100); boundaries in
+    `out/stages`, and with `resume` the recipe restarts after the last one
+    written. Returns (params, stage 2c's s per step, seconds, result
+    keys)."""
+    chunk = _svi_chunk(device, log_every, steps, None)
+
+    def drive(step_fn, state, n_steps, key, Y_cur, label=""):
+        """The recipe's drive. Its seconds a step count every chunk of the
+        stage: the stages before the last have run every kernel at its
+        shapes, so no chunk of it pays a first use (the reference skips a
+        stage's first chunk, which compiles there)."""
+        start = state.step
+        state.step, _, wall = _chunk_loop(
+            cfg, _resident_chunks(step_fn, key, chunk, mcfg.batch, Y_cur),
+            start, n_steps, chunk, out=out, logger=logger,
+            inject_nonfinite_at=inject_nonfinite_at, label=label)
+        return state, wall / (state.step - start), wall
+
+    state, _, info = dp_recipe.staged_dp_svi(
+        prng.PRNGKey(cfg.seed), prng.PRNGKey(cfg.seed + 100), Y, mcfg,
+        Y.shape[0], steps=steps, chunk=chunk, lr=cfg.lr, ngd_lr=ngd_lr,
+        drive=drive,
+        ckpt_dir=os.path.join(out, "stages") if out is not None else None,
+        resume=resume)
+    per_step, total = info.pop("per_step"), info.pop("seconds")
+    extra = {"batch": mcfg.batch, **info,
+             "rows_per_sec": _rows_per_sec(mcfg.batch, per_step)}
+    print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step "
+          f"in stage 2c, {extra['rows_per_sec']} rows/s", flush=True)
+    return state.params, per_step, total, extra
+
+
+def group_recovery(phi, labels) -> dict:
+    """The planted-group metrics: each group's purity (the share of its
+    dims whose most likely atom is the group's most common one), their
+    minimum, and how many distinct atoms the groups' most common atoms
+    are. numpy in, floats out."""
+    hard = np.asarray(phi).argmax(axis=1)
+    labels = np.asarray(labels)
+    purities, tops = [], []
+    for g in np.unique(labels):
+        counts = np.bincount(hard[labels == g], minlength=phi.shape[1])
+        purities.append(counts.max() / counts.sum())
+        tops.append(int(counts.argmax()))
+    return {"group_purity_min": float(min(purities)),
+            "group_purities": [round(float(p), 4) for p in purities],
+            "distinct_atoms_for_groups": len(set(tops)),
+            "num_groups": int(len(np.unique(labels)))}
 
 
 def _abort_nonfinite(cfg, out, guard, done):
@@ -406,13 +536,20 @@ def run(cfg, *, steps: int | None = None, device=None,
                          "CPU parity mode (--device cpu)")
     if cfg.model not in MODELS:
         raise ValueError(f"model {cfg.model!r} is not ported to the runner")
-    if stream and cfg.model != "svi_gplvm":
+    svi = cfg.model in ("svi_gplvm", "dp_svi")
+    staged = cfg.model == "dp_svi" and cfg.t > 1
+    if stream and not svi:
         raise ValueError("--stream feeds the SVI configs only")
+    if staged and (stream or ckpt_every or stop_after or params is not None):
+        raise ValueError(
+            "the staged DP-SVI recipe (T > 1) runs on the resident rows from "
+            "its own T = 1 init and checkpoints at its stage boundaries: "
+            "--stream, --ckpt-every, --stop-after and given parameters "
+            "take the single-stage loop only")
     if device.type == "cuda":
         pin_full_f32()
     steps = steps or cfg.steps
     model = MODELS[cfg.model]
-    svi = cfg.model == "svi_gplvm"
     if out is not None:
         os.makedirs(out, exist_ok=True)
     logger = JsonlLogger(os.path.join(out, "train.jsonl") if out else None)
@@ -428,7 +565,11 @@ def run(cfg, *, steps: int | None = None, device=None,
         tag = f"given:{cfg.dataset}"
     mcfg = _model_config(cfg, batch)
     imputing = cfg.model not in ("bgplvm", "mrd") and cfg.missing_fraction > 0
-    if imputing:
+    grouped = cfg.dataset == "grouped_big"
+    if grouped:
+        # the first cfg.n rows train; the rest are the held-out rows
+        Y_train, Y_test = Y[:cfg.n], Y[cfg.n:]
+    elif imputing:
         Y_train, Y_test = (torch.as_tensor(y, dtype=dtype, device=device)
                            for y in holdout_split(Y.cpu().numpy()))
         if svi:
@@ -483,13 +624,27 @@ def run(cfg, *, steps: int | None = None, device=None,
         return p0, opt, elbo_now
 
     extra, restart_elbos = {}, []
-    if svi:
+    if staged:
+        trained, per_step, total, extra = _train_staged_dp_svi(
+            cfg, Y_train, mcfg, steps, device=device, log_every=log_every,
+            ngd_lr=ngd_lr, logger=logger, out=out, resume=resume,
+            inject_nonfinite_at=inject_nonfinite_at)
+    elif svi:
         trained, per_step, total, extra = _train_svi(
             cfg, Y_train, mcfg, init(0), steps, device=device,
             log_every=log_every, hyper_lr=hyper_lr, ngd_lr=ngd_lr,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
             stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
             stream=stream)
+    if cfg.model == "dp_svi":
+        logger.close()
+        # the reference's gated ELBO: the model's own bound (f32 on the
+        # card) over every training row, one K1 launch
+        with torch.no_grad():
+            terms = {"elbo": float(dp_svi.elbo(trained, Y_train, mcfg)),
+                     "noise_min": float(torch.min(
+                         dp_svi.constrain(trained, mcfg)["noise"]))}
+    elif svi:
         logger.close()
         # the gated ELBO in host float64 over every training row
         with torch.no_grad():
@@ -552,11 +707,35 @@ def run(cfg, *, steps: int | None = None, device=None,
             def impute_fn(y, mask):
                 return prediction.impute_dp(trained, Y_train, mcfg, y, mask,
                                             num_steps=impute_steps)
-        result.update(_impute(impute_fn, Y_test, cfg.missing_fraction))
+        result.update(_impute(impute_fn, Y_test,
+                              _last_dims_missing(Y_test,
+                                                 cfg.missing_fraction)))
         print(f"[{cfg.name}] imputation mse={result['imputation_mse']:.4f} "
               f"pll={result['predictive_loglik_per_dim']:.4f} "
               f"({result['imputation_seconds']:.2f}s for "
               f"{result['imputation_rows']} rows)", flush=True)
+    if cfg.model == "dp_svi" and grouped:
+        # the even dims observed (every group keeps some, so its latent
+        # stays identifiable), the odd ones imputed from the phi-weighted
+        # q(u | t) mixture alone
+        mask = torch.zeros_like(Y_test)
+        mask[:, ::2] = 1.0
+        result.update(_impute(
+            lambda y, m: dp_svi.impute(trained, y, m, mcfg,
+                                       num_steps=impute_steps),
+            Y_test, mask, baseline=True))
+        labels = np.repeat(np.arange(4), grouped_dims_per_group(cfg.d))
+        with torch.no_grad():
+            phi = dp_svi.expected_assignments(trained).cpu().numpy()
+        result.update(group_recovery(phi, labels))
+        print(f"[{cfg.name}] imputation mse={result['imputation_mse']:.4f} "
+              f"(baseline {result['imputation_mse_baseline']:.4f}) "
+              f"pll={result['predictive_loglik_per_dim']:.4f} "
+              f"({result['imputation_seconds']:.2f}s, "
+              f"{result['imputation_rows']} rows); group purities "
+              f"{result['group_purities']}, distinct atoms "
+              f"{result['distinct_atoms_for_groups']}/"
+              f"{result['num_groups']}", flush=True)
     if out is not None:
         # the SVI and MRD exports are of the raw parameters, which their
         # serving entry points take; the other collapsed models export
@@ -599,13 +778,16 @@ def main(argv=None) -> int:
                     help="assert the regression gates (core/config.CHECKS) "
                          "on the finished run; exit 1 on any failure")
     ap.add_argument("--batch", type=int, default=None,
-                    help="SVI configs: rows a step (default 1024)")
+                    help="SVI configs: rows a step (default 1024; the "
+                         "DP-SVI's 2048)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="SVI configs: checkpoint every this many steps, "
                          "in <out>/ckpt (a multiple of the chunk)")
     ap.add_argument("--resume", action="store_true",
                     help="SVI configs: resume from the latest checkpoint "
-                         "in <out>/ckpt; the run continues bit for bit")
+                         "in <out>/ckpt (the staged DP-SVI: after the last "
+                         "stage boundary in <out>/stages); the run "
+                         "continues bit for bit")
     ap.add_argument("--stop-after", type=int, default=None,
                     help="SVI configs: stop the loop after this many steps "
                          "(schedules still span --steps)")

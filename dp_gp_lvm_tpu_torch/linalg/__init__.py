@@ -3,6 +3,7 @@ from dp_gp_lvm_tpu_torch.linalg.chol import (  # noqa: F401
     cho_solve,
     logdet_from_chol,
     safe_cholesky,
+    safe_cholesky_members,
     safe_cholesky_spec,
     solve_psd,
     tri_solve,

@@ -82,6 +82,35 @@ def safe_cholesky(A, policy: JitterPolicy = JitterPolicy()):
     return L, jitter.reshape(-1)[0] if jitter.ndim else jitter
 
 
+def safe_cholesky_members(A, policy: JitterPolicy = JitterPolicy()):
+    """Safe Cholesky of a (..., M, M) stack with a jitter per member: what
+    a caller gets from the reference's `jax.vmap(safe_cholesky)`, where
+    every member searches its own jitter.
+
+    Factors the stack once at the initial jitter. Only if some member fails
+    (one host read of `info` per call) does it factor the detached stack
+    at every further rung, and give each member the first rung at which it
+    factors (the last rung where none does); one differentiated
+    factorization at those jitters follows. Returns (L, jitter) with
+    jitter of shape A.shape[:-2]."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    scale = _scale(A)
+    init = policy.initial_for(A.dtype)
+    L, info = _cholesky(A + init * scale * eye)
+    jitter = torch.full(A.shape[:-2], init, dtype=A.dtype, device=A.device)
+    if policy.max_tries == 0 or _chol_ok(info):
+        return L, jitter
+    found = info == 0
+    rung = init
+    for _ in range(policy.max_tries):
+        rung *= policy.growth
+        jitter = torch.where(found, jitter, torch.full_like(jitter, rung))
+        _, info = torch.linalg.cholesky_ex(A.detach() + rung * scale * eye)
+        found = found | (info == 0)
+    L, _ = _cholesky(A + jitter[..., None, None] * scale * eye)
+    return L, jitter
+
+
 def tri_solve(L, B, lower: bool = True, trans: bool = False):
     """Solve op(L) X = B for triangular L. Batched over leading dims."""
     if trans:

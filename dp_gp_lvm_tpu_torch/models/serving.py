@@ -1,7 +1,7 @@
 """Build-once serving closures for trained models (counterpart of
-`dp_gp_lvm_tpu/models/serving.py`: the Bayesian GP-LVM's and the
-DP-GP-LVM's imputers and MRD's cross-view predictor; its other four
-factories are not ported yet).
+`dp_gp_lvm_tpu/models/serving.py`: the Bayesian GP-LVM's, the
+DP-GP-LVM's and the minibatch DP-GP-LVM's imputers and MRD's cross-view
+predictor; its other three factories are not ported yet).
 
 Serving means repeated missing-data imputation against a FIXED trained
 model. A factory does all the train-data-dependent work once (the
@@ -20,7 +20,13 @@ from typing import Callable
 import torch
 
 from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
-from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, mrd, prediction
+from dp_gp_lvm_tpu_torch.models import (
+    bgplvm,
+    dp_gp_lvm,
+    dp_svi,
+    mrd,
+    prediction,
+)
 
 # tol="auto" serves a batch of at most TOL_MAX_BATCH rows with early
 # stopping and a larger one with the fixed unroll. The crossover is
@@ -105,6 +111,33 @@ def make_dp_imputer(params, Y, config: dp_gp_lvm.Config,
         with torch.no_grad():
             return prediction.dp_predict_from_latent(caches, phi, m_s, s_s,
                                                      kernel=config.kernel)
+
+    return impute
+
+
+def make_dp_svi_imputer(params, config: dp_svi.Config, num_steps: int = 150,
+                        lr: float = 0.05, tol: float | str | None = "auto",
+                        device=None) -> Callable:
+    """Returns `impute(y_star, mask) -> (mean, var)` for the minibatch
+    DP-GP-LVM on `device` (the card unless the caller says "cpu"), from
+    its explicit per-atom q(u | t) alone: no training Y. The build factors
+    the atoms' K_uu (one host read) and predicts the nearest-latent init's
+    candidates, every (N // 2048)-th training latent; a request then runs
+    latent inference and the mixture predictive with no factorization."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        pin_full_f32()
+    params = {k: v.detach().to(device) for k, v in params.items()}
+    pred = dp_svi._predictive(params, config)
+    candidates = dp_svi._candidates(pred)
+
+    def impute(y_star, mask):
+        y_star, mask = y_star.to(device), mask.to(device)
+        t, steps = _resolve(tol, num_steps, y_star.shape[0])
+        m0 = dp_svi._nearest(candidates, y_star, mask)
+        m_s, s_s, _ = dp_svi._infer(pred, y_star, mask, m0, steps, lr, t)
+        with torch.no_grad():
+            return dp_svi._mixture(pred, m_s, s_s)
 
     return impute
 

@@ -29,8 +29,11 @@ C6 = dict(T=1, N=1024, M=64, Q=8, D=32)
 # c3_mrd_twoview, one view: its 224 training rows, M below the 4 x 4
 # tiles' sweet spot and Q = 4 (the generic instantiations)
 C3 = dict(T=1, N=224, M=32, Q=4, D=8)
-SHAPES = [TINY, C2, C1, C5_POSE, C3]
-SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose", "c3"]
+# c7_dp_svi's minibatch: K1 and K2 at T = 8 through
+# dispatch.dp_batched_suffstats
+C7 = dict(T=8, N=2048, M=64, Q=8, D=32)
+SHAPES = [TINY, C2, C1, C5_POSE, C3, C7]
+SHAPE_IDS = ["tiny", "c2", "c1", "c5_pose", "c3", "c7"]
 TOL_K1, TOL_K2 = 1e-4, 5e-4   # scaled by max|ref|, as in chip_smoke.py
 
 
@@ -826,3 +829,139 @@ def test_sgpr_and_gp_regression_f32_on_card_match_f64(card):
     assert float(want["elbo"]) <= float(want["lm"])
     for k in ("mean", "var"):
         assert max(_scaled_errors([got[k]], [want[k].to(card)])) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_k1_holds_at_c7_full_n(card):
+    """K1 over all of c7's 131072 training rows at T = 8 (the final ELBO's
+    and, at T = 1, the residual ladder's one call) against its plain
+    version in f64."""
+    a, f = _inputs(card, False, **dict(C7, N=131072))
+    psi.reset_launch_counts()
+    got = psi.suffstats_batched(f["vs"], f["ards"], f["mu"], f["s"], f["Zs"],
+                                f["Y"])
+    want = psi.suffstats_batched_reference(a["vs"], a["ards"], a["mu"],
+                                           a["s"], a["Zs"], a["Y"],
+                                           block_n=2048)
+    assert max(_scaled_errors(got, want)) <= TOL_K1
+    assert psi.LAUNCHES == _launched(suffstats_batched=1)
+
+
+def _chol_stack(card, dtype):
+    """Four symmetric 6 x 6 matrices whose smallest eigenvalues are 0.5,
+    -3e-6, -3e-4 and -3e2 times the mean diagonal."""
+    gen = np.random.default_rng(4)
+    out = []
+    for lo in (0.5, -3e-6, -3e-4, -3e2):
+        rot, _ = np.linalg.qr(gen.standard_normal((6, 6)))
+        w = np.linspace(1.0, 2.0, 6)
+        w[0] = lo * w.mean()
+        out.append((rot * w) @ rot.T)
+    return torch.as_tensor(np.stack(out), dtype=dtype, device=card)
+
+
+@pytest.mark.cuda
+def test_per_member_cholesky_on_card(card):
+    """Each member's own jitter on the card, as on the CPU (1e-6, 1e-5,
+    1e-3 and the last rung in f64; in f32 from 1e-4: 1e-4, 1e-4, 1e-3),
+    the same factors, and one host read a call."""
+    from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members
+
+    stack = _chol_stack(card, torch.float64)
+    L, jitter = safe_cholesky_members(stack)
+    L_cpu, jitter_cpu = safe_cholesky_members(stack.cpu())
+    assert jitter.cpu().tolist() == jitter_cpu.tolist() == pytest.approx(
+        [1e-6, 1e-5, 1e-3, 1.0])
+    np.testing.assert_allclose(L[:3].cpu().numpy(), L_cpu[:3].numpy(),
+                               rtol=1e-10, atol=1e-12)
+    L32, jitter32 = safe_cholesky_members(_chol_stack(card, torch.float32))
+    assert jitter32[:3].cpu().tolist() == pytest.approx([1e-4, 1e-4, 1e-3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with pytest.warns(UserWarning, match="synchroniz") as caught:
+            safe_cholesky_members(stack[:1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len([w for w in caught if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)]) == 1
+
+
+def _dp_svi_setup(card, dtype, n=4096):
+    """c7's widths (D=32 in four planted groups, Q=8, M=64, T=8, batch
+    2048) on a grouped_dims_big draw, parameters at init."""
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.models import dp_svi
+
+    Y, _, _ = synthetic.grouped_dims_big(
+        prng.PRNGKey(0), n=n, dims_per_group=(8, 8, 8, 8), q=8, dtype=dtype,
+        device=card)
+    cfg = dp_svi.Config(num_latent=8, num_inducing=64, truncation=8,
+                        batch=2048, psi2_block=8192, ard_init=1.0 / 8)
+    return Y, cfg, dp_svi.init_params(prng.PRNGKey(0), Y, cfg)
+
+
+@pytest.mark.cuda
+def test_dp_svi_step_f32_on_card_matches_plain_f64(card):
+    """One DP-SVI step at c7's widths: f32 through K1 (once) and K2 (once,
+    in the backward) against the plain f64 step on the same inputs at the
+    same jitter: the loss, every gradient and the blended q(u | t)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import dp_svi
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    Y, cfg, p32 = _dp_svi_setup(card, torch.float32)
+    p64 = {k: torch.nn.Parameter(v.detach().double()) for k, v in p32.items()}
+    Y64 = Y.double()
+    idx = dp_svi.minibatch_indices(prng.fold_in(prng.PRNGKey(1),
+                                                torch.arange(1)), 2048,
+                                   Y.shape[0])[0].to(card)
+    same_jitter = JitterPolicy(initial=JitterPolicy().initial_for(
+        torch.float32))
+    cfg64 = cfg._replace(use_fused=False)
+    psi.reset_launch_counts()
+    loss32 = dp_svi.loss_minibatch(p32, Y[idx], idx, Y.shape[0], cfg)
+    g32 = torch.autograd.grad(loss32, [p32[k] for k in ("qx_mean", "z",
+                                                        "raw_ard",
+                                                        "raw_noise",
+                                                        "phi_logits")])
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_bwd_batched=1)
+    loss64 = -dp_svi.elbo_minibatch(p64, Y64[idx], idx, Y.shape[0], cfg64,
+                                    same_jitter)
+    g64 = torch.autograd.grad(loss64, [p64[k] for k in ("qx_mean", "z",
+                                                        "raw_ard",
+                                                        "raw_noise",
+                                                        "phi_logits")])
+    loss32, loss64 = float(loss32.detach()), float(loss64.detach())
+    assert abs(loss32 - loss64) <= 1e-4 * abs(loss64)
+    assert max(_scaled_errors(g32, g64)) <= 5e-3   # chip_smoke's TOL_GRAD
+    steps = {}
+    for name, p, c in (("f32", p32, cfg), ("f64", p64, cfg64)):
+        opt = gp_optimizer(p, lr=3e-3, ngd_lr=1.0, decay_steps=10)
+        steps[name] = dp_svi.make_dp_svi_step(c, Y.shape[0], opt, rho=0.3,
+                                              policy=same_jitter)
+    psi.reset_launch_counts()
+    steps["f32"](0, idx, Y)
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_bwd_batched=1)
+    steps["f64"](0, idx, Y64)
+    for k in ("u_h", "u_lam", "raw_gamma1", "raw_gamma2"):
+        assert max(_scaled_errors([p32[k]], [p64[k]])) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_dp_svi_imputer_defaults_to_the_card(card):
+    """Given CPU parameters and no device, the DP-SVI server builds on the
+    card (no kernel: its psi statistics are plain) and answers there."""
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    Y, cfg, params = _dp_svi_setup(card, torch.float32, n=2048)
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    psi.reset_launch_counts()
+    impute = serving.make_dp_svi_imputer(cpu, cfg, num_steps=10)
+    mask = torch.zeros(8, 32)
+    mask[:, ::2] = 1.0
+    mean, var = impute(Y[:8].cpu(), mask)
+    assert psi.LAUNCHES == _launched()
+    assert mean.device.type == var.device.type == "cuda"
+    assert mean.shape == var.shape == (8, 32)
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())

@@ -9,6 +9,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import pathlib
 
 import jax
@@ -31,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
              "c3_mrd_twoview": "c3", "c4_dp_mocap": "c4",
              "c5_dp_missing": "c5", "c5_pose_missing": "c5_pose",
-             "c6_svi_bigN": "c6"}
+             "c6_svi_bigN": "c6", "c7_dp_svi": "c7"}
 
 
 @pytest.fixture(autouse=True)
@@ -56,7 +57,7 @@ def test_configs_and_gates_are_the_references():
         assert config.CHECKS[name] == jconfig.CHECKS[name]
     assert set(config.CHECKS) == set(ARTIFACTS)
     with pytest.raises(KeyError, match="unknown config"):
-        config.get("c7_dp_svi")
+        config.get("c8_amortized_svi")
 
 
 CRAFTED = {
@@ -192,7 +193,9 @@ def test_load_data_draws_each_dataset():
             ("c1_bgplvm_toy", (30, 10), "toy_gplvm"),
             ("c2_sparse_oil", (1000, 12), "synthetic:oil_flow_like"),
             ("c4_dp_mocap", (30, 59), "synthetic:mocap_like"),
-            ("c5_pose_missing", (30, 32), "synthetic:pose_like")):
+            ("c5_pose_missing", (30, 32), "synthetic:pose_like"),
+            # c7 draws its 512 held-out rows with its training rows
+            ("c7_dp_svi", (30 + 512, 32), "synthetic:grouped_big")):
         cfg = dataclasses.replace(config.get(name), n=30, seed=4)
         Y, got_tag = runner.load_data(cfg, torch.float64, "cpu")
         assert (tuple(Y.shape), got_tag) == (shape, tag)
@@ -240,6 +243,30 @@ def test_run_end_to_end_gives_the_references_keys(name, tmp_path):
         assert (tmp_path / "params.npz").exists()
     else:
         assert len(result["ard_weights"]) == cfg.q
+
+
+def test_c7_run_gives_every_gated_metric(tmp_path):
+    """The staged c7 path at n=256, 40 steps, 32 rows a step, f64: the
+    reference's result keys, every gated metric present and finite, the
+    stage boundaries and the raw parameters written, and the planted
+    groups' labels from the generator's split of D=32."""
+    cfg = dataclasses.replace(config.get("c7_dp_svi"), n=256)
+    result = runner.run(cfg, steps=40, device="cpu", dtype=torch.float64,
+                        out=str(tmp_path), batch=32, impute_steps=2)
+    assert set(result) == set(_artifact("c7_dp_svi"))
+    assert config.evaluate_checks("", result) == []     # finite throughout
+    for key in config.CHECKS["c7_dp_svi"]:
+        assert math.isfinite(result[key]), key
+    assert result["imputation_rows"] == runner.GROUPED_TEST_ROWS
+    assert result["batch"] == 32 and result["num_groups"] == 4
+    assert runner.grouped_dims_per_group(32) == (8, 8, 8, 8)
+    assert sorted(os.listdir(tmp_path / "stages")) == [
+        "stage1_split.npz", "stage2_warm.npz", "stage2b_assign.npz"]
+    exported = load_npz(str(tmp_path / "params.npz"))
+    assert exported["u_lam"].shape == (cfg.t, cfg.m, cfg.m)
+    with pytest.raises(ValueError, match="staged DP-SVI"):
+        runner.run(cfg, steps=40, device="cpu", dtype=torch.float64,
+                   stream=True, out=str(tmp_path))
 
 
 def test_main_check_exits_by_the_gates(monkeypatch, tmp_path, capsys):
