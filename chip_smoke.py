@@ -109,6 +109,23 @@ imputation servers built on them. Phases, each printing one JSON line:
          parameters (its build launches nothing: the prediction's psi
          statistics are plain) answers batches 1, 32, 512, and its f32
          predictive at a fixed q(x*) is held against f64
+  amortized  the runner trains c8_amortized_svi (the SVI-GPLVM with the
+         amortized q(X): a recognition network encodes each minibatch
+         row) at full width, N=131072 and 1024 rows a step, for 200 steps
+         with a checkpoint every 100, resident, and again streamed
+         (`--stream`, the native loader); a resumed run must end on the
+         resident run's bits and three streamed steps must equal three
+         resident ones; every step must launch K1 twice and K2 once, and
+         both are held against f64 on the run's first inputs (K2 on the
+         first nonzero cotangent), repeated to the bit and timed there
+         (device ms, ms, plain ms, bound); the f64 ELBO and every gated
+         metric must be present and finite (gates reported, not held);
+         host syncs of a step (sync debug mode, 4096 rows); encode(Y) at
+         init against the PCA latents; make_encoder_imputer on the run's
+         parameters answers batches 1, 32, 256 with half the dims masked,
+         one encoder pass or 150 refining steps (build ms, ms and
+         launches a request), and its f32 predictive at a fixed q(x*) is
+         held against f64
   sgpr   SGPR's bound and predictive and the exact GP's marginal and
          predictive at toy widths (N=200, M=10), f32 on the card against
          f64 on the CPU at the same jitter; also reported, not held, at
@@ -355,6 +372,9 @@ def _k1_at_scale(torch, psi, gen):
                           reps=5, warmup=1),
                 device_ms=_device_ms(lambda: psi.suffstats_batched(*args32),
                                      torch, launches=5, replays=3),
+                plain_ms=_timed(
+                    lambda: psi.suffstats_batched_reference(*args32), torch,
+                    reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by,
                 fp32_issue_ms=k1_fp32_issue_ms(**SCALE))
 
@@ -428,6 +448,9 @@ def _k2_at_scale(torch, psi, gen):
                           reps=5, warmup=1),
                 device_ms=_device_ms(lambda: psi.psi2_bwd_batched(*args32),
                                      torch, launches=5, replays=3),
+                plain_ms=_timed(
+                    lambda: psi.psi2_bwd_batched_reference(*args32), torch,
+                    reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -455,6 +478,9 @@ def _k2_at_c2(torch, psi, gen):
                 ms=_timed(lambda: psi.psi2_bwd_batched(*args32), torch),
                 device_ms=_device_ms(lambda: psi.psi2_bwd_batched(*args32),
                                      torch),
+                plain_ms=_timed(
+                    lambda: psi.psi2_bwd_batched_reference(*args32), torch,
+                    reps=5, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -501,6 +527,7 @@ def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol,
     big_args = (b32["v"], b32["ard"], b32["mu"], b32["s"], b32["Z"])
     big_ms = _timed(lambda: fn(*big_args), torch)
     big_device_ms = _device_ms(lambda: fn(*big_args), torch)
+    big_plain_ms = _timed(lambda: ref(*big_args), torch, reps=3, warmup=1)
     bound_ms, bound_by = _bound_ms(*work(N, M, Q))
     big_bound_ms, big_bound_by = _bound_ms(*work(**big))
     held = [_held_at(torch, gen, fn, ref, work, **sh) for sh in held_at]
@@ -512,7 +539,8 @@ def _phase_single(torch, gen, name, fn, ref, launches_key, psi, work, tol,
                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, geometry=geometry(dict(N=N, M=M, Q=Q)),
                scale_shape=big, scale_ms=big_ms,
-               scale_device_ms=big_device_ms, scale_bound_ms=big_bound_ms,
+               scale_device_ms=big_device_ms, scale_plain_ms=big_plain_ms,
+               scale_bound_ms=big_bound_ms,
                scale_bound_by=big_bound_by, scale_geometry=geometry(big),
                held_at=held, library_ms=None,
                library_note="no single PyTorch call computes Psi1 or Psi2")
@@ -542,8 +570,10 @@ def _held_at(torch, gen, fn, ref, work, N, M, Q):
         [ref(a64["v"], a64["ard"], a64["mu"], a64["s"], a64["Z"], w64)])
     bound_ms, bound_by = _bound_ms(*work(N, M, Q))
     return dict(shape=dict(N=N, M=M, Q=Q), max_abs_err=abs_err,
-                scaled_err=scaled,
+                scaled_err=scaled, ms=_timed(lambda: fn(*args32), torch),
                 device_ms=_device_ms(lambda: fn(*args32), torch),
+                plain_ms=_timed(lambda: ref(*args32), torch, reps=3,
+                                warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -624,6 +654,8 @@ def _k4_at_scale(torch, psi, gen):
                           reps=5, warmup=1),
                 device_ms=_device_ms(lambda: psi.psi2_batched(*args32),
                                      torch, launches=5, replays=3),
+                plain_ms=_timed(lambda: psi.psi2_batched_reference(*args32),
+                                torch, reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1559,22 +1591,25 @@ def _train_rows(cfg):
 
 
 def _c6_step(torch, cfg, streaming, n=4096, batch=1024):
-    """(Y, natural-gradient step, parameters) at c6's widths on an n-row
-    draw, fresh parameters; the step resident or streamed."""
+    """(Y, natural-gradient step, parameters) at the widths of `cfg` (c6,
+    or c8 with its encoder) on an n-row draw, fresh parameters, the step
+    and optimizer the runner builds for it (c8: Z at the hyper rate, the
+    q(u) trust region); the step resident or streamed."""
     from dp_gp_lvm_tpu_torch.core import prng
     from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
     from dp_gp_lvm_tpu_torch.models import svi_gplvm
     from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
 
     Y, _ = mocap_like(prng.PRNGKey(cfg.seed), n=n, d=cfg.d,
                       dtype=torch.float32)
-    mcfg = svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
-                            batch=batch, psi2_block=cfg.psi2_block)
+    mcfg = runner._model_config(cfg, batch)
     params = svi_gplvm.init_params(prng.PRNGKey(cfg.seed), Y, mcfg)
     opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
-                       decay_steps=cfg.steps)
-    return Y, svi_gplvm.make_svi_natgrad_step(
-        mcfg, n, opt, rho=0.2, streaming=streaming), params
+                       decay_steps=cfg.steps,
+                       slow=frozenset({"z"}) if cfg.amortized
+                       else frozenset())
+    return Y, runner._svi_step(cfg, mcfg, n, opt, streaming), params
 
 
 def _c6_indices(torch, n, count, batch=1024):
@@ -1985,6 +2020,234 @@ def phase_dp_svi(torch, seed):
     return row
 
 
+C8_BATCHES = (1, 32, 256)
+# c8's f32 predictive against f64 at the same jitter, scaled by max|ref|,
+# at the encoder's q(x*) of held-out rows after the phase's 200 steps (an
+# H100: mean 5.1e-7, variance 5.9e-6): the generic serving tolerance
+TOL_PRED_C8 = TOL_PRED
+C8_REFINE = (0, 150)
+C8_REQUESTS = 3      # per batch and refinement: one warm call, then timed
+# encode(Y) at init against the PCA latents it reproduces, scaled by
+# max|pca|: the readout is fit in f64 to the f32 PCA scores, so f32 keeps
+# about their own rounding (a CPU in f32: 2.5e-5 at 4096 rows, 1.0e-4 at
+# c8's 114688)
+TOL_ENCODE_INIT = 5e-4
+
+
+def _c8_run(torch, runner, psi, loop, cfg, out, **kw):
+    """The runner's c8 run at full width, its launches (held exactly: two
+    K1 and one K2 a step) and its kernels on the run's first inputs (K2 on
+    the first nonzero cotangent: at the first step q(u) is the prior)."""
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen:
+        result = runner.run(cfg, out=str(out), steps=C6_STEPS, device="cuda",
+                            impute_steps=C6_IMPUTE_STEPS, **kw)
+    launches, steps = dict(psi.LAUNCHES), loop.STEPS["taken"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=2 * steps, psi2_bwd_batched=steps)
+    if launches != expected or steps != C6_STEPS:
+        raise AssertionError(f"amortized: launched {launches} in {steps} "
+                             f"steps, expected {expected}")
+    return result, launches, steps, seen
+
+
+def _c8_imputer(torch, psi, seed, raw, mcfg, Y_test):
+    """make_encoder_imputer on the run's raw parameters: its build, and
+    requests of each batch with half the dims masked, one encoder pass or
+    refined; launches counted over the build and over the requests."""
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    rows = []
+    builds = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    for refine in C8_REFINE:
+        psi.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        impute = serving.make_encoder_imputer(raw, mcfg, refine_steps=refine)
+        torch.cuda.synchronize()
+        builds.append(dict(refine_steps=refine,
+                           build_ms=1e3 * (time.perf_counter() - t0),
+                           build_launches={k: v for k, v in
+                                           psi.LAUNCHES.items() if v}))
+        for b in C8_BATCHES:
+            times = []
+            psi.reset_launch_counts()
+            for i in range(C8_REQUESTS):
+                pick = torch.randint(0, Y_test.shape[0], (b,), generator=gen,
+                                     device="cuda")
+                y = Y_test[pick]
+                mask = torch.ones_like(y)
+                mask[:, y.shape[1] // 2:] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean, var = impute(y, mask)
+                torch.cuda.synchronize()
+                if i:
+                    times.append(1e3 * (time.perf_counter() - t0))
+                if not (mean.shape == var.shape == y.shape
+                        and bool(torch.isfinite(mean).all())
+                        and bool((var > 0).all())):
+                    raise AssertionError(f"amortized: bad answer at batch "
+                                         f"{b}, refine {refine}")
+            rows.append(dict(batch=b, refine_steps=refine,
+                             ms_per_request=statistics.median(times),
+                             launches_per_request=sum(psi.LAUNCHES.values())
+                             / C8_REQUESTS))
+    return builds, rows
+
+
+def phase_amortized(torch, seed):
+    """c8_amortized_svi through the runner at full width, resident (with
+    the resume) and streamed; the one-pass encoder imputer on its
+    parameters."""
+    import shutil
+
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.data import stream
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import amortized, svi_gplvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+    from dp_gp_lvm_tpu_torch.train.init import pca_latents
+
+    if not stream.native_available():
+        raise AssertionError("amortized: the native loader did not build "
+                             f"from {stream.SOURCE}")
+    cfg = dataclasses.replace(config.get("c8_amortized_svi"), seed=seed)
+    mcfg = runner._model_config(cfg, None)
+    out = ROOT / "build" / "smoke_amortized"
+    shutil.rmtree(out, ignore_errors=True)
+    straight, launches, steps, seen = _c8_run(
+        torch, runner, psi, loop, cfg, out / "straight",
+        ckpt_every=C6_CKPT_EVERY)
+    held = _hold_first_inputs(torch, psi, seen)
+    timing = _timed_on_inputs(torch, psi, seen, plain=True)
+
+    resumed_dir = out / "resumed"
+    (resumed_dir / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "straight" / "ckpt" / f"ckpt_{C6_CKPT_EVERY}.pt",
+                resumed_dir / "ckpt")
+    loop.reset_step_count()
+    resumed = runner.run(cfg, out=str(resumed_dir), resume=True,
+                         steps=C6_STEPS, device="cuda",
+                         ckpt_every=C6_CKPT_EVERY,
+                         impute_steps=C6_IMPUTE_STEPS)
+    resumed_steps = loop.STEPS["taken"]
+    a, b = (load_npz(str(d / "params.npz"))
+            for d in (out / "straight", resumed_dir))
+    bitwise = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+    streamed, s_launches, s_steps, s_seen = _c8_run(
+        torch, runner, psi, loop, cfg, out / "streamed", stream=True)
+    s_held = _hold_first_inputs(torch, psi, s_seen)
+    syncs, sync_sites = _host_syncs_per_step(torch, cfg)
+
+    # encode(Y) at init against the PCA latents on the training rows
+    Y, _ = runner.load_data(cfg, torch.float32, "cuda")
+    Y_train, Y_test = (torch.as_tensor(y, device="cuda")
+                       for y in runner.holdout_split(Y.cpu().numpy()))
+    p0 = svi_gplvm.init_params(prng.PRNGKey(cfg.seed), Y_train, mcfg)
+    with torch.no_grad():
+        mu0, s0 = amortized.encode(p0, Y_train)
+    x0 = pca_latents(Y_train, cfg.q)
+    encode_init_err = float((mu0 - x0).abs().max() / x0.abs().max())
+    del p0, mu0, s0, x0
+
+    # the imputer on the run's parameters, and its predictive in f32
+    # against f64 at a fixed q(x*) (the encoder's, without the floor, on
+    # the first 64 held-out rows) at the same jitter
+    raw = {k: torch.as_tensor(v, device="cuda")
+           for k, v in load_npz(str(out / "straight" / "params.npz")).items()}
+    builds, requests = _c8_imputer(torch, psi, seed, raw, mcfg, Y_test)
+    p64 = {k: v.double() for k, v in raw.items()}
+    same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    with torch.no_grad():
+        x_m, x_v = amortized.encode(raw, Y_test[:64])
+        m32, v32 = svi_gplvm.predict_from_latent(raw, x_m, x_v, mcfg)
+        m64, v64 = svi_gplvm.predict_from_latent(p64, x_m.double(),
+                                                 x_v.double(), mcfg, same)
+    pred_err = dict(
+        mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
+        var=float((v32.double() - v64).abs().max() / v64.abs().max()))
+
+    finiteness = config.evaluate_checks("", straight)
+    failures = config.evaluate_checks(cfg.name, straight)
+    row = dict(phase="amortized", config=cfg.name, n=cfg.n,
+               batch=straight["batch"], steps=C6_STEPS, steps_taken=steps,
+               ms_per_step=straight["ms_per_step"],
+               ms_per_step_streamed=streamed["ms_per_step"],
+               rows_per_sec=straight["rows_per_sec"],
+               rows_per_sec_streamed=streamed["rows_per_sec"],
+               seconds=straight["seconds"], elbo_f64=straight["elbo"],
+               elbo_f64_streamed=streamed["elbo"], noise=straight["noise"],
+               **{k: straight[k] for k in (
+                   "imputation_mse", "predictive_loglik_per_dim",
+                   "calibration_ratio", "imputation_seconds",
+                   "imputation_rows")},
+               gates=config.CHECKS[cfg.name],
+               host_syncs_per_step=syncs, host_sync_sites=sync_sites,
+               launches=launches, streamed_launches=s_launches,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               streamed_launches_per_step={k: v / s_steps
+                                           for k, v in s_launches.items()
+                                           if v},
+               held_on_the_runs_inputs=held,
+               held_on_the_streamed_runs_inputs=s_held,
+               kernels_at_c8=timing,
+               resumed_from=C6_CKPT_EVERY, resumed_steps=resumed_steps,
+               resume_bitwise_equal=bitwise and (
+                   resumed["elbo"] == straight["elbo"]),
+               native_loader=streamed["native_loader"],
+               feed_wait_ms_per_chunk=streamed["feed_wait_ms_per_chunk"],
+               streamed_equals_resident_bitwise=_streamed_equals_resident(
+                   torch, cfg),
+               encode_init_vs_pca=encode_init_err,
+               tol_encode_init=TOL_ENCODE_INIT,
+               imputer_builds=builds, imputer_requests=requests,
+               predictive_f32_vs_f64=pred_err, tol_pred=TOL_PRED_C8,
+               nonfinite=finiteness + config.evaluate_checks("", streamed),
+               missing=[f for f in failures if "MISSING" in f],
+               gates_not_held_at_these_steps=[
+                   f for f in failures if f not in finiteness])
+    emit(row)
+    if row["nonfinite"] or row["missing"] or not streamed["streamed"]:
+        raise AssertionError(f"amortized: broken result: {row}")
+    if not row["native_loader"]:
+        raise AssertionError("amortized: the streamed run did not use the "
+                             "native loader")
+    for h in held + s_held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"amortized: {h['kernel']} disagrees with "
+                                 f"its plain version on the run's inputs: "
+                                 f"{h}")
+    for hs in (held, s_held):
+        if {h["kernel"] for h in hs} != {"suffstats_batched",
+                                         "psi2_bwd_batched"}:
+            raise AssertionError(f"amortized: held {hs}")
+    if resumed_steps != C6_STEPS - C6_CKPT_EVERY or not row[
+            "resume_bitwise_equal"]:
+        raise AssertionError("amortized: the resumed run did not end on "
+                             "the uninterrupted run's bits")
+    if not row["streamed_equals_resident_bitwise"]:
+        raise AssertionError("amortized: a streamed step differs from the "
+                             "resident step on the same rows")
+    if not encode_init_err <= TOL_ENCODE_INIT:
+        raise AssertionError(f"amortized: encode(Y) at init is "
+                             f"{encode_init_err} off the PCA latents")
+    if not max(pred_err.values()) <= TOL_PRED_C8:
+        raise AssertionError(f"amortized: f32 predictive off: {pred_err}")
+    return row
+
+
 TOL_SGPR = 1e-4   # relative, of the bound and the exact marginal
 # (N, M) of the sgpr phase: held at the first; the second, whose K_uu has
 # a condition number near 4e4, is reported only (f32 solves lose about
@@ -2241,6 +2504,7 @@ def main(argv=None) -> int:
     svi = phase_svi(torch, args.seed)
     streamed = phase_stream(torch, args.seed, svi)
     dp = phase_dp_svi(torch, args.seed)
+    amort = phase_amortized(torch, args.seed)
     phase_sgpr(torch, args.seed)
     phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
@@ -2261,7 +2525,10 @@ def main(argv=None) -> int:
                      for name, row in runs.items()},
                   svi_c6_svi_bigN=svi["launches"],
                   stream_c6_svi_bigN=streamed["launches"],
-                  dp_svi_c7_dp_svi=dp["launches"])
+                  dp_svi_c7_dp_svi=dp["launches"],
+                  amortized_c8_amortized_svi=amort["launches"],
+                  amortized_stream_c8_amortized_svi=amort[
+                      "streamed_launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -2305,12 +2572,25 @@ def main(argv=None) -> int:
                     s["stage"]: s["launches_per_step"][name]
                     for s in dp["stages"]}}
 
+    def at_c8(name):
+        """A kernel at c8's minibatch (T = 1, N = 1024) on the first inputs
+        the amortized phase's run gave it, and its launches a step there,
+        resident and streamed."""
+        t = amort["kernels_at_c8"][name]
+        return {"c8_shape": t["shape"], "c8_device_ms": t["device_ms"],
+                "c8_ms": t["ms"], "c8_plain_ms": t["plain_ms"],
+                "c8_bound_ms": t["bound_ms"], "c8_bound_by": t["bound_by"],
+                "c8_launches_per_step": amort["launches_per_step"][name],
+                "c8_streamed_launches_per_step": amort[
+                    "streamed_launches_per_step"][name]}
+
     c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
     kernels = [
         dict(kernel_row("suffstats_batched", "psi_suffstats.cu", 610,
                         "train", k1),
              redesigned_in="fifth slice of the port",
              scale_device_ms=k1["scale"]["device_ms"],
+             scale_plain_ms=k1["scale"]["plain_ms"],
              scale_bound_ms=k1["scale"]["bound_ms"],
              c6_device_ms=svi["kernels_at_c6"]["suffstats_batched"][
                  "device_ms"],
@@ -2322,6 +2602,7 @@ def main(argv=None) -> int:
                  "suffstats_batched"],
              cavi_launches=cavi["launches"]["suffstats_batched"],
              **at_c3("suffstats_batched"), **at_c7("suffstats_batched"),
+             **at_c8("suffstats_batched"),
              c7_full_n_device_ms=c7_full["device_ms"],
              c7_full_n_bound_ms=c7_full["bound_ms"],
              c7_full_n_ms=c7_full["ms"],
@@ -2329,7 +2610,9 @@ def main(argv=None) -> int:
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
+             c2_plain_ms=k2["c2"]["plain_ms"],
              scale_device_ms=k2["scale"]["device_ms"],
+             scale_plain_ms=k2["scale"]["plain_ms"],
              scale_bound_ms=k2["scale"]["bound_ms"],
              c6_device_ms=svi["kernels_at_c6"]["psi2_bwd_batched"][
                  "device_ms"],
@@ -2339,20 +2622,24 @@ def main(argv=None) -> int:
                  "psi2_bwd_batched"],
              c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "psi2_bwd_batched"],
-             **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched")),
+             **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched"),
+             **at_c8("psi2_bwd_batched")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],
+             scale_plain_ms=k4["scale"]["plain_ms"],
              scale_bound_ms=k4["scale"]["bound_ms"]),
         dict(kernel_row("psi2_single", "psi_suffstats.cu", 66,
                         "train_bgplvm", k5),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k5["scale_device_ms"],
+             scale_plain_ms=k5["scale_plain_ms"],
              scale_bound_ms=k5["scale_bound_ms"],
              **at_c3("psi2_single", build=True)),
         dict(kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
              redesigned_in="seventh slice of the port",
              scale_device_ms=k6["scale_device_ms"],
+             scale_plain_ms=k6["scale_plain_ms"],
              scale_bound_ms=k6["scale_bound_ms"],
              **at_c3("psi1", build=True)),
     ]

@@ -1,6 +1,6 @@
 """Run a named config end to end (counterpart of `experiments/run.py` for
-the Bayesian GP-LVM, MRD, the DP-GP-LVM, the minibatch SVI-GPLVM and the
-minibatch DP-GP-LVM): data -> init -> chunked training (restarts for the
+the Bayesian GP-LVM, MRD, the DP-GP-LVM, the minibatch SVI-GPLVM, also
+with its amortized q(X), and the minibatch DP-GP-LVM): data -> init -> chunked training (restarts for the
 full-batch models, the SVI loop with checkpoints for `svi_gplvm` and the
 DP-SVI at T = 1, the staged split-init recipe with stage-boundary
 checkpoints for the DP-SVI at T > 1) -> metrics, a JSONL log, a
@@ -20,6 +20,10 @@ checkpoints for the DP-SVI at T > 1) -> metrics, a JSONL log, a
     python -m dp_gp_lvm_tpu_torch.experiments.run c6_svi_bigN --stream \\
         --check
     python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c8_amortized_svi --check \
+        [--stream]
+    python -m dp_gp_lvm_tpu_torch.experiments.run c8_amortized_svi \
+        --device cpu --f64 --n 128 --steps 8 --batch 32 [--stream]
     python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --check \\
         --resume      # after an interruption: from <out>/stages
     python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --device cpu \\
@@ -268,12 +272,14 @@ def _model_config(cfg, batch):
                              batch=batch or DP_SVI_BATCH,
                              psi2_block=cfg.psi2_block,
                              ard_init=1.0 / cfg.q, amortized=cfg.amortized,
-                             noise_floor=cfg.noise_floor)
+                             noise_floor=cfg.noise_floor,
+                             qx_var_floor=cfg.qx_var_floor)
     return svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                             batch=batch or SVI_BATCH,
                             psi2_block=cfg.psi2_block,
                             amortized=cfg.amortized,
-                            noise_floor=cfg.noise_floor)
+                            noise_floor=cfg.noise_floor,
+                            qx_var_floor=cfg.qx_var_floor)
 
 
 def _svi_chunk(device, log_every, steps, stop_after):
@@ -344,8 +350,11 @@ def _svi_step(cfg, mcfg, n_total, opt, stream):
     if cfg.model == "dp_svi":
         return dp_svi.make_dp_svi_step(mcfg, n_total, opt, rho=0.3,
                                        rho_phi=0.1, streaming=stream)
-    return svi_gplvm.make_svi_natgrad_step(mcfg, n_total, opt, rho=0.2,
-                                           streaming=stream)
+    # the amortized model's q(u) blend in a trust region (G's RMS
+    # eigenvalue and the mean's step capped at 100)
+    return svi_gplvm.make_svi_natgrad_step(
+        mcfg, n_total, opt, rho=0.2, streaming=stream,
+        qu_trust=100.0 if cfg.amortized else None)
 
 
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
@@ -363,8 +372,12 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
     never Y. Returns (params, s per step after the first chunk, seconds,
     result keys)."""
     n_total = Y.shape[0]
+    # amortized: inducing points at the full rate cluster under the
+    # encoder's compressed latent cloud and drive cond(K_uu) past the f32
+    # whitening limit; at the hyper rate they keep it conditioned
     opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr, ard_lr=cfg.ard_lr,
-                       decay_steps=steps, ngd_lr=ngd_lr)
+                       decay_steps=steps, ngd_lr=ngd_lr,
+                       slow=frozenset({"z"}) if cfg.amortized else frozenset())
     step_fn = _svi_step(cfg, mcfg, n_total, opt, stream)
     chunk = _svi_chunk(device, log_every, steps, stop_after)
     state = TrainState(opt)

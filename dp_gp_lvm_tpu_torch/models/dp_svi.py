@@ -25,8 +25,9 @@ runs on the whole (T, M, M) stack at once: K_uu through
 `linalg.safe_cholesky_members` (a jitter per atom, one host read a call),
 Lambda through `_lam_cholesky` (on the device, no host read). The
 prediction half computes its psi statistics in plain torch, as the
-reference does (`use_pallas=False`). The amortized q(X) (c8) and the device
-mesh (`parallel/`) are not ported and raise.
+reference does (`use_pallas=False`). q(X) is the (N, Q) table, or with
+`Config.amortized` the recognition network of `models/amortized.py`. The
+device mesh (`parallel/`) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from dp_gp_lvm_tpu_torch.distributions import gaussian, stick_breaking
 from dp_gp_lvm_tpu_torch.kernels import ard_rbf
 from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members, tri_solve
+from dp_gp_lvm_tpu_torch.models import amortized
 from dp_gp_lvm_tpu_torch.models.bgplvm import _log_normal_hyperprior
 from dp_gp_lvm_tpu_torch.models.svi_gplvm import _not_ported
 from dp_gp_lvm_tpu_torch.ops import dispatch
@@ -82,8 +84,14 @@ class Config(NamedTuple):
     hyperprior_std: float = 0.0
     learn_alpha: bool = False
     ard_init: float | None = None  # ARD weight at init (None: 1.0)
-    amortized: bool = False        # recognition-network q(X): not ported
+    # a recognition network in place of the (N, Q) q(X) table
+    # (models/amortized.py); encoder_hidden = 0 is the linear encoder
+    amortized: bool = False
+    encoder_hidden: int = 64
     noise_floor: float = 0.0       # lower bound on the noise variance
+    # additive lower bound on the amortized q(X) variance (see
+    # svi_gplvm.Config.qx_var_floor)
+    qx_var_floor: float = 0.0
 
 
 def _policy(config: Config, policy: JitterPolicy | None) -> JitterPolicy:
@@ -97,9 +105,10 @@ def init_params(key, Y, config: Config):
     """PCA latents, inducing points from the latents, per-atom ARD weights
     with a small symmetry-breaking draw, near-uniform phi, q(u | t) at the
     prior (h = 0, Lambda = I), drawn from `key` (a key of the reference's
-    stream, `core/prng.py`) in the reference's order. On Y's device."""
-    if config.amortized:
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
+    stream, `core/prng.py`) in the reference's order. On Y's device. With
+    `config.amortized` the q(X) table becomes encoder leaves drawn from
+    fold_in(key, 7), so that every other leaf is the resident init's to
+    the bit."""
     dtype, device = Y.dtype, Y.device
     t, q, m, d = (config.truncation, config.num_latent, config.num_inducing,
                   Y.shape[1])
@@ -115,8 +124,8 @@ def init_params(key, Y, config: Config):
 
     eye = torch.eye(m, dtype=dtype, device=device)
     params = {
-        "qx_mean": x0,
-        "raw_qx_var": positive_inverse(0.5 * torch.ones_like(x0)),
+        **amortized.qx_leaves_or_encoder(prng.fold_in(key, 7), Y, x0,
+                                         config),
         "z": z0.expand((t,) + z0.shape).clone(),
         "raw_variance": positive_inverse(full((t,), 1.0)),
         "raw_ard": positive_inverse(torch.clamp(ard0, min=0.1 * ard_scale)),
@@ -134,10 +143,10 @@ def init_params(key, Y, config: Config):
 
 
 def constrain(params, config: Config | None = None):
-    """Constrained values; `config` binds its noise floor (None: the
-    MIN_NOISE floor alone). Lambda comes back symmetrized."""
-    if any(k.startswith("enc_") for k in params):
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
+    """Constrained values; `config` binds its noise floor and its q(X)
+    variance floor (None: the MIN_NOISE floor alone, no q(X) floor).
+    Lambda comes back symmetrized; the encoder's leaves pass through
+    raw."""
     floor = config.noise_floor if config is not None else 0.0
     lam = params["u_lam"]
     out = {
@@ -153,20 +162,22 @@ def constrain(params, config: Config | None = None):
         "gamma2": positive(params["raw_gamma2"], 1e-4),
         "u_h": params["u_h"],
         "u_lam": 0.5 * (lam + lam.mT),
-        "qx_mean": params["qx_mean"],
-        "qx_var": positive_variational_var(params["raw_qx_var"]),
     }
+    if "qx_mean" in params:            # the resident q(X) table
+        out["qx_mean"] = params["qx_mean"]
+        out["qx_var"] = positive_variational_var(params["raw_qx_var"])
+    out.update(amortized.encoder_leaves(params, config))
     if "raw_alpha" in params:
         out["alpha"] = positive(params["raw_alpha"], 1e-3)
     return out
 
 
-def _qx(c, idx):
-    """q(X) moments of the rows `idx` of the resident table (None: every
-    row)."""
-    if idx is None:
-        return c["qx_mean"], c["qx_var"]
-    return c["qx_mean"][idx], c["qx_var"][idx]
+def _qx(c, y, idx):
+    """q(X) moments of the rows y: the table's rows `idx` (None: every
+    row), or the encoder's forward pass of y."""
+    if y.device.type == "cuda":
+        pin_full_f32()
+    return amortized.qx_batch(c, y, idx)
 
 
 def _batch_stats(c, mu, s, Y, config: Config):
@@ -297,7 +308,7 @@ def elbo_terms(params, Y, config: Config,
     """Full-batch uncollapsed DP bound and its terms."""
     policy = _policy(config, policy)
     c = constrain(params, config)
-    mu, s = _qx(c, None)
+    mu, s = _qx(c, Y, None)
     stats = _batch_stats(c, mu, s, Y, config)
     kl_x = gaussian.kl_to_standard_normal(mu, s)
     return _elbo_from_stats(c, stats, kl_x, config, policy)
@@ -315,7 +326,7 @@ def _minibatch_terms(c, y_batch, idx, n_total: int, config: Config,
                      policy: JitterPolicy):
     """The bound's terms from a minibatch: every row sum (the per-atom
     statistics and the rows' KL(q(X))) scaled by N/B."""
-    mu_b, s_b = _qx(c, idx)
+    mu_b, s_b = _qx(c, y_batch, idx)
     scale = n_total / y_batch.shape[0]
     stats = _scale_stats(_batch_stats(c, mu_b, s_b, y_batch, config), scale)
     kl_x = scale * gaussian.kl_to_standard_normal(mu_b, s_b)
@@ -340,7 +351,7 @@ def optimal_qu(params, Y, config: Config,
     (u_h, u_lam)."""
     policy = policy or JitterPolicy()
     c = constrain(params, config)
-    mu, s = _qx(c, None)
+    mu, s = _qx(c, Y, None)
     _, p1y, p2, _, _ = _batch_stats(c, mu, s, Y, config)
     a, A2 = _atom_whitened(c, p1y, p2, config, policy)
     beta = (1.0 / c["noise"])[:, None, None]
@@ -423,8 +434,6 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
     the reference's int32 randint (`minibatch_indices`)."""
     if mesh is not None:
         raise _not_ported("the device mesh", "parallel/")
-    if config.amortized:
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
     if blend_at not in ("updated", "grad"):
         raise ValueError(f"blend_at must be 'updated'|'grad', got "
                          f"{blend_at!r}")
@@ -515,7 +524,7 @@ def expected_residuals(params, Y, config: Config,
     noise ladder."""
     policy = policy or JitterPolicy()
     c = constrain(params, config)
-    mu, s = _qx(c, None)
+    mu, s = _qx(c, Y, None)
     p0, p1y, p2, yty, n = _batch_stats(c, mu, s, Y, config)
     a, A2 = _atom_whitened(c, p1y, p2, config, policy)
     mean, S, _ = _moments(c["u_h"], c["u_lam"])
@@ -700,7 +709,10 @@ def infer_latent(params, y_star, mask, m_init, config: Config,
 @torch.no_grad()
 def _candidates(pred: _Predictive):
     """The nearest-latent init's candidates: every (N // 2048)-th training
-    latent and its mixture-predicted mean."""
+    latent and its mixture-predicted mean. None for an amortized model,
+    which has no table: its encoder gives the init (`_nearest`)."""
+    if "qx_mean" not in pred.c:
+        return None
     qx = pred.c["qx_mean"]
     n = qx.shape[0]
     take = torch.arange(0, n, max(1, n // NEAREST_CANDIDATES),
@@ -709,9 +721,14 @@ def _candidates(pred: _Predictive):
     return qx[take], mean
 
 
-def _nearest(candidates, y_star, mask):
+@torch.no_grad()
+def _nearest(candidates, y_star, mask, c=None):
     """Each row's candidate latent whose predicted mean best matches its
-    observed dims."""
+    observed dims; with no candidates (an amortized model) the encoder's
+    one pass over the rows of constrained `c`, the missing dims filled at
+    its centre."""
+    if candidates is None:
+        return amortized.encoder_fill_init(c, y_star, mask)
     cand, cand_mean = candidates
     d2 = torch.sum(((y_star[:, None, :] - cand_mean[None, :, :]) ** 2)
                    * mask[:, None, :], dim=-1)
@@ -724,7 +741,7 @@ def impute(params, y_star, mask, config: Config, num_steps: int = 200,
     phi-weighted mixture likelihood, every dim predicted from the per-atom
     q(u | t) mixture. Returns (mean, var, m*, s*, objective trace)."""
     pred = _predictive(params, config)
-    m0 = _nearest(_candidates(pred), y_star, mask)
+    m0 = _nearest(_candidates(pred), y_star, mask, pred.c)
     m_s, s_s, trace = _infer(pred, y_star, mask, m0, num_steps, lr, tol)
     with torch.no_grad():
         mean, var = _mixture(pred, m_s, s_s)

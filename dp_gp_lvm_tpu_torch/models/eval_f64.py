@@ -6,7 +6,8 @@ reduction over N = 131072 rows differences beta-scale terms. This module
 evaluates `svi_gplvm.elbo` on the host in float64, chunked over rows, and
 re-derives the ARD-RBF psi statistics and the whitened Hensman bound from
 the math rather than calling the model, so it is an independent oracle of
-it as well. Resident q(X) and the ARD-RBF kernel only.
+it as well. The ARD-RBF kernel only; q(X) the resident table or the
+amortized encoder, whose forward pass it re-derives too.
 """
 from __future__ import annotations
 
@@ -34,16 +35,31 @@ def _constrain(params, config):
     floor = max(config.noise_floor, MIN_NOISE) if config.noise_floor \
         else MIN_NOISE
     raw = p["raw_u_scale"]
-    return {
+    c = {
         "z": p["z"],
         "variance": _positive(p["raw_variance"]),
         "ard": _positive(p["raw_ard"]),
         "noise": _positive(p["raw_noise"], floor),
         "u_mean": p["u_mean"],
         "u_scale": np.tril(raw, -1) + np.diag(_positive(np.diagonal(raw))),
-        "qx_mean": p["qx_mean"],
-        "qx_var": _positive(p["raw_qx_var"], MIN_VARIATIONAL_VAR),
     }
+    if "qx_mean" in p:
+        c["qx_mean"] = p["qx_mean"]
+        c["qx_var"] = _positive(p["raw_qx_var"], MIN_VARIATIONAL_VAR)
+    c.update({k: v for k, v in p.items() if k.startswith("enc_")})
+    return c
+
+
+def _encode(c, y, var_floor):
+    """The encoder's q(x) moments of the rows y (`models/amortized.py`)."""
+    yc = y - c["enc_mean"][None, :]
+    mu = yc @ c["enc_wlin"] + c["enc_bm"][None, :]
+    raw_s = np.broadcast_to(c["enc_bs"][None, :], mu.shape).copy()
+    if "enc_w1" in c:
+        h = np.tanh(yc @ c["enc_w1"] + c["enc_b1"][None, :])
+        mu = mu + h @ c["enc_wm"]
+        raw_s = raw_s + h @ c["enc_ws"]
+    return mu, _positive(raw_s, MIN_VARIATIONAL_VAR) + var_floor
 
 
 def _gram(variance, ard, z):
@@ -83,9 +99,6 @@ def elbo_f64(params, Y, config, chunk: int = 8192) -> float:
     if config.kernel != "ard_rbf":
         raise NotImplementedError(
             f"elbo_f64 supports ard_rbf only, got {config.kernel!r}")
-    if config.amortized:
-        raise NotImplementedError(
-            "the amortized q(X) is not ported yet (c8_amortized_svi)")
     c = _constrain(params, config)
     Y = _numpy(Y)
     n, d = Y.shape
@@ -97,6 +110,8 @@ def elbo_f64(params, Y, config, chunk: int = 8192) -> float:
     # log_e[m, m'] = -1/4 sum_q alpha_q (z_mq - z_m'q)^2
     zz = z[:, None, :] - z[None, :, :]
     log_e = -0.25 * np.sum(ard[None, None, :] * zz * zz, axis=-1)
+    # the amortized model's q(X) variance floor, as its `constrain` binds it
+    var_floor = config.qx_var_floor if config.amortized else 0.0
 
     psi0 = variance * n
     psi1T_y = np.zeros((m, d))
@@ -105,8 +120,11 @@ def elbo_f64(params, Y, config, chunk: int = 8192) -> float:
     kl_x = 0.0
     for lo in range(0, n, chunk):
         y_b = Y[lo:lo + chunk]
-        mu_b = c["qx_mean"][lo:lo + chunk]
-        s_b = c["qx_var"][lo:lo + chunk]
+        if "qx_mean" in c:
+            mu_b = c["qx_mean"][lo:lo + chunk]
+            s_b = c["qx_var"][lo:lo + chunk]
+        else:
+            mu_b, s_b = _encode(c, y_b, var_floor)
         p1, p2 = _psi_chunk(variance, ard, mu_b, s_b, z, log_e)
         psi1T_y += p1.T @ y_b
         psi2 += p2

@@ -1,7 +1,8 @@
 """Build-once serving closures for trained models (counterpart of
 `dp_gp_lvm_tpu/models/serving.py`: the Bayesian GP-LVM's, the
-DP-GP-LVM's and the minibatch DP-GP-LVM's imputers and MRD's cross-view
-predictor; its other three factories are not ported yet).
+DP-GP-LVM's and the minibatch DP-GP-LVM's imputers, the amortized models'
+one-pass encoder imputer and MRD's cross-view predictor; its MRD-SVI
+predictor is not ported yet).
 
 Serving means repeated missing-data imputation against a FIXED trained
 model. A factory does all the train-data-dependent work once (the
@@ -19,13 +20,19 @@ from typing import Callable
 
 import torch
 
-from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
+from dp_gp_lvm_tpu_torch.core.types import (
+    JitterPolicy,
+    pin_full_f32,
+    resolve_device,
+)
 from dp_gp_lvm_tpu_torch.models import (
+    amortized,
     bgplvm,
     dp_gp_lvm,
     dp_svi,
     mrd,
     prediction,
+    svi_gplvm,
 )
 
 # tol="auto" serves a batch of at most TOL_MAX_BATCH rows with early
@@ -122,8 +129,10 @@ def make_dp_svi_imputer(params, config: dp_svi.Config, num_steps: int = 150,
     DP-GP-LVM on `device` (the card unless the caller says "cpu"), from
     its explicit per-atom q(u | t) alone: no training Y. The build factors
     the atoms' K_uu (one host read) and predicts the nearest-latent init's
-    candidates, every (N // 2048)-th training latent; a request then runs
-    latent inference and the mixture predictive with no factorization."""
+    candidates, every (N // 2048)-th training latent (an amortized model
+    has none: its encoder's pass over a request's rows is the init); a
+    request then runs latent inference and the mixture predictive with no
+    factorization."""
     device = resolve_device(device)
     if device.type == "cuda":
         pin_full_f32()
@@ -134,10 +143,69 @@ def make_dp_svi_imputer(params, config: dp_svi.Config, num_steps: int = 150,
     def impute(y_star, mask):
         y_star, mask = y_star.to(device), mask.to(device)
         t, steps = _resolve(tol, num_steps, y_star.shape[0])
-        m0 = dp_svi._nearest(candidates, y_star, mask)
+        m0 = dp_svi._nearest(candidates, y_star, mask, pred.c)
         m_s, s_s, _ = dp_svi._infer(pred, y_star, mask, m0, steps, lr, t)
         with torch.no_grad():
             return dp_svi._mixture(pred, m_s, s_s)
+
+    return impute
+
+
+def make_encoder_imputer(params, config, model: str = "svi_gplvm",
+                         refine_steps: int = 0, lr: float = 0.05,
+                         device=None) -> Callable:
+    """One-pass serving of an amortized model (`models/amortized.py`, the
+    SVI-GPLVM's or, with model="dp_svi", the DP-SVI's): returns
+    `impute(y_star, mask) -> (mean, var)` on `device` (the card unless the
+    caller says "cpu"). A request encodes its rows with the missing dims
+    filled at the encoder's centre, q(x*) = encode(y*), and predicts every
+    dim from q(u): no inference loop. With refine_steps > 0 that many
+    masked expected-log-likelihood steps of latent inference (the fixed
+    unroll, no host sync) start from the encoded means first.
+
+    As in the reference, the encoded variance is served without the
+    model's `qx_var_floor` (its leaves are constrained with no config),
+    while the predictive binds the config's noise floor. The build
+    constrains the parameters and factors K_uu once (one host read)."""
+    if model not in ("svi_gplvm", "dp_svi"):
+        raise ValueError(f"model must be 'svi_gplvm'|'dp_svi', got {model!r}")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        pin_full_f32()
+    params = {k: v.detach().to(device) for k, v in params.items()}
+    if "enc_mean" not in params:
+        raise ValueError("make_encoder_imputer needs amortized parameters "
+                         "(Config.amortized=True); got a resident q(X) table")
+    enc = amortized.encoder_leaves(params)              # no config: no floor
+    if model == "svi_gplvm":
+        c = svi_gplvm._detached(params, config)
+        L = svi_gplvm._kuu_factor(c, config, JitterPolicy())
+
+        def infer(y_star, mask, m0):
+            return svi_gplvm._infer(c, L, y_star, mask, m0, config,
+                                    refine_steps, lr, None)[:2]
+
+        def predict(m_s, s_s):
+            return svi_gplvm._predict(c, L, m_s, s_s, config)
+    else:
+        pred = dp_svi._predictive(params, config)
+
+        def infer(y_star, mask, m0):
+            return dp_svi._infer(pred, y_star, mask, m0, refine_steps, lr,
+                                 None)[:2]
+
+        def predict(m_s, s_s):
+            return dp_svi._mixture(pred, m_s, s_s)
+
+    def impute(y_star, mask):
+        y_star, mask = y_star.to(device), mask.to(device)
+        with torch.no_grad():
+            y_fill = torch.where(mask > 0, y_star, enc["enc_mean"][None, :])
+            m_s, s_s = amortized.encode(enc, y_fill)
+        if refine_steps:
+            m_s, s_s = infer(y_star, mask, m_s)
+        with torch.no_grad():
+            return predict(m_s, s_s)
 
     return impute
 

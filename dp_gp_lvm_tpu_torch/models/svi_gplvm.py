@@ -14,10 +14,12 @@ Every data term is a sum over rows, so a minibatch estimate scales the
 batch's sufficient statistics (`dispatch.suff_stats`: K1 at T = 1 with K2
 in its backward on the card) and its rows' KL(q(X)) by N/B.
 
-q(X) is an (N, Q) table on the device. Y is either resident there too, or
-streamed from the host a chunk at a time (`data/stream.py`, the step's
-`streaming=True`). The amortized q(X) (c8) and the device mesh
-(`parallel/`) are not ported and raise.
+q(X) is an (N, Q) table on the device, or, with `Config.amortized` (c8),
+a recognition network that encodes each minibatch row
+(`models/amortized.py`): then no q(X) state on the device grows with N. Y
+is either resident there too, or streamed from the host a chunk at a time
+(`data/stream.py`, the step's `streaming=True`). The device mesh
+(`parallel/`) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.transforms import (
     MIN_NOISE,
     positive,
@@ -39,6 +42,7 @@ from dp_gp_lvm_tpu_torch.distributions import gaussian
 from dp_gp_lvm_tpu_torch.kernels import ard_rbf
 from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky, tri_solve
+from dp_gp_lvm_tpu_torch.models import amortized
 from dp_gp_lvm_tpu_torch.ops import dispatch
 from dp_gp_lvm_tpu_torch.train.init import inducing_from_latents, pca_latents
 from dp_gp_lvm_tpu_torch.train.loop import STEPS
@@ -57,8 +61,19 @@ class Config(NamedTuple):
     # "auto" takes them for tensors on the card where they take the shape
     use_fused: bool | str = "auto"
     kernel: str = "ard_rbf"
-    amortized: bool = False        # recognition-network q(X): not ported
-    noise_floor: float = 0.0       # lower bound on the noise variance
+    # a recognition network in place of the (N, Q) q(X) table
+    # (models/amortized.py); encoder_hidden = 0 is the linear encoder
+    amortized: bool = False
+    encoder_hidden: int = 64
+    # lower bound on the noise variance (0: the MIN_NOISE floor alone);
+    # the amortized model needs one: a shared encoder can drive the noise
+    # to its floor, where the f32 bound cancels beta ~ 1e6 terms
+    noise_floor: float = 0.0
+    # additive lower bound on the amortized q(X) variance (the table is
+    # untouched): collapsed encoder variances make the batch psi
+    # statistics hyper-local and the natural-gradient q(u) recursion
+    # diverge at c8's scale
+    qx_var_floor: float = 0.0
 
 
 def _not_ported(what: str, where: str):
@@ -68,9 +83,10 @@ def _not_ported(what: str, where: str):
 def init_params(key, Y, config: Config):
     """PCA latents (full N), inducing points from the latents drawn with
     `key` (a key of the reference's stream, `core/prng.py`), whitened q(u)
-    at the prior (m = 0, S = I). Parameters on Y's device."""
-    if config.amortized:
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
+    at the prior (m = 0, S = I). Parameters on Y's device. With
+    `config.amortized` the q(X) table becomes encoder leaves whose
+    encode(Y) is the table's init, drawn from fold_in(key, 7), so that z0
+    is the resident init's to the bit."""
     dtype, device = Y.dtype, Y.device
     m, q, d = config.num_inducing, config.num_latent, Y.shape[1]
     x0 = pca_latents(Y, q)
@@ -81,8 +97,8 @@ def init_params(key, Y, config: Config):
 
     eye = torch.eye(m, dtype=dtype, device=device)
     params = {
-        "qx_mean": x0,
-        "raw_qx_var": positive_inverse(0.5 * torch.ones_like(x0)),
+        **amortized.qx_leaves_or_encoder(prng.fold_in(key, 7), Y, x0,
+                                         config),
         "z": z0,
         "raw_variance": positive_inverse(const(1.0)),
         "raw_ard": positive_inverse(const(1.0, (q,))),
@@ -97,15 +113,14 @@ def init_params(key, Y, config: Config):
 
 
 def constrain(params, config: Config | None = None):
-    """Constrained values; `config` binds its noise floor (None: the
-    MIN_NOISE floor alone)."""
-    if any(k.startswith("enc_") for k in params):
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
+    """Constrained values; `config` binds its noise floor and its q(X)
+    variance floor (None: the MIN_NOISE floor alone, no q(X) floor). The
+    encoder's leaves pass through raw."""
     raw = params["raw_u_scale"]
     ls = torch.tril(raw, -1) + torch.diag(positive(torch.diagonal(raw)))
     floor = config.noise_floor if config is not None else 0.0
     floor = max(floor, MIN_NOISE) if floor else 0.0
-    return {
+    c = {
         "z": params["z"],
         "variance": positive(params["raw_variance"]),
         "ard": positive(params["raw_ard"]),
@@ -113,16 +128,12 @@ def constrain(params, config: Config | None = None):
                   else positive_noise(params["raw_noise"])),
         "u_mean": params["u_mean"],
         "u_scale": ls,                 # chol factor of the whitened S
-        "qx_mean": params["qx_mean"],
-        "qx_var": positive_variational_var(params["raw_qx_var"]),
     }
-
-
-def _qx_batch(c, idx):
-    """q(X) moments of the rows `idx` (None: every row)."""
-    if idx is None:
-        return c["qx_mean"], c["qx_var"]
-    return c["qx_mean"][idx], c["qx_var"][idx]
+    if "qx_mean" in params:            # the resident q(X) table
+        c["qx_mean"] = params["qx_mean"]
+        c["qx_var"] = positive_variational_var(params["raw_qx_var"])
+    c.update(amortized.encoder_leaves(params, config))
+    return c
 
 
 def _whitened_terms(c, stats, policy, kernel: str = "ard_rbf"):
@@ -161,9 +172,11 @@ def _bound_from_stats(c, stats, kl_x, policy, kernel: str = "ard_rbf"):
 
 
 def _stats(c, y, idx, config: Config):
+    """SuffStats and KL(q(X)) of the rows y (their table rows `idx`, None:
+    every row; the encoder reads y itself)."""
     if y.device.type == "cuda":
         pin_full_f32()
-    mu, s = _qx_batch(c, idx)
+    mu, s = amortized.qx_batch(c, y, idx)
     stats = dispatch.suff_stats(
         c["variance"], c["ard"], mu, s, c["z"], y,
         block_n=config.psi2_block, use_fused=config.use_fused,
@@ -291,7 +304,12 @@ def predict_from_latent(params, x_mean, x_var, config: Config,
     Var_nd = sigma^2 + E[k_nn] - tr(A2_n) + tr(S A2_n) + m_d^T A2_n m_d
              - (phi_n^T m_d)^2, floored at sigma^2."""
     c = _detached(params, config)
-    L = _kuu_factor(c, config, policy)
+    return _predict(c, _kuu_factor(c, config, policy), x_mean, x_var, config)
+
+
+def _predict(c, L, x_mean, x_var, config: Config):
+    """`predict_from_latent` from the detached constrained parameters `c`
+    and the factor L of their K_uu."""
     phi, gp_var, m_quad = _latent_row_pieces(c, L, x_mean, x_var, config)
     mean = phi @ c["u_mean"]
     var = gp_var[:, None] + m_quad - mean * mean + c["noise"]
@@ -324,10 +342,17 @@ def infer_latent(params, y_star, mask, m_init, config: Config,
     log-likelihood under the explicit q(u) (mask (N*, D), 1 = observed),
     with the Adam of `prediction._fit_variational`. Returns (m*, s*,
     objective trace)."""
+    c = _detached(params, config)
+    return _infer(c, _kuu_factor(c, config, policy), y_star, mask, m_init,
+                  config, num_steps, lr, tol)
+
+
+def _infer(c, L, y_star, mask, m_init, config: Config, num_steps: int,
+           lr: float, tol: float | None):
+    """`infer_latent` from the detached constrained parameters `c` and the
+    factor L of their K_uu."""
     from dp_gp_lvm_tpu_torch.models.prediction import _fit_variational
 
-    c = _detached(params, config)
-    L = _kuu_factor(c, config, policy)
     mu_u, noise = c["u_mean"], c["noise"]
     beta = 1.0 / noise
     dtype = y_star.dtype
@@ -353,8 +378,13 @@ def infer_latent(params, y_star, mask, m_init, config: Config,
 
 def _nearest_latent_init(params, y_star, mask, config: Config):
     """q(x*) means from the training latent whose q(u)-predicted mean best
-    matches the observed dims, over at most ~4096 strided candidates."""
+    matches the observed dims, over at most ~4096 strided candidates. An
+    amortized model has no table: its encoder gives them in one pass, the
+    missing dims filled at its centre."""
     c = _detached(params, config)
+    if "qx_mean" not in c:
+        with torch.no_grad():
+            return amortized.encoder_fill_init(c, y_star, mask)
     n = c["qx_mean"].shape[0]
     take = torch.arange(0, n, max(1, n // 4096), device=c["qx_mean"].device)
     cand, cand_var = c["qx_mean"][take], c["qx_var"][take]
@@ -468,8 +498,6 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     gathered there; at equal rows it is the resident step, bit for bit."""
     if mesh is not None:
         raise _not_ported("the device mesh", "parallel/")
-    if config.amortized:
-        raise _not_ported("the amortized q(X)", "c8_amortized_svi")
     if blend_at not in ("updated", "grad"):
         raise ValueError(f"blend_at must be 'updated'|'grad', got "
                          f"{blend_at!r}")

@@ -44,7 +44,7 @@ FROZEN_MANIFOLD = frozenset(
 
 def _frozen_manifold_for(params) -> frozenset:
     """FROZEN_MANIFOLD with a recognition network's leaves, which are the
-    manifold of an amortized model (not ported: `dp_svi` raises first)."""
+    manifold of an amortized model."""
     return FROZEN_MANIFOLD | frozenset(k for k in params
                                        if k.startswith("enc_"))
 

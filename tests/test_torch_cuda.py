@@ -965,3 +965,114 @@ def test_dp_svi_imputer_defaults_to_the_card(card):
     assert mean.device.type == var.device.type == "cuda"
     assert mean.shape == var.shape == (8, 32)
     assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+# the amortized q(X) at c8's widths: the encoder of a 32-dim row to Q = 8
+# through 64 hidden units, c8's floors, its runner's stabilisers
+C8_FLOORS = dict(noise_floor=1e-3, qx_var_floor=1e-2)
+# encode(Y) at init against the PCA scores it is fit to, scaled by
+# max|pca|: the readout is solved in f64 against the f32 scores, so f32
+# keeps about their own rounding (a CPU in f32 at 4096 rows: 2.5e-5)
+TOL_ENCODE_INIT = 5e-4
+# the encoder's f32 forward and backward against f64, scaled by max|ref|:
+# three small matmuls and a tanh, no cancellation
+TOL_ENCODER = 1e-5
+
+
+def _c8_setup(card, dtype=torch.float32, n=2048, batch=1024):
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+
+    Y, _ = mocap_like(prng.PRNGKey(0), n=n, d=32, dtype=dtype, device=card)
+    cfg = svi_gplvm.Config(num_latent=8, num_inducing=64, batch=batch,
+                           amortized=True, **C8_FLOORS)
+    return Y, cfg, svi_gplvm.init_params(prng.PRNGKey(0), Y, cfg)
+
+
+@pytest.mark.cuda
+def test_amortized_svi_step_launches_k1_twice_and_k2_once(card):
+    """c8's step: the encoder's pass feeds K1 for the gradient pass, K2 in
+    its backward (the mean and variance gradients flow on into the
+    encoder), K1 again for the blend; the encoder moves."""
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    Y, cfg, params = _c8_setup(card)
+    start = {k: v.detach().clone() for k, v in params.items()}
+    opt = gp_optimizer(params, lr=3e-3, decay_steps=20,
+                       slow=frozenset({"z"}))
+    step = svi_gplvm.make_svi_natgrad_step(cfg, Y.shape[0], opt, rho=0.2,
+                                           qu_trust=100.0)
+    idx = prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(3)),
+                       (1024,), 0, Y.shape[0]).long().to(card)
+    psi.reset_launch_counts()
+    losses = torch.stack([step(t, idx[t], Y) for t in range(3)])
+    assert psi.LAUNCHES == _launched(suffstats_batched=6, psi2_bwd_batched=3)
+    assert bool(torch.isfinite(losses).all())
+    for k in ("enc_wlin", "enc_w1", "enc_wm", "enc_ws"):
+        assert not torch.equal(params[k], start[k]), k
+
+
+@pytest.mark.cuda
+def test_encoder_forward_and_backward_f32_on_card_match_f64(card):
+    """encode's moments and the gradients of a fixed functional of them to
+    every encoder leaf, f32 on the card against f64 on the CPU, off the
+    init (the MLP heads nonzero) and with the variance floor."""
+    from dp_gp_lvm_tpu_torch.models import amortized
+
+    Y, cfg, params = _c8_setup("cpu", torch.float64, n=512)
+    gen = np.random.default_rng(3)
+    p64 = {k: (v.detach() + 0.05 * torch.as_tensor(
+        gen.standard_normal(v.shape))).requires_grad_()
+        for k, v in params.items() if amortized.is_encoder_leaf(k)}
+    weights = [torch.as_tensor(gen.standard_normal((512, 8)))
+               for _ in range(2)]
+
+    def run(p, y, w):
+        # the leaves as the model's constrain passes them, with the floor
+        mu, s = amortized.encode(amortized.encoder_leaves(p, cfg), y)
+        value = torch.sum(mu * w[0]) + torch.sum(torch.log(s) * w[1])
+        return (mu, s, *torch.autograd.grad(value, list(p.values())))
+
+    want = run(p64, Y, weights)
+    p32 = {k: v.detach().float().to(card).requires_grad_()
+           for k, v in p64.items()}
+    got = run(p32, Y.float().to(card), [w.float().to(card) for w in weights])
+    assert all(g.is_cuda for g in got)
+    errs = _scaled_errors([g.cpu() for g in got], want)
+    assert max(errs) <= TOL_ENCODER, dict(zip(["mu", "s", *p64], errs))
+
+
+@pytest.mark.cuda
+def test_encode_at_init_on_card_reproduces_pca(card):
+    from dp_gp_lvm_tpu_torch.models import amortized
+    from dp_gp_lvm_tpu_torch.train.init import pca_latents
+
+    Y, cfg, params = _c8_setup(card, n=4096)
+    with torch.no_grad():
+        mu, s = amortized.encode(params, Y)
+    x0 = pca_latents(Y, 8)
+    assert mu.is_cuda and params["enc_wlin"].dtype == torch.float32
+    assert float((mu - x0).abs().max() / x0.abs().max()) <= TOL_ENCODE_INIT
+    np.testing.assert_allclose(s.cpu().numpy(), 0.5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_encoder_imputer_defaults_to_the_card(card):
+    """Given CPU parameters and no device, the one-pass server builds on the
+    card and answers there with no kernel (its psi statistics are
+    plain)."""
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    Y, cfg, params = _c8_setup(card)
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    psi.reset_launch_counts()
+    for refine in (0, 5):
+        impute = serving.make_encoder_imputer(cpu, cfg, refine_steps=refine)
+        mask = torch.ones(8, 32)
+        mask[:, 16:] = 0.0
+        mean, var = impute(Y[:8].cpu(), mask)
+        assert mean.device.type == var.device.type == "cuda"
+        assert mean.shape == var.shape == (8, 32)
+        assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+    assert psi.LAUNCHES == _launched()

@@ -32,7 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
              "c3_mrd_twoview": "c3", "c4_dp_mocap": "c4",
              "c5_dp_missing": "c5", "c5_pose_missing": "c5_pose",
-             "c6_svi_bigN": "c6", "c7_dp_svi": "c7"}
+             "c6_svi_bigN": "c6", "c7_dp_svi": "c7",
+             "c8_amortized_svi": "c8"}
 
 
 @pytest.fixture(autouse=True)
@@ -57,7 +58,7 @@ def test_configs_and_gates_are_the_references():
         assert config.CHECKS[name] == jconfig.CHECKS[name]
     assert set(config.CHECKS) == set(ARTIFACTS)
     with pytest.raises(KeyError, match="unknown config"):
-        config.get("c8_amortized_svi")
+        config.get("c9_mrd_svi_bigN")
 
 
 CRAFTED = {
@@ -267,6 +268,41 @@ def test_c7_run_gives_every_gated_metric(tmp_path):
     with pytest.raises(ValueError, match="staged DP-SVI"):
         runner.run(cfg, steps=40, device="cpu", dtype=torch.float64,
                    stream=True, out=str(tmp_path))
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident",
+                                                        "streamed"])
+def test_c8_run_gives_every_key_of_the_reference(stream, tmp_path):
+    """The amortized c8 through the SVI loop at n=128, 8 steps of 32 rows,
+    f64, resident and streamed: every key of the reference's result, the
+    gated metrics finite, the encoder's raw leaves exported in place of a
+    q(X) table; a run resumed from the step-4 checkpoint ends on the
+    uninterrupted run's bits."""
+    cfg = dataclasses.replace(config.get("c8_amortized_svi"), n=128)
+    kw = dict(steps=8, device="cpu", dtype=torch.float64, batch=32,
+              log_every=2, ckpt_every=4, stream=stream)
+    result = runner.run(cfg, out=str(tmp_path / "a"), **kw)
+    want = set(_artifact("c8_amortized_svi"))
+    assert want <= set(result)
+    assert set(result) - want == ({"streamed", "native_loader",
+                                   "feed_wait_ms_per_chunk"} if stream
+                                  else set())
+    assert config.evaluate_checks("", result) == []     # finite throughout
+    for key in config.CHECKS["c8_amortized_svi"]:
+        assert math.isfinite(result[key]), key
+    assert result["imputation_rows"] == 16 and result["batch"] == 32
+    exported = load_npz(str(tmp_path / "a" / "params.npz"))
+    assert "qx_mean" not in exported and {
+        "enc_mean", "enc_wlin", "enc_w1", "enc_ws"} <= set(exported)
+    (tmp_path / "b" / "ckpt").mkdir(parents=True)
+    os.replace(tmp_path / "a" / "ckpt" / "ckpt_4.pt",
+               tmp_path / "b" / "ckpt" / "ckpt_4.pt")
+    resumed = runner.run(cfg, out=str(tmp_path / "b"), resume=True,
+                         impute_steps=2, **kw)
+    assert resumed["elbo"] == result["elbo"]
+    again = load_npz(str(tmp_path / "b" / "params.npz"))
+    for k, v in exported.items():
+        assert np.array_equal(again[k], v), k
 
 
 def test_main_check_exits_by_the_gates(monkeypatch, tmp_path, capsys):

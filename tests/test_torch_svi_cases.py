@@ -248,9 +248,11 @@ def test_reference_svi_case(case):
 
 
 def test_mesh_streaming_and_amortized_are_not_ported_yet():
-    """The mesh and the amortized q(X) still raise; the streamed feed is
-    ported (tests/test_torch_stream.py): its step takes the host-fed pair
-    (idx, y_b) instead of the resident Y."""
+    """The mesh still raises; the streamed feed is ported
+    (tests/test_torch_stream.py): its step takes the host-fed pair (idx,
+    y_b) instead of the resident Y; so is the amortized q(X)
+    (tests/test_torch_amortized.py), whose init holds encoder leaves in
+    place of the table."""
     Y, cfg, params = _setup(n=32)
     opt = gp_optimizer(params)
     with pytest.raises(NotImplementedError, match="parallel/"):
@@ -258,6 +260,6 @@ def test_mesh_streaming_and_amortized_are_not_ported_yet():
     step = svi_gplvm.make_svi_natgrad_step(cfg, 32, opt, streaming=True)
     idx = torch.arange(cfg.batch)
     assert bool(torch.isfinite(step(0, (idx, Y[idx]))))
-    with pytest.raises(NotImplementedError, match="c8"):
-        svi_gplvm.init_params(prng.PRNGKey(0), Y,
+    p = svi_gplvm.init_params(prng.PRNGKey(0), Y,
                               cfg._replace(amortized=True))
+    assert "qx_mean" not in p and "enc_wlin" in p
