@@ -126,6 +126,23 @@ imputation servers built on them. Phases, each printing one JSON line:
          one encoder pass or 150 refining steps (build ms, ms and
          launches a request), and its f32 predictive at a fixed q(x*) is
          held against f64
+  mrd_svi the runner trains c9_mrd_svi_bigN (the minibatch MRD: two
+         views of 32 dims sharing one q(X) table, N=131072, 1024 aligned
+         rows a step) at full width through its two-phase recipe for 500
+         steps (250 hot, 250 recalibrating): every step must launch K1
+         and K2 once a view, checked phase by phase, plus K1 once a view
+         over every row (the ELBO); each kernel is held against f64 on
+         the first inputs the run gave it (K2 on the first nonzero
+         cotangent) and timed there (device ms, ms, plain ms, bound); a
+         second run resumes phase B from stages/phaseA.npz and must end
+         on the same bits; the c9 metrics are printed (gates not held at
+         this depth) and must be finite; host syncs and ms of a phase-B
+         step (sync debug mode, 8192 rows); make_mrd_svi_predictor (view
+         0 -> 1) on the run's parameters answers held-out rows at batches
+         1, 32, 512 (no launch), its f32 predictive at a fixed q(x*) held
+         against f64; cross_view_sample draws 64 joint samples of view 1
+         at 8 held-out rows, whose mean and variance plus noise are held
+         against cross_view_predict's
   sgpr   SGPR's bound and predictive and the exact GP's marginal and
          predictive at toy widths (N=200, M=10), f32 on the card against
          f64 on the CPU at the same jitter; also reported, not held, at
@@ -136,8 +153,9 @@ imputation servers built on them. Phases, each printing one JSON line:
          collapsed_bound), device time by kernel, wall time and the
          card's idle share (numbers only, nothing held)
 
-then the card's name and power limit again, a `kernels` JSON line, and as
-its last line
+then a `total` line (the script's wall seconds, the build included), the
+card's name and power limit again, a `kernels` JSON line, and as its last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero. A kernel's `ms` is the median of
 CUDA-event timings around one call of its wrapper after warm-up, so it
@@ -1803,12 +1821,14 @@ C7_BATCHES = (1, 32, 512)
 
 
 @contextlib.contextmanager
-def _stage_launches(torch, psi, loop):
+def _stage_launches(torch, psi, loop, recipe=None, name="staged_dp_svi"):
     """While the block runs, the launches and steps of each stage the
-    runner's recipe drives (stage 1, 2b, 2c): a list filled as they end."""
-    from dp_gp_lvm_tpu_torch.train import dp_recipe
+    runner's recipe `recipe.name` drives (default the DP-SVI's: stage 1,
+    2b, 2c): a list filled as they end."""
+    if recipe is None:
+        from dp_gp_lvm_tpu_torch.train import dp_recipe as recipe
 
-    original = dp_recipe.staged_dp_svi
+    original = getattr(recipe, name)
     stages = []
 
     def counted(*args, drive, **kw):
@@ -1824,11 +1844,11 @@ def _stage_launches(torch, psi, loop):
             return out
         return original(*args, drive=counting, **kw)
 
-    dp_recipe.staged_dp_svi = counted
+    setattr(recipe, name, counted)
     try:
         yield stages
     finally:
-        dp_recipe.staged_dp_svi = original
+        setattr(recipe, name, original)
 
 
 def _c7_step_syncs(torch, cfg, n=8192, steps=5):
@@ -2248,6 +2268,277 @@ def phase_amortized(torch, seed):
     return row
 
 
+C9_STEPS = 500       # plan(500, 250): 250 steps hot, 250 recalibrating
+C9_BATCHES = (1, 32, 512)
+C9_REQUESTS = 3      # per batch: one warm call, then timed
+C9_SYNC_ROWS = 8192  # the draw the phase-B step's host syncs are read on
+C9_SAMPLES = 64      # cross_view_sample's draws
+C9_SAMPLE_ROWS = 8
+# the sampler's moments against cross_view_predict's: the largest error of
+# the 64-draw mean over the root of the mean predictive variance (Monte
+# Carlo alone: ~3.5 sd / 8 over 256 entries, ~0.44), and the mean of the
+# draws' variance plus the noise over the mean predictive variance (64
+# draws: ~1 +- 0.03 pooled; the 2048 random features add their own)
+TOL_SAMPLE_MEAN = 0.5
+SAMPLE_VAR_RATIO = (0.8, 1.25)
+# c9's f32 predictive against f64 at the same jitter, scaled by max|ref|
+TOL_PRED_C9 = TOL_PRED
+
+
+def _c9_step_syncs(torch, cfg, n=C9_SYNC_ROWS, steps=5):
+    """Host syncs (`_syncs_per_step`) and ms of a c9 phase-B step (the
+    recalibrated parameters, raw_ard and raw_variance frozen, the calm
+    rate) at c9's widths on an n-row draw, over `steps` steps after two
+    warm-up steps."""
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.data.synthetic import two_view_big
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import mrd_svi
+    from dp_gp_lvm_tpu_torch.train import mrd_recipe
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    Y1, Y2, _ = two_view_big(prng.PRNGKey(cfg.seed), n=n, d1=cfg.views[0],
+                             d2=cfg.views[1], dtype=torch.float32)
+    mcfg = runner._model_config(cfg, None)
+    params = mrd_recipe._as_parameters(mrd_recipe.recalibrated(
+        mrd_svi.init_params(prng.PRNGKey(cfg.seed), (Y1, Y2), mcfg), 0.4,
+        0.25))
+    opt = gp_optimizer(params, lr=cfg.lr, decay_steps=cfg.steps,
+                       freeze=mrd_recipe.FROZEN_STRUCTURE)
+    step = mrd_svi.make_svi_natgrad_step(mcfg, n, opt, rho=0.2)
+    idx = step.indices(prng.fold_in(prng.PRNGKey(1), torch.arange(2 + steps)))
+    for t in range(2):
+        step(t, idx[t], (Y1, Y2))
+    syncs, sites = _syncs_per_step(torch, step, [
+        (t, idx[t], (Y1, Y2)) for t in range(2, 2 + steps)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(2, 2 + steps):
+        step(t, idx[t], (Y1, Y2))
+    torch.cuda.synchronize()
+    return syncs, sites, 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _c9_predictor(torch, raw, mcfg, Y_obs):
+    """make_mrd_svi_predictor (view 0 -> view 1) on the run's parameters:
+    its build (ms, launches) and requests of each batch from the held-out
+    rows (ms a request, launches)."""
+    from dp_gp_lvm_tpu_torch.models import serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    psi.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict = serving.make_mrd_svi_predictor(raw, mcfg, 0, 1)
+    torch.cuda.synchronize()
+    build = dict(build_ms=1e3 * (time.perf_counter() - t0),
+                 build_launches={k: v for k, v in psi.LAUNCHES.items() if v})
+    rows = []
+    for b in C9_BATCHES:
+        times = []
+        psi.reset_launch_counts()
+        for i in range(C9_REQUESTS):
+            y = Y_obs[i * b:(i + 1) * b] if (i + 1) * b <= Y_obs.shape[0] \
+                else Y_obs[:b]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = predict(y)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            if not (mean.shape == var.shape == (b, mcfg.view_dims[1])
+                    and bool(torch.isfinite(mean).all())
+                    and bool((var > 0).all())):
+                raise AssertionError(f"mrd_svi: bad answer at batch {b}")
+        tol, cap = serving._resolve("auto", 150, b)
+        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
+                         step_cap=cap,
+                         ms_per_request=statistics.median(times),
+                         launches_per_request=sum(psi.LAUNCHES.values())
+                         / C9_REQUESTS))
+    return build, rows
+
+
+def phase_mrd_svi(torch, seed):
+    """c9_mrd_svi_bigN through the runner at full width for a short
+    two-phase budget, the resume from its phase-A boundary, the q(u)-only
+    predictor and the cross-view sampler on its parameters."""
+    import shutil
+
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.core.transforms import positive
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import mrd_svi
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop, mrd_recipe
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    cfg = dataclasses.replace(config.get("c9_mrd_svi_bigN"), seed=seed)
+    mcfg = runner._model_config(cfg, None)
+    out = ROOT / "build" / "smoke_mrd_svi"
+    shutil.rmtree(out, ignore_errors=True)
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    # K2's cotangent is zero at a step whose q(u^v) is the prior (the
+    # first): K2 is held on its first call with a nonzero one
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen, \
+            _stage_launches(torch, psi, loop, mrd_recipe,
+                            "staged_mrd_svi") as stages:
+        straight = runner.run(cfg, steps=C9_STEPS, device="cuda",
+                              out=str(out / "straight"))
+    launches = dict(psi.LAUNCHES)
+    steps = loop.STEPS["taken"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    # a K1 and a K2 a view and step; K1 once more a view over every row
+    # for the ELBO; the cross-view evaluation's psi statistics are plain
+    expected.update(suffstats_batched=2 * steps + 2,
+                    psi2_bwd_batched=2 * steps)
+    held = _hold_first_inputs(torch, psi, seen)
+    timing = {}
+    for key, args in seen.items():
+        shape, bound, by = _work_of(key[0], args)
+        ref = getattr(psi, RUN_KERNELS[key[0]][0])
+        timing[_shape_key(key)] = dict(
+            shape=shape, bound_ms=bound, bound_by=by,
+            device_ms=_device_ms(lambda: getattr(psi, key[0])(*args), torch),
+            ms=_timed(lambda: getattr(psi, key[0])(*args), torch),
+            plain_ms=_timed(lambda: ref(*args), torch, reps=3, warmup=1))
+    with np.load(out / "straight" / "stages" / "phaseA.npz") as f:
+        boundary = [[round(float(a), 6) for a in
+                     positive(torch.as_tensor(f[f"views/{v}/raw_ard"]))]
+                    for v in range(2)]
+
+    resumed_dir = out / "resumed"
+    (resumed_dir / "stages").mkdir(parents=True)
+    shutil.copy(out / "straight" / "stages" / "phaseA.npz",
+                resumed_dir / "stages")
+    loop.reset_step_count()
+    resumed = runner.run(cfg, steps=C9_STEPS, device="cuda",
+                         out=str(resumed_dir), resume=True)
+    resumed_steps = loop.STEPS["taken"]
+    a, b = (load_npz(str(d / "params.npz"))
+            for d in (out / "straight", resumed_dir))
+    bitwise = sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    syncs, sync_sites, step_ms = _c9_step_syncs(torch, cfg)
+
+    # the server and the sampler on the run's parameters, requests from
+    # the held-out rows
+    Ys, _ = runner.load_data(cfg, torch.float32, "cuda")
+    Y_obs, Y_tgt = (y[cfg.n:] for y in Ys)
+    del Ys
+    raw = _nested(a)
+    build, requests = _c9_predictor(torch, raw, mcfg, Y_obs)
+    p64 = {k: ([{kk: vv.double() for kk, vv in view.items()}
+                for view in v] if k == "views" else v.double())
+           for k, v in raw.items()}
+    same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    with torch.no_grad():
+        c32 = mrd_svi.constrain_views(raw, mcfg)[0]
+        x_m, x_v = c32["qx_mean"][:64], c32["qx_var"][:64]
+        m32, v32 = mrd_svi.predict_view(raw, x_m, x_v, 1, mcfg)
+        m64, v64 = mrd_svi.predict_view(p64, x_m.double(), x_v.double(), 1,
+                                        mcfg, same)
+    pred_err = dict(
+        mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
+        var=float((v32.double() - v64).abs().max() / v64.abs().max()))
+    rows = {0: Y_obs[:C9_SAMPLE_ROWS]}
+    psi.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draws = mrd_svi.cross_view_sample(prng.PRNGKey(seed), raw, rows, 1,
+                                      mcfg, C9_SAMPLES)
+    torch.cuda.synchronize()
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    sample_launches = dict(psi.LAUNCHES)
+    mean, var, *_ = mrd_svi.cross_view_predict(raw, rows, 1, mcfg)
+    with torch.no_grad():
+        noise = float(mrd_svi.constrain_views(raw, mcfg)[1]["noise"])
+        sample = dict(
+            shape=list(draws.shape),
+            mean_err=float((draws.mean(0) - mean).abs().max()
+                           / var.mean().sqrt()),
+            var_ratio=float((draws.var(0).mean() + noise) / var.mean()),
+            ms=sample_ms, launches={k: v for k, v in
+                                    sample_launches.items() if v})
+
+    finiteness = config.evaluate_checks("", straight)
+    failures = config.evaluate_checks(cfg.name, straight)
+    row = dict(phase="mrd_svi", config=cfg.name, n=cfg.n,
+               batch=straight["batch"], steps=C9_STEPS, steps_taken=steps,
+               phase_steps=dict(a=straight["phase_a_steps"],
+                                b=straight["phase_b_steps"]),
+               stages=stages, seconds=straight["seconds"],
+               ms_per_step_phase_b=straight["ms_per_step"],
+               rows_per_sec=straight["rows_per_sec"],
+               ms_per_step_phase_b_8192=step_ms, host_syncs_per_step=syncs,
+               host_sync_sites=sync_sites, boundary_relevance=boundary,
+               **{k: straight[k] for k in (
+                   "elbo", "noise_min", "cross_view_mse_ratio",
+                   "cross_view_pll_per_dim", "calibration_ratio",
+                   "ard_cross_private_ratio", "ard_relevance",
+                   "cross_view_seconds")},
+               gates=config.CHECKS[cfg.name],
+               launches=launches, expected_launches=expected,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               held_on_the_runs_inputs=held, kernels_at_c9=timing,
+               resumed_steps=resumed_steps,
+               resume_bitwise_equal=bitwise and (
+                   resumed["elbo"] == straight["elbo"]),
+               predictor_build=build, predictor_requests=requests,
+               predictive_f32_vs_f64=pred_err, tol_pred=TOL_PRED_C9,
+               sample=sample, tol_sample_mean=TOL_SAMPLE_MEAN,
+               sample_var_ratio_range=SAMPLE_VAR_RATIO,
+               nonfinite=finiteness, missing=[f for f in failures
+                                              if "MISSING" in f],
+               gates_not_held_at_these_steps=[
+                   f for f in failures if f not in finiteness])
+    emit(row)
+    if row["nonfinite"] or row["missing"]:
+        raise AssertionError(f"mrd_svi: broken result: {row}")
+    if launches != expected or steps != C9_STEPS:
+        raise AssertionError(f"mrd_svi: launched {launches} in {steps} "
+                             f"steps, expected {expected}")
+    if [s["stage"] for s in stages] != ["phaseA hot", "phaseB recal"] or any(
+            s["launches_per_step"] != {"suffstats_batched": 2.0,
+                                       "psi2_bwd_batched": 2.0}
+            for s in stages):
+        raise AssertionError(f"mrd_svi: per-phase launches {stages}")
+    want_keys = {"suffstats_batched T=1 N=1024",
+                 f"suffstats_batched T=1 N={cfg.n}",
+                 "psi2_bwd_batched T=1 N=1024"}
+    if set(timing) != want_keys:
+        raise AssertionError(f"mrd_svi: kernels seen {sorted(timing)}, "
+                             f"expected {sorted(want_keys)}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"mrd_svi: {h['kernel']} disagrees with its "
+                                 f"plain version on the run's inputs: {h}")
+    if resumed_steps != straight["phase_b_steps"] or not row[
+            "resume_bitwise_equal"]:
+        raise AssertionError("mrd_svi: the resumed run did not end on the "
+                             "uninterrupted run's bits")
+    if build["build_launches"] or any(r["launches_per_request"]
+                                      for r in requests) or sample[
+            "launches"]:
+        raise AssertionError("mrd_svi: serving launched a kernel; its psi "
+                             "statistics are plain")
+    if not max(pred_err.values()) <= TOL_PRED_C9:
+        raise AssertionError(f"mrd_svi: f32 predictive off: {pred_err}")
+    if not (sample["shape"] == [C9_SAMPLES, C9_SAMPLE_ROWS, cfg.views[1]]
+            and sample["mean_err"] <= TOL_SAMPLE_MEAN
+            and SAMPLE_VAR_RATIO[0] <= sample["var_ratio"]
+            <= SAMPLE_VAR_RATIO[1]):
+        raise AssertionError(f"mrd_svi: the sampler's moments are off the "
+                             f"predictive's: {sample}")
+    return row
+
+
 TOL_SGPR = 1e-4   # relative, of the bound and the exact marginal
 # (N, M) of the sgpr phase: held at the first; the second, whose K_uu has
 # a condition number near 4e4, is reported only (f32 solves lose about
@@ -2451,6 +2742,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2505,6 +2797,7 @@ def main(argv=None) -> int:
     streamed = phase_stream(torch, args.seed, svi)
     dp = phase_dp_svi(torch, args.seed)
     amort = phase_amortized(torch, args.seed)
+    c9 = phase_mrd_svi(torch, args.seed)
     phase_sgpr(torch, args.seed)
     phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
@@ -2528,7 +2821,8 @@ def main(argv=None) -> int:
                   dp_svi_c7_dp_svi=dp["launches"],
                   amortized_c8_amortized_svi=amort["launches"],
                   amortized_stream_c8_amortized_svi=amort[
-                      "streamed_launches"])
+                      "streamed_launches"],
+                  mrd_svi_c9_mrd_svi_bigN=c9["launches"])
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -2584,7 +2878,20 @@ def main(argv=None) -> int:
                 "c8_streamed_launches_per_step": amort[
                     "streamed_launches_per_step"][name]}
 
+    def at_c9(name):
+        """A kernel at a c9 view's minibatch (T = 1, N = 1024, M = 32,
+        Q = 4, D = 32) on the first inputs the mrd_svi phase's run gave
+        it, and its launches a step there by phase (two views)."""
+        t = c9["kernels_at_c9"][f"{name} T=1 N=1024"]
+        return {"c9_shape": t["shape"], "c9_device_ms": t["device_ms"],
+                "c9_ms": t["ms"], "c9_plain_ms": t["plain_ms"],
+                "c9_bound_ms": t["bound_ms"], "c9_bound_by": t["bound_by"],
+                "c9_launches_per_step": {
+                    s["stage"]: s["launches_per_step"][name]
+                    for s in c9["stages"]}}
+
     c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
+    c9_full = c9["kernels_at_c9"]["suffstats_batched T=1 N=131072"]
     kernels = [
         dict(kernel_row("suffstats_batched", "psi_suffstats.cu", 610,
                         "train", k1),
@@ -2606,7 +2913,13 @@ def main(argv=None) -> int:
              c7_full_n_device_ms=c7_full["device_ms"],
              c7_full_n_bound_ms=c7_full["bound_ms"],
              c7_full_n_ms=c7_full["ms"],
-             c7_full_n_plain_ms=c7_full["plain_ms"]),
+             c7_full_n_plain_ms=c7_full["plain_ms"],
+             **at_c9("suffstats_batched"),
+             c9_full_n_shape=c9_full["shape"],
+             c9_full_n_device_ms=c9_full["device_ms"],
+             c9_full_n_bound_ms=c9_full["bound_ms"],
+             c9_full_n_ms=c9_full["ms"],
+             c9_full_n_plain_ms=c9_full["plain_ms"]),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
@@ -2623,7 +2936,7 @@ def main(argv=None) -> int:
              c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "psi2_bwd_batched"],
              **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched"),
-             **at_c8("psi2_bwd_batched")),
+             **at_c8("psi2_bwd_batched"), **at_c9("psi2_bwd_batched")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],
@@ -2645,6 +2958,7 @@ def main(argv=None) -> int:
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {kernels}")
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     print(card.splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

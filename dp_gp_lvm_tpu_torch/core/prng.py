@@ -13,16 +13,20 @@ words (every word is kept masked to 32 bits). The stream is JAX's default
 - `uniform` sets the mantissa of 1.0 from the top bits and subtracts 1,
   `normal` is `sqrt(2) erfinv(u)` over u in [nextafter(-1, 0), 1) with
   XLA's `ErfInv` polynomials (f32: two branches, f64: three), `randint`
-  is the two-draw modulus construction, and `permutation` sorts by fresh
-  32-bit keys for ceil(3 ln n / ln(2^32 - 1)) rounds.
+  is the two-draw modulus construction, `permutation` sorts by fresh
+  32-bit keys for ceil(3 ln n / ln(2^32 - 1)) rounds, `gumbel` is
+  -log(-log u) over u uniform in [tiny, 1) (JAX's default low-range
+  mode), and `categorical` the Gumbel-max argmax over the logits.
 
 Everything draws on the CPU: a run draws its data and initial parameters
 once and moves them to its device, so a draw does not depend on the
-device. Keys, bits, `randint`, `permutation` and `uniform` match
-`jax.random` bit for bit (`uniform` where minval is 0 or maxval - minval
-is a power of two: elsewhere XLA fuses its multiply-add, which rounds
-once where this rounds twice); `normal` matches it within a few ulps
-(XLA's log1p is copied here; the ulps left are its own rounding).
+device. Keys, bits, `randint`, `permutation`, `uniform` and the
+assignments `categorical` draws match `jax.random` bit for bit
+(`uniform` where minval is 0 or maxval - minval rounds to a power of
+two: elsewhere XLA fuses its multiply-add, which rounds once where this
+rounds twice); `normal` matches it within a few ulps (XLA's log1p is
+copied here; the ulps left are its own rounding), and so does `gumbel`
+in float32 (the logarithms are the host's; float64 agrees to the bit).
 """
 from __future__ import annotations
 
@@ -256,3 +260,37 @@ def permutation(key, n: int):
         order = torch.sort(random_bits(sub, 32, (n,)), stable=True).indices
         x = x[order]
     return x
+
+
+def gumbel(key, shape=(), dtype=torch.float32):
+    """Standard Gumbel values, as `jax.random.gumbel` draws them in its
+    default mode: -log(-log(u)) over u uniform in [tiny, 1), tiny the
+    dtype's smallest normal number. A batch of keys (..., 2) draws
+    key.shape[:-1] + shape at once."""
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(uniform(key, shape, dtype, tiny, 1.0)))
+
+
+def categorical(key, logits, shape=None):
+    """Draws from the categorical distributions softmax(logits) over the
+    last axis of `logits`, as `jax.random.categorical` makes them with
+    replacement: the argmax over K of the logits plus Gumbel values of
+    shape `shape` + (K,). For one key, logits (..., K) has the batch shape
+    logits.shape[:-1], which `shape` (default: that batch) must end with.
+    A batch of keys (B..., 2) draws for each key, as `jax.vmap` over the
+    keys and logits.shape[:len(B)] does: key b reads the logits
+    logits[b], and the result is B + shape. int64 on the CPU."""
+    kb = tuple(key.shape[:-1])
+    logits = torch.as_tensor(logits).cpu()
+    if tuple(logits.shape[:len(kb)]) != kb:
+        raise ValueError(f"logits {tuple(logits.shape)} do not lead with "
+                         f"the keys' batch {kb}")
+    per = tuple(logits.shape[len(kb):])
+    batch = per[:-1]
+    shape = batch if shape is None else tuple(shape)
+    if shape[len(shape) - len(batch):] != batch:
+        raise ValueError(f"shape {shape} does not end with the logits' "
+                         f"batch shape {batch}")
+    g = gumbel(key, shape + per[-1:], logits.dtype)
+    prefix = (1,) * (len(shape) - len(batch))
+    return torch.argmax(g + logits.reshape(kb + prefix + per), dim=-1)

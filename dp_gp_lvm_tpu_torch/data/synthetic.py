@@ -1,7 +1,7 @@
 """Synthetic datasets (counterpart of `dp_gp_lvm_tpu/data/synthetic.py`):
 `toy_gplvm` (c1), `oil_flow_like` (c2), `two_view` (c3), `mocap_like`
-(c4, c5, c6), `pose_like` (c5_pose), `grouped_dims` and `grouped_dims_big`
-(c7). Each takes a key of the
+(c4, c5, c6, c8), `pose_like` (c5_pose), `grouped_dims` and
+`grouped_dims_big` (c7), `two_view_big` (c9). Each takes a key of the
 reference's random stream (`core/prng.py`) and draws what the reference
 draws from it, in the same order, on the CPU; the result is moved to
 `device` (the card unless the caller says "cpu")."""
@@ -78,6 +78,43 @@ def two_view(key, n: int = 100, d1: int = 8, d2: int = 8,
     Y2 = _standardize(_gp_draws(r2, X, torch.cat([ones, off, own]), d2,
                                 noise))
     return Y1.to(device), Y2.to(device), X.to(device)
+
+
+def two_view_big(key, n: int = 131072, d1: int = 32, d2: int = 32,
+                 q_shared: int = 2, q_private: int = 1, noise: float = 0.05,
+                 private_weight: float = 0.5, num_features: int = 64,
+                 lengthscale: float = 1.5, dtype=torch.float64, device=None):
+    """Big-N two views (c9): `two_view`'s shared/private ARD signature
+    through random Fourier features, an O(n) stand-in for its GP draw.
+    View v's frequencies are N(0, 1) draws scaled per latent dim by
+    sqrt(ard_v) / lengthscale (key fold_in(rf, v)), its phases uniform in
+    [0, 2 pi) (fold_in(rf, 100 + v)), its amplitudes fold_in(ra, v); each
+    view is scaled to unit signal, takes noise of standard deviation
+    `noise` (fold_in(rn, v)) and is standardized per column. Returns (Y1,
+    Y2, X), X = [shared, private 1, private 2], on `device` (the card
+    unless the caller says "cpu")."""
+    device = resolve_device(device)
+    q = q_shared + 2 * q_private
+    r0, rf, ra, rn = prng.split(key, 4)
+    X = prng.normal(r0, (n, q), dtype)
+    ones = torch.ones(q_shared, dtype=dtype)
+    own = private_weight * torch.ones(q_private, dtype=dtype)
+    off = torch.zeros(q_private, dtype=dtype)
+    ards = (torch.cat([ones, own, off]), torch.cat([ones, off, own]))
+    Ys = []
+    for v, (ard, d_v) in enumerate(zip(ards, (d1, d2))):
+        freq = prng.normal(prng.fold_in(rf, v), (q, num_features), dtype) * (
+            torch.sqrt(ard)[:, None] / lengthscale)
+        b = prng.uniform(prng.fold_in(rf, 100 + v), (num_features,), dtype,
+                         0.0, 2.0 * math.pi)
+        feats = math.sqrt(2.0 / num_features) * torch.cos(X @ freq + b[None])
+        y = feats @ prng.normal(prng.fold_in(ra, v), (num_features, d_v),
+                                dtype)
+        y = y / y.std(dim=0, correction=0)      # unit signal, then noise
+        y = y + noise * prng.normal(prng.fold_in(rn, v), tuple(y.shape),
+                                    dtype)
+        Ys.append(_standardize(y).to(device))
+    return Ys[0], Ys[1], X.to(device)
 
 
 def grouped_dims(key, n: int = 100, dims_per_group=(6, 6), q: int = 3,

@@ -1,9 +1,11 @@
 """Run a named config end to end (counterpart of `experiments/run.py` for
 the Bayesian GP-LVM, MRD, the DP-GP-LVM, the minibatch SVI-GPLVM, also
-with its amortized q(X), and the minibatch DP-GP-LVM): data -> init -> chunked training (restarts for the
-full-batch models, the SVI loop with checkpoints for `svi_gplvm` and the
-DP-SVI at T = 1, the staged split-init recipe with stage-boundary
-checkpoints for the DP-SVI at T > 1) -> metrics, a JSONL log, a
+with its amortized q(X), the minibatch DP-GP-LVM and the minibatch MRD):
+data -> init -> chunked training (restarts for the full-batch models, the
+SVI loop with checkpoints for `svi_gplvm`, the DP-SVI at T = 1 and the
+MRD-SVI with `--staged off`, the staged split-init recipe with
+stage-boundary checkpoints for the DP-SVI at T > 1, the two-phase recipe
+with its phase-A checkpoint for the MRD-SVI) -> metrics, a JSONL log, a
 `result.json`, a `params.npz`, and the committed regression gates with
 `--check`.
 
@@ -28,6 +30,13 @@ checkpoints for the DP-SVI at T > 1) -> metrics, a JSONL log, a
         --resume      # after an interruption: from <out>/stages
     python -m dp_gp_lvm_tpu_torch.experiments.run c7_dp_svi --device cpu \\
         --f64 --n 256 --steps 40 --batch 32
+    python -m dp_gp_lvm_tpu_torch.experiments.run c9_mrd_svi_bigN --check
+    python -m dp_gp_lvm_tpu_torch.experiments.run c9_mrd_svi_bigN --check \\
+        --resume      # after an interruption: phase B from <out>/stages
+    python -m dp_gp_lvm_tpu_torch.experiments.run c9_mrd_svi_bigN \\
+        --staged off [--stream] --check     # one phase, the config's rates
+    python -m dp_gp_lvm_tpu_torch.experiments.run c9_mrd_svi_bigN \\
+        --device cpu --f64 --n 256 --steps 40 --batch 32
 
 It runs f32 on the card unless `--device cpu` is given. `--f64` is the
 CPU parity mode: the CUDA kernels take float32 only, so it is refused on
@@ -62,10 +71,11 @@ from dp_gp_lvm_tpu_torch.models import (
     dp_svi,
     eval_f64,
     mrd,
+    mrd_svi,
     prediction,
     svi_gplvm,
 )
-from dp_gp_lvm_tpu_torch.train import dp_recipe
+from dp_gp_lvm_tpu_torch.train import dp_recipe, mrd_recipe
 from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer, export_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 from dp_gp_lvm_tpu_torch.train.loop import (
@@ -80,17 +90,21 @@ from dp_gp_lvm_tpu_torch.train.loop import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 MODELS = {"bgplvm": bgplvm, "mrd": mrd, "dp_gp_lvm": dp_gp_lvm,
-          "svi_gplvm": svi_gplvm, "dp_svi": dp_svi}
+          "svi_gplvm": svi_gplvm, "dp_svi": dp_svi, "mrd_svi": mrd_svi}
+SVI_MODELS = ("svi_gplvm", "dp_svi", "mrd_svi")
 SVI_BATCH = 1024        # rows a step of the SVI configs (the reference's)
 DP_SVI_BATCH = 2048     # rows a step of the DP-SVI configs (the reference's)
 SVI_TEST_ROWS = 256     # held-out rows the SVI imputation metric reads
 GROUPED_TEST_ROWS = 512  # held-out rows drawn beside c7's training rows
 MRD_PREDICT_STEPS = 400  # latent-inference steps of the cross-view metric
+MRD_SVI_TEST_ROWS = 512  # held-out rows drawn beside c9's training rows
+MRD_SVI_PREDICT_STEPS = 300  # the minibatch MRD's cross-view inference
 
 
 def load_data(cfg, dtype, device):
     """(Y, source tag) of the config's dataset, drawn from the reference's
-    key `PRNGKey(cfg.seed)`; Y is the tuple of views for MRD. The oil-flow
+    key `PRNGKey(cfg.seed)`; Y is the tuple of views for MRD (c9's with
+    its 512 held-out rows last, from the same draw). The oil-flow
     surrogate is drawn from key 0 whatever the config's seed, and at its
     fixed 1000 x 12, as the reference's loader does without a data
     directory."""
@@ -123,6 +137,14 @@ def load_data(cfg, dtype, device):
             key, n=cfg.n + GROUPED_TEST_ROWS,
             dims_per_group=grouped_dims_per_group(cfg.d), q=cfg.q, **kw)
         return Y, "synthetic:grouped_big"
+    if cfg.dataset == "two_view_big":
+        # the held-out rows are the last MRD_SVI_TEST_ROWS of one draw,
+        # at the views' own standardization
+        Y1, Y2, _ = synthetic.two_view_big(
+            key, n=cfg.n + MRD_SVI_TEST_ROWS, d1=cfg.views[0],
+            d2=cfg.views[1], q_shared=2, q_private=1, private_weight=0.5,
+            **kw)
+        return (Y1, Y2), "synthetic:two_view_big"
     raise ValueError(f"dataset {cfg.dataset!r} is not ported")
 
 
@@ -169,12 +191,18 @@ def ard_cross_private_ratio(rel) -> float:
 
 def _cross_view(trained, Ys_train, Ys_test, mcfg, num_steps) -> dict:
     """The cross-view metrics on the held-out rows: observe view 0, predict
-    view 1; the baseline predicts the training split's mean of view 1."""
+    view 1; the baseline predicts the training split's mean of view 1. MRD
+    rebuilds its posterior caches from the training views; the minibatch
+    MRD serves from its q(u^v) alone."""
     Y1_test, Y2_test = Ys_test
     t0 = time.perf_counter()
-    mean, var, *_ = prediction.predict_view_from_views(
-        trained, list(Ys_train), mcfg, observed={0: Y1_test}, target_view=1,
-        num_steps=num_steps)
+    if isinstance(mcfg, mrd_svi.Config):
+        mean, var, *_ = mrd_svi.cross_view_predict(
+            trained, {0: Y1_test}, 1, mcfg, num_steps=num_steps)
+    else:
+        mean, var, *_ = prediction.predict_view_from_views(
+            trained, list(Ys_train), mcfg, observed={0: Y1_test},
+            target_view=1, num_steps=num_steps)
     if mean.is_cuda:
         torch.cuda.synchronize(mean.device)
     seconds = time.perf_counter() - t0
@@ -184,7 +212,8 @@ def _cross_view(trained, Ys_train, Ys_test, mcfg, num_steps) -> dict:
         base = float(torch.mean((Ys_train[1].mean(dim=0) - Y2_test) ** 2))
         pll = float(prediction.gaussian_predictive_loglik(
             Y2_test, mean, var, ones) / ones.numel())
-        rel = mrd.ard_relevance(trained).cpu().numpy()
+        rel = (mrd_svi if isinstance(mcfg, mrd_svi.Config)
+               else mrd).ard_relevance(trained).cpu().numpy()
     return {
         "cross_view_mse": mse,
         "cross_view_mse_baseline": base,
@@ -274,6 +303,8 @@ def _model_config(cfg, batch):
                              ard_init=1.0 / cfg.q, amortized=cfg.amortized,
                              noise_floor=cfg.noise_floor,
                              qx_var_floor=cfg.qx_var_floor)
+    if cfg.model == "mrd_svi":
+        return mrd_svi.config_from_experiment(cfg, batch)
     return svi_gplvm.Config(num_latent=cfg.q, num_inducing=cfg.m,
                             batch=batch or SVI_BATCH,
                             psi2_block=cfg.psi2_block,
@@ -297,13 +328,17 @@ def _svi_chunk(device, log_every, steps, stop_after):
 
 def _resident_chunks(step_fn, key, chunk, batch, Y):
     """run_chunk(done) -> (chunk,) losses of the steps done, ...,
-    done + chunk - 1 on the resident Y: step t draws its rows with
-    `randint(fold_in(key, t), (batch,), 0, N)` (int32), so the sequence
-    depends on neither the chunk size nor a restart; a chunk's indices
-    are drawn on the host in one call and copied once."""
+    done + chunk - 1 on the resident Y (the tuple of aligned views for the
+    MRD-SVI): step t draws its rows with `randint(fold_in(key, t),
+    (batch,), 0, N)` (int32), so the sequence depends on neither the chunk
+    size nor a restart; a chunk's indices are drawn on the host in one
+    call and copied once."""
+    first = Y[0] if isinstance(Y, tuple) else Y
+
     def run_chunk(done):
         keys = prng.fold_in(key, torch.arange(done, done + chunk))
-        idx = dp_svi.minibatch_indices(keys, batch, Y.shape[0]).to(Y.device)
+        idx = dp_svi.minibatch_indices(keys, batch, first.shape[0]).to(
+            first.device)
         return torch.stack([step_fn(done + i, idx[i], Y)
                             for i in range(chunk)])
     return run_chunk
@@ -350,6 +385,12 @@ def _svi_step(cfg, mcfg, n_total, opt, stream):
     if cfg.model == "dp_svi":
         return dp_svi.make_dp_svi_step(mcfg, n_total, opt, rho=0.3,
                                        rho_phi=0.1, streaming=stream)
+    if cfg.model == "mrd_svi":
+        # one K1 and one K2 a view and step: the blend reads the gradient
+        # pass's statistics
+        return mrd_svi.make_svi_natgrad_step(
+            mcfg, n_total, opt, rho=0.2, streaming=stream,
+            qu_trust=100.0 if cfg.amortized else None)
     # the amortized model's q(u) blend in a trust region (G's RMS
     # eigenvalue and the mean's step capped at 100)
     return svi_gplvm.make_svi_natgrad_step(
@@ -360,7 +401,8 @@ def _svi_step(cfg, mcfg, n_total, opt, stream):
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
                inject_nonfinite_at, stream):
-    """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1): q(u)
+    """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1; the
+    MRD-SVI with `--staged off`, Y the tuple of its aligned views): q(u)
     by stochastic natural gradient, the rest by `gp_optimizer`, in chunks
     of steps with one host read each.
 
@@ -369,9 +411,11 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
     on the device. Streamed (`stream`): Y is written to `out/y_stream.f32`
     and a `data.stream.ChunkStream` (seed + 7, the native loader on the
     card) draws and gathers each chunk on the host; the step gets the rows,
-    never Y. Returns (params, s per step after the first chunk, seconds,
-    result keys)."""
-    n_total = Y.shape[0]
+    never Y (the MRD-SVI's views concatenated column-wise, which its step
+    splits again). Returns (params, s per step after the first chunk,
+    seconds, result keys)."""
+    Y_flat = torch.cat(Y, dim=1) if isinstance(Y, tuple) else Y
+    n_total = Y_flat.shape[0]
     # amortized: inducing points at the full rate cluster under the
     # encoder's compressed latent cloud and drive cond(K_uu) past the f32
     # whitening limit; at the hyper rate they keep it conditioned
@@ -409,11 +453,11 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                     f"fast-forward needs a chunk-multiple checkpoint "
                     f"(chunk={chunk})")
             y_path = stream_lib.write_rows(
-                os.path.join(out, "y_stream.f32"), Y.cpu().numpy())
+                os.path.join(out, "y_stream.f32"), Y_flat.cpu().numpy())
             # the card's feed is the native gather, never the numpy one
             loader = (stream_lib.StreamLoader if device.type == "cuda"
                       else stream_lib.open_loader)(y_path, n_total,
-                                                   Y.shape[1])
+                                                   Y_flat.shape[1])
             cs = feed.enter_context(stream_lib.ChunkStream(
                 loader, batch=mcfg.batch, chunk=chunk, seed=cfg.seed + 7,
                 skip_chunks=start // chunk, device=device))
@@ -423,7 +467,7 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
 
             def run_chunk(done):
                 idx, y = cs.next_chunk()
-                return scan_chunk(state, idx, y.to(Y.dtype))[1]
+                return scan_chunk(state, idx, y.to(Y_flat.dtype))[1]
         else:
             _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
             run_chunk = _resident_chunks(step_fn, r1, chunk, mcfg.batch, Y)
@@ -451,14 +495,16 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
     return opt.params, per_step, total, extra
 
 
-def _train_staged_dp_svi(cfg, Y, mcfg, steps, *, device, log_every, ngd_lr,
-                         logger, out, resume, inject_nonfinite_at):
-    """The DP-SVI at T > 1 through the staged split-init recipe
-    (`train/dp_recipe.py`) on the resident Y: the init drawn from
-    PRNGKey(seed), the minibatches from PRNGKey(seed + 100); boundaries in
-    `out/stages`, and with `resume` the recipe restarts after the last one
-    written. Returns (params, stage 2c's s per step, seconds, result
-    keys)."""
+def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
+                  resume, inject_nonfinite_at, **recipe_kw):
+    """A staged recipe on the resident rows: the DP-SVI at T > 1 through
+    `train/dp_recipe.py` (a boundary after each stage), or the MRD-SVI, Y
+    its tuple of views, through `train/mrd_recipe.py` (the phase-A
+    boundary). The init is drawn from PRNGKey(seed), the minibatches from
+    PRNGKey(seed + 100); the boundaries are written to `out/stages`, and
+    with `resume` the recipe restarts after the last one. `recipe_kw`
+    goes to the recipe. Returns (params, the last stage's s per step,
+    seconds, result keys)."""
     chunk = _svi_chunk(device, log_every, steps, None)
 
     def drive(step_fn, state, n_steps, key, Y_cur, label=""):
@@ -473,18 +519,22 @@ def _train_staged_dp_svi(cfg, Y, mcfg, steps, *, device, log_every, ngd_lr,
             inject_nonfinite_at=inject_nonfinite_at, label=label)
         return state, wall / (state.step - start), wall
 
-    state, _, info = dp_recipe.staged_dp_svi(
+    mrd_views = cfg.model == "mrd_svi"
+    recipe, last = ((mrd_recipe.staged_mrd_svi, "phase B") if mrd_views
+                    else (dp_recipe.staged_dp_svi, "stage 2c"))
+    state, _, info = recipe(
         prng.PRNGKey(cfg.seed), prng.PRNGKey(cfg.seed + 100), Y, mcfg,
-        Y.shape[0], steps=steps, chunk=chunk, lr=cfg.lr, ngd_lr=ngd_lr,
-        drive=drive,
+        (Y[0] if mrd_views else Y).shape[0], steps=steps, chunk=chunk,
+        lr=cfg.lr, drive=drive,
         ckpt_dir=os.path.join(out, "stages") if out is not None else None,
-        resume=resume)
+        resume=resume, **recipe_kw)
     per_step, total = info.pop("per_step"), info.pop("seconds")
     extra = {"batch": mcfg.batch, **info,
              "rows_per_sec": _rows_per_sec(mcfg.batch, per_step)}
     print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step "
-          f"in stage 2c, {extra['rows_per_sec']} rows/s", flush=True)
-    return state.params, per_step, total, extra
+          f"in {last}, {extra['rows_per_sec']} rows/s", flush=True)
+    params = mrd_svi.nested(state.params) if mrd_views else state.params
+    return params, per_step, total, extra
 
 
 def group_recovery(phi, labels) -> dict:
@@ -527,7 +577,8 @@ def run(cfg, *, steps: int | None = None, device=None,
         ckpt_every: int = 0, resume: bool = False,
         stop_after: int | None = None,
         inject_nonfinite_at: int | None = None,
-        impute_steps: int = 200, stream: bool = False) -> dict:
+        impute_steps: int = 200, stream: bool = False,
+        staged: bool | None = None) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout, a tuple of
@@ -542,23 +593,35 @@ def run(cfg, *, steps: int | None = None, device=None,
     `stream` (feed the minibatches from the host, `data/stream.py`: Y is
     written to `out/y_stream.f32`); `impute_steps` sizes the imputation's
     latent inference. MRD's cross-view prediction takes 400 inference
-    steps, the reference's."""
+    steps, the minibatch MRD's 300, the reference's. `staged` (the
+    MRD-SVI: the config's `staged` when None) trains through the two-phase
+    recipe, with `resume` from its phase-A boundary in `out/stages`."""
     device = resolve_device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
                          "CPU parity mode (--device cpu)")
     if cfg.model not in MODELS:
         raise ValueError(f"model {cfg.model!r} is not ported to the runner")
-    svi = cfg.model in ("svi_gplvm", "dp_svi")
-    staged = cfg.model == "dp_svi" and cfg.t > 1
+    svi = cfg.model in SVI_MODELS
+    staged_dp = cfg.model == "dp_svi" and cfg.t > 1
+    staged_mrd = cfg.model == "mrd_svi" and (
+        cfg.staged if staged is None else staged)
     if stream and not svi:
         raise ValueError("--stream feeds the SVI configs only")
-    if staged and (stream or ckpt_every or stop_after or params is not None):
+    single_stage_only = (stream or ckpt_every or stop_after
+                         or params is not None)
+    if staged_dp and single_stage_only:
         raise ValueError(
             "the staged DP-SVI recipe (T > 1) runs on the resident rows from "
             "its own T = 1 init and checkpoints at its stage boundaries: "
             "--stream, --ckpt-every, --stop-after and given parameters "
             "take the single-stage loop only")
+    if staged_mrd and single_stage_only:
+        raise ValueError(
+            "the staged MRD-SVI recipe runs on the resident views from its "
+            "own init and checkpoints at its phase boundary: --stream, "
+            "--ckpt-every, --stop-after and given parameters take the "
+            "single-phase loop only (--staged off)")
     if device.type == "cuda":
         pin_full_f32()
     steps = steps or cfg.steps
@@ -567,7 +630,7 @@ def run(cfg, *, steps: int | None = None, device=None,
         os.makedirs(out, exist_ok=True)
     logger = JsonlLogger(os.path.join(out, "train.jsonl") if out else None)
 
-    views = cfg.model == "mrd"
+    views = cfg.model in ("mrd", "mrd_svi")
     if data is None:
         Y, tag = load_data(cfg, dtype, device)
     else:
@@ -582,6 +645,10 @@ def run(cfg, *, steps: int | None = None, device=None,
     if grouped:
         # the first cfg.n rows train; the rest are the held-out rows
         Y_train, Y_test = Y[:cfg.n], Y[cfg.n:]
+    elif cfg.dataset == "two_view_big":
+        # the same for each view: the held-out rows are the draw's last
+        Y_train = tuple(y[:cfg.n] for y in Y)
+        Ys_test = tuple(y[cfg.n:] for y in Y)
     elif imputing:
         Y_train, Y_test = (torch.as_tensor(y, dtype=dtype, device=device)
                            for y in holdout_split(Y.cpu().numpy()))
@@ -637,11 +704,12 @@ def run(cfg, *, steps: int | None = None, device=None,
         return p0, opt, elbo_now
 
     extra, restart_elbos = {}, []
-    if staged:
-        trained, per_step, total, extra = _train_staged_dp_svi(
+    if staged_dp or staged_mrd:
+        trained, per_step, total, extra = _train_staged(
             cfg, Y_train, mcfg, steps, device=device, log_every=log_every,
-            ngd_lr=ngd_lr, logger=logger, out=out, resume=resume,
-            inject_nonfinite_at=inject_nonfinite_at)
+            logger=logger, out=out, resume=resume,
+            inject_nonfinite_at=inject_nonfinite_at,
+            **({"ngd_lr": ngd_lr} if staged_dp else {}))
     elif svi:
         trained, per_step, total, extra = _train_svi(
             cfg, Y_train, mcfg, init(0), steps, device=device,
@@ -649,7 +717,19 @@ def run(cfg, *, steps: int | None = None, device=None,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
             stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
             stream=stream)
-    if cfg.model == "dp_svi":
+        if cfg.model == "mrd_svi":
+            trained = mrd_svi.nested(trained)
+    if cfg.model == "mrd_svi":
+        logger.close()
+        # the reference's gated ELBO: the bound in the run's dtype over
+        # every training row (on the card K1 over all rows of each view)
+        with torch.no_grad():
+            terms = {"elbo": float(mrd_svi.elbo(trained, list(Y_train),
+                                                mcfg)),
+                     "noise_min": float(torch.min(torch.stack([
+                         c["noise"] for c in mrd_svi.constrain_views(
+                             trained, mcfg)])))}
+    elif cfg.model == "dp_svi":
         logger.close()
         # the reference's gated ELBO: the model's own bound (f32 on the
         # card) over every training row, one K1 launch
@@ -703,12 +783,14 @@ def run(cfg, *, steps: int | None = None, device=None,
               f"recall={result['ard_recall_top2']} "
               f"sep={result['ard_separation_ratio']:.1f}", flush=True)
     if views:
-        result.update(_cross_view(trained, Y_train, Ys_test, mcfg,
-                                  MRD_PREDICT_STEPS))
+        result.update(_cross_view(
+            trained, Y_train, Ys_test, mcfg,
+            MRD_SVI_PREDICT_STEPS if svi else MRD_PREDICT_STEPS))
         print(f"[{cfg.name}] cross-view mse={result['cross_view_mse']:.4f} "
               f"(baseline {result['cross_view_mse_baseline']:.4f}, ratio "
               f"{result['cross_view_mse_ratio']:.3f}) "
               f"pll={result['cross_view_pll_per_dim']:.4f} "
+              f"calib={result['calibration_ratio']:.2f} "
               f"sig={result['ard_cross_private_ratio']:.4f} "
               f"({result['cross_view_seconds']:.2f}s)", flush=True)
     if imputing:
@@ -799,8 +881,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="SVI configs: resume from the latest checkpoint "
                          "in <out>/ckpt (the staged DP-SVI: after the last "
-                         "stage boundary in <out>/stages); the run "
-                         "continues bit for bit")
+                         "stage boundary in <out>/stages; the staged "
+                         "MRD-SVI: phase B from <out>/stages/phaseA.npz); "
+                         "the run continues bit for bit")
     ap.add_argument("--stop-after", type=int, default=None,
                     help="SVI configs: stop the loop after this many steps "
                          "(schedules still span --steps)")
@@ -812,7 +895,13 @@ def main(argv=None) -> int:
                     help="SVI configs: feed the minibatches from the host "
                          "(data/stream.py: an mmap of <out>/y_stream.f32 "
                          "and a native gather into pinned buffers) instead "
-                         "of gathering them from a resident Y")
+                         "of gathering them from a resident Y (the MRD-SVI "
+                         "with --staged off only)")
+    ap.add_argument("--staged", choices=("on", "off"), default=None,
+                    help="mrd_svi: the two-phase recipe of "
+                         "train/mrd_recipe.py (on) or one phase at the "
+                         "config's rates (off); default: the config's "
+                         "`staged`")
     args = ap.parse_args(argv)
 
     cfg = config_lib.get(args.config)
@@ -829,7 +918,8 @@ def main(argv=None) -> int:
                  ckpt_every=args.ckpt_every, resume=args.resume,
                  stop_after=args.stop_after,
                  inject_nonfinite_at=args.inject_nonfinite_at,
-                 stream=args.stream)
+                 stream=args.stream,
+                 staged=None if args.staged is None else args.staged == "on")
     if args.check:
         failures = config_lib.evaluate_checks(cfg.name, result)
         if failures:

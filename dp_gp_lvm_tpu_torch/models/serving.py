@@ -1,8 +1,8 @@
 """Build-once serving closures for trained models (counterpart of
 `dp_gp_lvm_tpu/models/serving.py`: the Bayesian GP-LVM's, the
 DP-GP-LVM's and the minibatch DP-GP-LVM's imputers, the amortized models'
-one-pass encoder imputer and MRD's cross-view predictor; its MRD-SVI
-predictor is not ported yet).
+one-pass encoder imputer, MRD's cross-view predictor and the minibatch
+MRD's q(u)-only one).
 
 Serving means repeated missing-data imputation against a FIXED trained
 model. A factory does all the train-data-dependent work once (the
@@ -31,6 +31,7 @@ from dp_gp_lvm_tpu_torch.models import (
     dp_gp_lvm,
     dp_svi,
     mrd,
+    mrd_svi,
     prediction,
     svi_gplvm,
 )
@@ -235,5 +236,43 @@ def make_mrd_cross_view_predictor(params, Ys, config: mrd.Config,
         with torch.no_grad():
             return prediction.predict_from_latent(
                 caches[target_view], m_s, s_s, kernel=config.kernel)
+
+    return predict
+
+
+def make_mrd_svi_predictor(params, config: mrd_svi.Config,
+                           observed_view: int, target_view: int,
+                           num_steps: int = 150, lr: float = 0.05,
+                           tol: float | str | None = "auto",
+                           device=None) -> Callable:
+    """Cross-view serving of the minibatch MRD (`models/mrd_svi.py`):
+    returns `predict(y_observed_view) -> (mean, var)` of the target view on
+    `device` (the card unless the caller says "cpu"), from the explicit
+    q(u^v) alone, with no training data in the closure. The build puts
+    the parameters on the device once, factors the two views' K_uu (a
+    host read each) and, for a resident q(X), predicts the nearest-latent
+    init's candidate table of the observed view; a request then runs the
+    latent inference and the target view's predictive, with no
+    factorization. tol="auto" picks the inference mode per batch size."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        pin_full_f32()
+    params = mrd_svi.on_device(params, device)
+    policy = mrd_svi._policy(config, None)
+    obs = mrd_svi._view_cache(params, observed_view, config, policy)
+    c_t, L_t = mrd_svi._view_cache(params, target_view, config, policy)
+    init_table = (None if "qx_mean" not in params
+                  else mrd_svi.candidate_table(params, observed_view, config))
+    scfg = mrd_svi._svi_config(config)
+
+    def predict(y_obs):
+        y_obs = y_obs.to(device)
+        t, steps = _resolve(tol, num_steps, y_obs.shape[0])
+        m0 = mrd_svi._latent_init(params, {observed_view: y_obs}, config,
+                                  init_table)
+        m_s, s_s, _ = mrd_svi._infer([(obs, y_obs)], m0, config, steps, lr,
+                                     t)
+        with torch.no_grad():
+            return svi_gplvm._predict(c_t, L_t, m_s, s_s, scfg)
 
     return predict

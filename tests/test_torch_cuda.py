@@ -1076,3 +1076,127 @@ def test_encoder_imputer_defaults_to_the_card(card):
         assert mean.shape == var.shape == (8, 32)
         assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
     assert psi.LAUNCHES == _launched()
+
+
+# c9_mrd_svi_bigN, one view: its 1024 aligned minibatch rows at M = 32,
+# Q = 4 and 32 dims a view (the generic instantiations)
+C9 = dict(T=1, N=1024, M=32, Q=4, D=32)
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_hold_at_c9_view_shape_and_k1_over_its_rows(card):
+    """K1 and K2 at a c9 view's minibatch, and K1 over all 131072 training
+    rows of a view (the gated ELBO's one call a view), against their plain
+    versions in f64."""
+    for shape, k2 in ((C9, True), (dict(C9, N=131072), False)):
+        a, f = _inputs(card, False, **shape)
+        psi.reset_launch_counts()
+        got = psi.suffstats_batched(f["vs"], f["ards"], f["mu"], f["s"],
+                                    f["Zs"], f["Y"])
+        want = psi.suffstats_batched_reference(
+            a["vs"], a["ards"], a["mu"], a["s"], a["Zs"], a["Y"],
+            block_n=8192)
+        assert max(_scaled_errors(got, want)) <= TOL_K1
+        if k2:
+            got = psi.psi2_bwd_batched(f["vs"], f["ards"], f["mu"], f["s"],
+                                       f["Zs"], f["G"])
+            want = psi.psi2_bwd_batched_reference(
+                a["vs"], a["ards"], a["mu"], a["s"], a["Zs"], a["G"])
+            assert max(_scaled_errors(got, want)) <= TOL_K2
+        assert psi.LAUNCHES == _launched(suffstats_batched=1,
+                                         psi2_bwd_batched=int(k2))
+
+
+def _c9_setup(card, dtype=torch.float32, n=4096):
+    """c9's widths (two views of 32 dims, Q=4, M=32, 1024 aligned rows a
+    step, its noise floor) on a two_view_big draw, parameters at init."""
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.models import mrd_svi
+
+    Y1, Y2, _ = synthetic.two_view_big(prng.PRNGKey(0), n=n, dtype=dtype,
+                                       device=card)
+    cfg = mrd_svi.Config(num_latent=4, num_inducing=32, num_views=2,
+                         batch=1024, psi2_block=8192, noise_floor=0.05,
+                         view_dims=(32, 32))
+    return (Y1, Y2), cfg, mrd_svi.init_params(prng.PRNGKey(0), (Y1, Y2),
+                                              cfg)
+
+
+@pytest.mark.cuda
+def test_mrd_svi_step_f32_on_card_matches_plain_f64(card):
+    """c9's step: f32 through K1 and K2 once a view (the blend reads the
+    gradient pass's statistics), against the plain f64 step on the same
+    rows at the same jitter, from each view's optimal q(u^v): the loss,
+    the gradients, and each view's blended q(u^v) after the step (which
+    the optimizer's first update, +-lr wherever a gradient is near zero,
+    does not reach)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import mrd_svi
+    from dp_gp_lvm_tpu_torch.train.loop import flat_leaves, gp_optimizer
+
+    Ys, cfg, p32 = _c9_setup(card)
+    Ys64 = tuple(Y.double() for Y in Ys)
+    _, _, p64 = _c9_setup(card, torch.float64)
+    cfg64 = cfg._replace(use_fused=False)
+    with torch.no_grad():                  # the same init, not a re-PCA
+        for (k, a), b in zip(flat_leaves(p32).items(),
+                             flat_leaves(p64).values()):
+            b.copy_(a.double())
+        # q(u^v) off the prior, where the bound does not depend on Psi2
+        # and the hypers' and Z's gradients vanish: each view's full-data
+        # optimum, in f64, given to both
+        best = mrd_svi.set_optimal_qu(p64, Ys64, cfg64)
+        for v in range(2):
+            for k in ("u_mean", "raw_u_scale"):
+                p64["views"][v][k].copy_(best["views"][v][k])
+                p32["views"][v][k].copy_(best["views"][v][k].float())
+    same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    n = Ys[0].shape[0]
+    idx = torch.arange(0, n, 4, device=card)
+    names = ("qx_mean", "views.0.z", "views.1.raw_ard", "views.0.raw_noise")
+    psi.reset_launch_counts()
+    loss32 = -mrd_svi.elbo_minibatch(p32, [Y[idx] for Y in Ys], idx, n, cfg,
+                                     same)
+    g32 = torch.autograd.grad(loss32, [flat_leaves(p32)[k] for k in names])
+    assert psi.LAUNCHES == _launched(suffstats_batched=2, psi2_bwd_batched=2)
+    loss64 = -mrd_svi.elbo_minibatch(p64, [Y[idx] for Y in Ys64], idx, n,
+                                     cfg64, same)
+    g64 = torch.autograd.grad(loss64, [flat_leaves(p64)[k] for k in names])
+    loss32, loss64 = float(loss32.detach()), float(loss64.detach())
+    assert abs(loss32 - loss64) <= 1e-4 * abs(loss64)
+    assert max(_scaled_errors(g32, g64)) <= 5e-3   # chip_smoke's TOL_GRAD
+    steps = {}
+    for name, p, c in (("f32", p32, cfg), ("f64", p64, cfg64)):
+        steps[name] = mrd_svi.make_svi_natgrad_step(
+            c, n, gp_optimizer(p, lr=2e-2, decay_steps=10), rho=0.2,
+            policy=same)
+    psi.reset_launch_counts()
+    steps["f32"](0, idx, Ys)
+    assert psi.LAUNCHES == _launched(suffstats_batched=2, psi2_bwd_batched=2)
+    steps["f64"](0, idx, Ys64)
+    for v in range(2):
+        for k in ("u_mean", "raw_u_scale"):
+            assert max(_scaled_errors([p32["views"][v][k]],
+                                      [p64["views"][v][k]])) <= 1e-3, (v, k)
+
+
+@pytest.mark.cuda
+def test_mrd_svi_predictor_and_sampler_default_to_the_card(card):
+    """Given CPU parameters and no device, the q(u)-only predictor and the
+    cross-view sampler run on the card (no kernel: their psi statistics
+    are plain) and answer there."""
+    from dp_gp_lvm_tpu_torch.models import mrd_svi, serving
+
+    Ys, cfg, params = _c9_setup(card, n=2048)
+    cpu = mrd_svi.on_device(params, "cpu")
+    psi.reset_launch_counts()
+    predict = serving.make_mrd_svi_predictor(cpu, cfg, 0, 1, num_steps=10)
+    mean, var = predict(Ys[0][:8].cpu())
+    f = mrd_svi.cross_view_sample(prng.PRNGKey(1), cpu, {0: Ys[0][:8].cpu()},
+                                  1, cfg, num_samples=4, num_steps=10,
+                                  num_features=64)
+    assert psi.LAUNCHES == _launched()
+    assert mean.device.type == var.device.type == f.device.type == "cuda"
+    assert mean.shape == var.shape == (8, 32) and f.shape == (4, 8, 32)
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+    assert bool(torch.isfinite(f).all())

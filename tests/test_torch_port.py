@@ -138,3 +138,33 @@ def test_dp_kl_terms_match_jax():
     np.testing.assert_allclose(
         float(stick_breaking.alpha_log_prior(torch.tensor(2.0))),
         float(jsb.alpha_log_prior(2.0)), rtol=1e-15)
+
+
+def test_mrd_svi_entry_points_without_a_card_raise(monkeypatch):
+    """The minibatch MRD's entry points (its data, the q(u)-only predictor,
+    the cross-view sampler, the runner) refuse with no card and no device,
+    and run where the caller names the CPU."""
+    from dp_gp_lvm_tpu_torch.core.config import get
+    from dp_gp_lvm_tpu_torch.data.synthetic import two_view_big
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import mrd_svi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    key = prng.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        two_view_big(key, n=16, d1=3, d2=2)
+    Y1, Y2, _ = two_view_big(key, n=16, d1=3, d2=2, device="cpu")
+    cfg = mrd_svi.Config(num_latent=2, num_inducing=4, num_views=2)
+    params = mrd_svi.init_params(key, (Y1, Y2), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.make_mrd_svi_predictor(params, cfg, 0, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mrd_svi.cross_view_sample(key, params, {0: Y1[:2]}, 1, cfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run(get("c9_mrd_svi_bigN"), steps=1)
+    mean, var = serving.make_mrd_svi_predictor(params, cfg, 0, 1, num_steps=2,
+                                               device="cpu")(Y1[:2])
+    f = mrd_svi.cross_view_sample(key, params, {0: Y1[:2]}, 1, cfg, 3,
+                                  num_steps=2, num_features=8, device="cpu")
+    assert mean.device.type == f.device.type == "cpu"
+    assert mean.shape == var.shape == (2, 2) and f.shape == (3, 2, 2)

@@ -3,7 +3,9 @@ on the CPU: the configs and gates (`core/config.py`), `evaluate_checks`
 on crafted results and on the committed artifacts, `pose_like`'s
 deterministic part, the missing-data holdout, the ARD metrics,
 `JsonlLogger`, and `experiments/run.py` end to end at tiny f64 widths
-(c3 on the reference runner's own data and first init)."""
+(c3 on the reference runner's own data and first init; c9 staged, and in
+one phase streamed, with the draw of `two_view_big` held against the
+reference's)."""
 import dataclasses
 import importlib.util
 import io
@@ -33,7 +35,7 @@ ARTIFACTS = {"c1_bgplvm_toy": "c1", "c2_sparse_oil": "c2",
              "c3_mrd_twoview": "c3", "c4_dp_mocap": "c4",
              "c5_dp_missing": "c5", "c5_pose_missing": "c5_pose",
              "c6_svi_bigN": "c6", "c7_dp_svi": "c7",
-             "c8_amortized_svi": "c8"}
+             "c8_amortized_svi": "c8", "c9_mrd_svi_bigN": "c9"}
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +60,7 @@ def test_configs_and_gates_are_the_references():
         assert config.CHECKS[name] == jconfig.CHECKS[name]
     assert set(config.CHECKS) == set(ARTIFACTS)
     with pytest.raises(KeyError, match="unknown config"):
-        config.get("c9_mrd_svi_bigN")
+        config.get("c10_not_a_config")
 
 
 CRAFTED = {
@@ -396,3 +398,72 @@ def test_c3_run_on_the_references_data_and_init(tmp_path):
     assert runner.ard_cross_private_ratio(rel) == want
     np.testing.assert_allclose(result["ard_cross_private_ratio"], want,
                                rtol=1e-12)
+
+
+def test_load_data_two_view_big_is_the_references_draw():
+    """c9's dataset: n + 512 rows of the RFF two-view draw on the config's
+    key, each view standardized over all of them (the held-out rows are the
+    last 512), against `synthetic.two_view_big` of the JAX package."""
+    cfg = dataclasses.replace(config.get("c9_mrd_svi_bigN"), n=600 - 512)
+    Ys, tag = runner.load_data(cfg, torch.float64, "cpu")
+    assert tag == "synthetic:two_view_big"
+    want = jsyn.two_view_big(jax.random.PRNGKey(cfg.seed), n=600, d1=32,
+                             d2=32, q_shared=2, q_private=1,
+                             private_weight=0.5, dtype=jnp.float64)
+    assert len(Ys) == 2
+    for got, w in zip(Ys, want[:2]):
+        assert tuple(got.shape) == (600, 32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged",
+                                                       "one_phase_streamed"])
+def test_c9_run_gives_every_key_of_the_reference(staged, monkeypatch,
+                                                  tmp_path):
+    """c9 at n=256 for 16 steps of 32 rows, f64: through the two-phase
+    recipe (its boundary in `stages`, then the resume from it to the same
+    bits), or in one phase with the streamed feed (`--staged off
+    --stream`); every key of the reference's result, every gated metric
+    present and finite, the raw parameters exported with their views. The
+    cross-view inference takes 20 steps here (300 in a run)."""
+    monkeypatch.setattr(runner, "MRD_SVI_PREDICT_STEPS", 20)
+    cfg = dataclasses.replace(config.get("c9_mrd_svi_bigN"), n=256)
+    kw = dict(steps=16, device="cpu", dtype=torch.float64, batch=32,
+              log_every=4, staged=staged, stream=not staged)
+    result = runner.run(cfg, out=str(tmp_path / "a"), **kw)
+    want = set(_artifact("c9_mrd_svi_bigN"))
+    if staged:
+        assert set(result) == want
+        assert (result["phase_a_steps"], result["phase_b_steps"]) == (8, 8)
+    else:
+        assert set(result) - want == {"streamed", "native_loader",
+                                      "feed_wait_ms_per_chunk"}
+        assert want - set(result) == {
+            "phase_a_steps", "phase_b_steps", "recipe", "hot_lr",
+            "reset_variance", "reset_noise"}
+    assert config.evaluate_checks("", result) == []     # finite throughout
+    for key in config.CHECKS["c9_mrd_svi_bigN"]:
+        assert math.isfinite(result[key]), key
+    assert result["batch"] == 32
+    exported = load_npz(str(tmp_path / "a" / "params.npz"))
+    assert {"qx_mean", "raw_qx_var", "views/0/u_mean",
+            "views/1/raw_u_scale"} <= set(exported)
+    assert exported["qx_mean"].shape == (256, cfg.q)
+    if staged:
+        (tmp_path / "b" / "stages").mkdir(parents=True)
+        os.replace(tmp_path / "a" / "stages" / "phaseA.npz",
+                   tmp_path / "b" / "stages" / "phaseA.npz")
+        resumed = runner.run(cfg, out=str(tmp_path / "b"), resume=True, **kw)
+        assert resumed["elbo"] == result["elbo"]
+        again = load_npz(str(tmp_path / "b" / "params.npz"))
+        for k, v in exported.items():
+            assert np.array_equal(again[k], v), k
+
+
+def test_c9_staged_refuses_the_single_phase_options(tmp_path):
+    cfg = dataclasses.replace(config.get("c9_mrd_svi_bigN"), n=256)
+    for kw in (dict(stream=True), dict(ckpt_every=4), dict(stop_after=4)):
+        with pytest.raises(ValueError, match="staged MRD-SVI"):
+            runner.run(cfg, steps=8, device="cpu", dtype=torch.float64,
+                       out=str(tmp_path), **kw)
