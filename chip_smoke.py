@@ -63,6 +63,25 @@ imputation servers built on them. Phases, each printing one JSON line:
          kept, and the kernel is held on them against its plain version
          in f64 (at its phase's tolerance) and repeated to the bit; at
          c3's widths each is also timed there (device ms, bound)
+  files  writes an oil-flow DataTrn.txt / DataTrnLbls.txt (1000 x 12,
+         oil_flow_like) and a 1024-frame AMC file (mocap_like's 59
+         channels and a constant one) under build/smoke_files; the native
+         AMC parser (g++-built from csrc/amc_parser.cpp) must equal the
+         Python parser and the written values to the bit; the runner
+         trains c2_sparse_oil and c4_dp_mocap from those files
+         (`--data-dir`) for 100 steps: the loaded Y must be the written
+         data standardized (the constant channel dropped), the launches
+         those the runs phase holds, and each kernel is held on the run's
+         first inputs
+  lbfgs  fit_lbfgs (optax's L-BFGS with its zoom line search) takes 20
+         steps of c2's bound from one init, in f32 through the kernels and
+         in f64 through the plain path, on the card: both losses must
+         fall; K6, K5 and K2 must launch once a loss evaluation (line-
+         search trials included), and are held on the run's first
+         inputs; evaluations a step and each step's f32 and f64 loss are
+         printed
+  mfu    the c4 step's mfu_pct and roofline_pct (perf.mfu, the H100's
+         peaks) at the train phase's ms a step; printed, not held
   serve_mrd  make_mrd_cross_view_predictor on that c3 run's parameters
          observes view 0 of held-out rows and predicts view 1, batches 1,
          4, 8, 32; the build must launch K6 and K5 once per view, and
@@ -180,12 +199,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
-# FP32 outside the tensor cores, and the special-function units
-# (16 per SM x 132 SMs x 1.98 GHz boost) that evaluate exp.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-SFU_OP_PER_S = 16 * 132 * 1.98e9
+# the H100 SXM's peaks: HBM3 rate, FP32 outside the tensor cores, exp on
+# the special-function units; `main` takes them from the port's cost
+# model (`dp_gp_lvm_tpu_torch/perf/flops.py::H100_PEAKS`), one place
+PEAKS = {}
 
 C4 = dict(T=20, N=1024, M=64, Q=10, D=59)
 C2 = dict(N=1000, M=50, Q=10, D=12)
@@ -247,8 +264,8 @@ def _bound_ms(bytes_moved, flops, exps):
     """Least time for the work: max(bytes / HBM rate, FP32 flops / FP32
     peak, exponentials / SFU rate), and which of bytes or operations
     bounds it."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(flops / FP32_FLOP_PER_S, exps / SFU_OP_PER_S)
+    t_bytes = bytes_moved / PEAKS["hbm_bytes_per_s"]
+    t_ops = max(flops / PEAKS["f32_flops"], exps / PEAKS["exp_per_s"])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -274,7 +291,7 @@ def k1_fp32_issue_ms(T, N, M, Q, D):
     Psi1^T Y element one FFMA."""
     pairs = M * (M + 1) // 2
     instr = T * N * (pairs * (2 * Q + 4) + M * (4 * Q + 4) + M * D)
-    return 1e3 * instr / (FP32_FLOP_PER_S / 2)
+    return 1e3 * instr / (PEAKS["f32_flops"] / 2)
 
 
 def k2_work(T, N, M, Q):
@@ -1497,6 +1514,207 @@ def phase_runs(torch, seed):
                                      f"inputs: {h}")
         rows[name] = row
     return rows
+
+
+FILES_DIR = ROOT / "build" / "smoke_files"   # the files phase's datasets
+FILES_CONFIGS = ("c2_sparse_oil", "c4_dp_mocap")
+# the AMC file's bones: 59 varying channels and, last, one constant one
+AMC_BONES = [(f"bone{i}", 3) for i in range(19)] + [("lhand", 2),
+                                                    ("rhand", 1)]
+TOL_FILE_Y = 1e-6    # f32 rounding of standardized data, |Y| up to ~4
+
+
+def _write_files(torch, seed):
+    """The files phase's two datasets in the formats the loaders read: an
+    oil-flow DataTrn.txt / DataTrnLbls.txt (1000 x 12, the port's
+    oil_flow_like of the seed) and a 1024-frame AMC file of mocap_like's
+    59 channels plus a constant one. Returns the written arrays."""
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.data import mocap, synthetic
+
+    FILES_DIR.mkdir(parents=True, exist_ok=True)
+    key = prng.PRNGKey(seed)
+    oil, labels, _ = synthetic.oil_flow_like(key, n=1000, d=12,
+                                             device="cpu")
+    oil = oil.numpy()
+    np.savetxt(FILES_DIR / "DataTrn.txt", oil, fmt="%.17g")
+    np.savetxt(FILES_DIR / "DataTrnLbls.txt",
+               np.eye(3)[labels.numpy()], fmt="%d")
+    Y, _ = synthetic.mocap_like(key, n=1024, d=59, device="cpu")
+    frames = np.c_[Y.numpy(), np.full(1024, 12.5)]
+    amc = mocap.write_amc(str(FILES_DIR / "walk.amc"), frames, AMC_BONES)
+    return oil, labels.numpy(), frames, amc
+
+
+def phase_files(torch, seed):
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.data import mocap, native_io
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    oil, labels, frames, amc = _write_files(torch, seed)
+    if not native_io.available():
+        raise AssertionError("files: the native AMC parser did not build")
+    t0 = time.perf_counter()
+    native = native_io.parse_amc_native(amc)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python, _ = mocap.parse_amc(amc)
+    t_python = time.perf_counter() - t0
+    parsers = dict(native_equals_python_bitwise=bool(
+        np.array_equal(native, python)), equals_written=bool(
+        np.array_equal(native, frames)), shape=list(native.shape),
+        native_ms=1e3 * t_native, python_ms=1e3 * t_python)
+    emit(dict(phase="files", parsers=parsers, dir=str(FILES_DIR)))
+    if not (parsers["native_equals_python_bitwise"]
+            and parsers["equals_written"]):
+        raise AssertionError(f"files: the AMC parsers disagree: {parsers}")
+
+    # the written data as the loaders standardize them (the mocap
+    # preprocessing drops the constant channel; oil flow has none)
+    written = {"c2_sparse_oil": (mocap.preprocess(oil), "file:oil_flow"),
+               "c4_dp_mocap": (mocap.preprocess(frames), "amc:walk.amc")}
+    rows = {}
+    for name in FILES_CONFIGS:
+        cfg = dataclasses.replace(config.get(name), seed=seed)
+        want, tag = written[name]
+        Y, got_tag = runner.load_data(cfg, torch.float32, "cuda",
+                                      str(FILES_DIR))
+        y_err = float(np.abs(Y.cpu().double().numpy() - want).max())
+        psi.reset_launch_counts()
+        loop.reset_step_count()
+        with _first_inputs(torch, psi) as seen:
+            result = runner.run(cfg, steps=RUN_STEPS, device="cuda",
+                                out=str(RUN_OUT / f"files_{name}"),
+                                data_dir=str(FILES_DIR))
+        launches = dict(psi.LAUNCHES)
+        steps = loop.STEPS["taken"]
+        expected = _expected_run_launches(psi, cfg, steps)
+        held = _hold_first_inputs(torch, psi, seen)
+        row = dict(phase="files", config=name, data=result["data"],
+                   shape=list(Y.shape), loaded_vs_written_max_abs=y_err,
+                   tol=TOL_FILE_Y, steps=RUN_STEPS, steps_taken=steps,
+                   ms_per_step=result["ms_per_step"],
+                   seconds=result["seconds"], elbo=result["elbo"],
+                   nonfinite=config.evaluate_checks("", result),
+                   launches=launches, expected_launches=expected,
+                   held_on_the_runs_inputs=held)
+        emit(row)
+        if result["data"] != tag or got_tag != tag:
+            raise AssertionError(f"files: {name} read {result['data']}, "
+                                 f"expected {tag}")
+        if Y.shape != want.shape or not y_err <= TOL_FILE_Y:
+            raise AssertionError(f"files: {name} loaded {tuple(Y.shape)}, "
+                                 f"{y_err} off the written data")
+        if row["nonfinite"]:
+            raise AssertionError(f"files: {name} gave a broken result")
+        if launches != expected:
+            raise AssertionError(f"files: {name} launched {launches}, "
+                                 f"expected {expected}")
+        if {h["kernel"] for h in held} != {k for k, n in launches.items()
+                                          if n}:
+            raise AssertionError(f"files: {name} held {held} against the "
+                                 f"kernels it launched, {launches}")
+        for h in held:
+            if not (h["scaled_err"] <= h["tol"]
+                    and h["repeat_bitwise_equal"]):
+                raise AssertionError(f"files: {name}: {h['kernel']} "
+                                     f"disagrees with its plain version on "
+                                     f"the run's inputs: {h}")
+        rows[name] = row
+    return rows
+
+
+LBFGS_STEPS = 20
+
+
+def phase_lbfgs(torch, seed):
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.data.synthetic import oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train.loop import fit_lbfgs
+
+    c2 = CONFIGS["c2_sparse_oil"]
+    key = prng.PRNGKey(seed)
+    Y, _, _ = oil_flow_like(key, n=c2.n, d=c2.d, dtype=torch.float32)
+    cfg = bgplvm.Config(num_latent=c2.q, num_inducing=c2.m)
+    params = bgplvm.init_params(key, Y, cfg)
+    # both widths at the f32 jitter; f64 through the plain path
+    jitter = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    runs = {}
+    for width, cfg_w, dtype in (("f32", cfg, torch.float32),
+                                ("f64", cfg._replace(use_fused=False),
+                                 torch.float64)):
+        p0 = {k: v.detach().to(dtype) for k, v in params.items()}
+        info = {}
+        psi.reset_launch_counts()
+        with _first_inputs(torch, psi) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, losses = fit_lbfgs(
+                lambda p, y: -bgplvm.elbo(p, y, cfg_w, jitter), p0,
+                (Y.to(dtype),), LBFGS_STEPS, info=info)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        runs[width] = dict(losses=losses.tolist(), seconds=seconds,
+                           evaluations=info["evaluations"],
+                           evaluations_per_step=info["linesearch_steps"],
+                           launches=dict(psi.LAUNCHES),
+                           held=_hold_first_inputs(torch, psi, seen))
+    f32, f64 = runs["f32"], runs["f64"]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi1=f32["evaluations"], psi2_single=f32["evaluations"],
+                    psi2_bwd_batched=f32["evaluations"])
+    gap = [abs(a - b) / abs(b) for a, b in zip(f32["losses"],
+                                                f64["losses"])]
+    row = dict(phase="lbfgs", config="c2_sparse_oil", shape=C2,
+               steps=LBFGS_STEPS, f32=f32, f64=f64,
+               f32_vs_f64_loss_rel_gap=gap, expected_launches=expected)
+    emit(row)
+    for width, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"lbfgs: non-finite {width} loss")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"lbfgs: the {width} loss did not fall: "
+                                 f"{r['losses']}")
+    if f32["launches"] != expected:
+        raise AssertionError(f"lbfgs: f32 launched {f32['launches']}, "
+                             f"expected {expected}: K6, K5 and K2 once an "
+                             f"evaluation")
+    if any(f64["launches"].values()):
+        raise AssertionError(f"lbfgs: the plain f64 path launched "
+                             f"{f64['launches']}")
+    for h in f32["held"]:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"lbfgs: {h['kernel']} disagrees with its "
+                                 f"plain version on the run's inputs: {h}")
+    return row
+
+
+def phase_mfu(torch, train):
+    """The c4 step's model-flops utilization and roofline share at the
+    train phase's ms a step (printed, not held: the step is host-bound)."""
+    from dp_gp_lvm_tpu_torch.perf import H100_PEAKS, dp_step_costs, mfu
+
+    costs = dp_step_costs(n=C4["N"], d=C4["D"], q=C4["Q"], m=C4["M"],
+                          t=C4["T"])
+    ms = train["ms_per_step_median"]
+    row = dict(phase="mfu", config="c4_dp_mocap", shape=C4, ms_per_step=ms,
+               costs=costs._asdict(), peaks=H100_PEAKS,
+               **mfu(ms / 1e3, costs))
+    emit(row)
+    if not all(math.isfinite(v) for v in row.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"mfu: non-finite reading {row}")
+    return row
 
 
 C6_STEPS = 200       # two chunks of the runner's 100 at this step count
@@ -2755,7 +2973,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from dp_gp_lvm_tpu_torch.core.types import pin_full_f32
     from dp_gp_lvm_tpu_torch.ops import build, psi
+    from dp_gp_lvm_tpu_torch.perf import H100_PEAKS
 
+    PEAKS.update(H100_PEAKS)
     pin_full_f32()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2792,6 +3012,9 @@ def main(argv=None) -> int:
     cavi = phase_cavi(torch, dp_params, dp_Y, dp_cfg)
     linear = phase_linear(torch, args.seed)
     runs = phase_runs(torch, args.seed)
+    files = phase_files(torch, args.seed)
+    lbfgs = phase_lbfgs(torch, args.seed)
+    phase_mfu(torch, train)
     serve3 = phase_serve_mrd(torch, args.seed)
     svi = phase_svi(torch, args.seed)
     streamed = phase_stream(torch, args.seed, svi)
@@ -2816,6 +3039,9 @@ def main(argv=None) -> int:
                   serve_mrd_build=serve3["build_launches"],
                   **{f"runs_{name}": row["launches"]
                      for name, row in runs.items()},
+                  **{f"files_{name}": row["launches"]
+                     for name, row in files.items()},
+                  lbfgs_f32=lbfgs["f32"]["launches"],
                   svi_c6_svi_bigN=svi["launches"],
                   stream_c6_svi_bigN=streamed["launches"],
                   dp_svi_c7_dp_svi=dp["launches"],

@@ -21,7 +21,6 @@ buffer is waited for (a CUDA event) before the worker refills it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import pathlib
 import subprocess
@@ -31,9 +30,10 @@ import time
 import numpy as np
 import torch
 
+from dp_gp_lvm_tpu_torch.data import native_io
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "stream_loader.cpp"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
 GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _LOCK = threading.Lock()
@@ -44,25 +44,16 @@ _BUILD_ERR: str | None = None
 def library_path() -> pathlib.Path:
     """Where the loader is built: the name carries a hash of the source
     and the flags, so an edited source is rebuilt."""
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libstream_loader-{digest}.so"
+    return native_io.library_path(SOURCE, "stream_loader", GXX_FLAGS)
 
 
 def _build_and_load():
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        try:
-            subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                           check=True, capture_output=True, text=True,
-                           timeout=300)
-        except (OSError, subprocess.SubprocessError) as e:
-            global _BUILD_ERR
-            _BUILD_ERR = f"native build failed: {e}"
-            return None
-        os.replace(tmp, so)
+    try:
+        so = native_io.build_library(SOURCE, "stream_loader", GXX_FLAGS)
+    except (OSError, subprocess.SubprocessError) as e:
+        global _BUILD_ERR
+        _BUILD_ERR = f"native build failed: {e}"
+        return None
     lib = ctypes.CDLL(str(so))
     lib.sl_open.restype = ctypes.c_void_p
     lib.sl_open.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]

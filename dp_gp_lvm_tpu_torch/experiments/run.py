@@ -37,10 +37,13 @@ with its phase-A checkpoint for the MRD-SVI) -> metrics, a JSONL log, a
         --staged off [--stream] --check     # one phase, the config's rates
     python -m dp_gp_lvm_tpu_torch.experiments.run c9_mrd_svi_bigN \\
         --device cpu --f64 --n 256 --steps 40 --batch 32
+    python -m dp_gp_lvm_tpu_torch.experiments.run c4_dp_mocap \\
+        --data-dir DIR [--plots] [--ard-lr 0.05] [--debug-nans]
 
-It runs f32 on the card unless `--device cpu` is given. `--f64` is the
-CPU parity mode: the CUDA kernels take float32 only, so it is refused on
-the card. Data, initial parameters and the SVI minibatches are the
+`--data-dir` trains c2 on DIR's `DataTrn.txt` and the mocap configs on
+its first `.amc` file. It runs f32 on the card unless `--device cpu` is
+given. `--f64` is the CPU parity mode: the CUDA kernels take float32
+only, so it is refused on the card. Data, initial parameters and the SVI minibatches are the
 reference's draws: its `jax.random` keys in its order, through
 `core/prng.py`, on the CPU (a draw does not depend on the device).
 """
@@ -59,13 +62,15 @@ import time
 import numpy as np
 import torch
 
+from dp_gp_lvm_tpu_torch import viz
 from dp_gp_lvm_tpu_torch.core import config as config_lib
 from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.core.types import pin_full_f32, resolve_device
+from dp_gp_lvm_tpu_torch.data import mocap, oil_flow, synthetic
 from dp_gp_lvm_tpu_torch.data import stream as stream_lib
-from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.models import (
+    amortized,
     bgplvm,
     dp_gp_lvm,
     dp_svi,
@@ -101,13 +106,24 @@ MRD_SVI_TEST_ROWS = 512  # held-out rows drawn beside c9's training rows
 MRD_SVI_PREDICT_STEPS = 300  # the minibatch MRD's cross-view inference
 
 
-def load_data(cfg, dtype, device):
+def _first_amc(data_dir: str | None) -> str | None:
+    """The first `.amc` file of `data_dir` by name, or None."""
+    if not data_dir:
+        return None
+    amcs = sorted(f for f in os.listdir(data_dir) if f.endswith(".amc"))
+    return os.path.join(data_dir, amcs[0]) if amcs else None
+
+
+def load_data(cfg, dtype, device, data_dir: str | None = None):
     """(Y, source tag) of the config's dataset, drawn from the reference's
     key `PRNGKey(cfg.seed)`; Y is the tuple of views for MRD (c9's with
-    its 512 held-out rows last, from the same draw). The oil-flow
-    surrogate is drawn from key 0 whatever the config's seed, and at its
-    fixed 1000 x 12, as the reference's loader does without a data
-    directory."""
+    its 512 held-out rows last, from the same draw). With `data_dir` the
+    oil-flow configs read its `DataTrn.txt` and the mocap configs its
+    first `.amc` file (`data/oil_flow.py`, `data/mocap.py`: every frame,
+    D what the channel preprocessing keeps), each falling back to its
+    surrogate where the file is missing, as the reference does. The
+    oil-flow surrogate is drawn from key 0 whatever the config's seed, and
+    at its fixed 1000 x 12."""
     kw = dict(dtype=dtype, device=device)
     key = prng.PRNGKey(cfg.seed)
     if cfg.dataset == "two_view":
@@ -121,15 +137,14 @@ def load_data(cfg, dtype, device):
                                    q_total=cfg.q, **kw)
         return Y, "toy_gplvm"
     if cfg.dataset == "oil_flow":
-        Y, _, _ = synthetic.oil_flow_like(prng.PRNGKey(0), n=1000, d=12,
-                                          **kw)
-        return Y, "synthetic:oil_flow_like"
+        Y, _, tag = oil_flow.load_oil_flow(data_dir, **kw)
+        return Y, tag
     if cfg.dataset == "pose":
         Y, _, _ = synthetic.pose_like(key, n=cfg.n, **kw)
         return Y, "synthetic:pose_like"
     if cfg.dataset == "mocap":
-        Y, _ = synthetic.mocap_like(key, n=cfg.n, d=cfg.d, **kw)
-        return Y, "synthetic:mocap_like"
+        return mocap.load_mocap(_first_amc(data_dir), n=cfg.n, d=cfg.d,
+                                rng=key, **kw)
     if cfg.dataset == "grouped_big":
         # cfg.n training rows and the held-out rows from ONE draw (a
         # second draw would be another function, unimputable)
@@ -344,12 +359,24 @@ def _resident_chunks(step_fn, key, chunk, batch, Y):
     return run_chunk
 
 
+def _raise_nonfinite(cfg, losses, done):
+    """--debug-nans: raise at the first non-finite loss of a chunk whose
+    first step is `done`."""
+    bad = (~torch.isfinite(losses)).nonzero()
+    if bad.numel():
+        i = int(bad[0])
+        raise FloatingPointError(f"[{cfg.name}] --debug-nans: non-finite "
+                                 f"loss {float(losses[i])} at step {done + i}")
+
+
 def _chunk_loop(cfg, run_chunk, start, n_steps, chunk, *, out, logger,
-                inject_nonfinite_at, label="", on_chunk_end=None):
+                inject_nonfinite_at, label="", on_chunk_end=None,
+                debug_nans=False):
     """Whole chunks of steps from `start` until `n_steps` is reached (past
     it where the chunk does not divide it, as the reference's loop), one
     host read of the chunk's losses each; the abort (exit 3) after three
-    chunks with a non-finite loss. Returns (steps done, seconds a step
+    chunks with a non-finite loss, or with `debug_nans` a
+    FloatingPointError at the first. Returns (steps done, seconds a step
     after the first chunk (NaN with one chunk), seconds)."""
     guard = NonFiniteGuard()
     t0 = time.perf_counter()
@@ -361,6 +388,8 @@ def _chunk_loop(cfg, run_chunk, start, n_steps, chunk, *, out, logger,
             t_post = time.perf_counter()      # the first chunk builds
         if inject_nonfinite_at is not None:   # fault injection (tests)
             losses[max(0, inject_nonfinite_at - done):] = math.nan
+        if debug_nans:
+            _raise_nonfinite(cfg, losses, done)
         if guard.update(losses, done):
             _abort_nonfinite(cfg, out, guard, done + chunk)
         done += chunk
@@ -400,7 +429,7 @@ def _svi_step(cfg, mcfg, n_total, opt, stream):
 
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
-               inject_nonfinite_at, stream):
+               inject_nonfinite_at, stream, debug_nans=False):
     """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1; the
     MRD-SVI with `--staged off`, Y the tuple of its aligned views): q(u)
     by stochastic natural gradient, the rest by `gp_optimizer`, in chunks
@@ -480,7 +509,7 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
         done, per_step, total = _chunk_loop(
             cfg, run_chunk, start, loop_steps, chunk, out=out, logger=logger,
             inject_nonfinite_at=inject_nonfinite_at,
-            on_chunk_end=on_chunk_end)
+            on_chunk_end=on_chunk_end, debug_nans=debug_nans)
     extra["rows_per_sec"] = _rows_per_sec(mcfg.batch, per_step)
     feed_note = ""
     if stream:
@@ -496,7 +525,8 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
 
 
 def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
-                  resume, inject_nonfinite_at, **recipe_kw):
+                  resume, inject_nonfinite_at, debug_nans=False,
+                  **recipe_kw):
     """A staged recipe on the resident rows: the DP-SVI at T > 1 through
     `train/dp_recipe.py` (a boundary after each stage), or the MRD-SVI, Y
     its tuple of views, through `train/mrd_recipe.py` (the phase-A
@@ -516,7 +546,8 @@ def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
         state.step, _, wall = _chunk_loop(
             cfg, _resident_chunks(step_fn, key, chunk, mcfg.batch, Y_cur),
             start, n_steps, chunk, out=out, logger=logger,
-            inject_nonfinite_at=inject_nonfinite_at, label=label)
+            inject_nonfinite_at=inject_nonfinite_at, label=label,
+            debug_nans=debug_nans)
         return state, wall / (state.step - start), wall
 
     mrd_views = cfg.model == "mrd_svi"
@@ -578,7 +609,8 @@ def run(cfg, *, steps: int | None = None, device=None,
         stop_after: int | None = None,
         inject_nonfinite_at: int | None = None,
         impute_steps: int = 200, stream: bool = False,
-        staged: bool | None = None) -> dict:
+        staged: bool | None = None, data_dir: str | None = None,
+        plots: bool = False, debug_nans: bool = False) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout, a tuple of
@@ -595,7 +627,18 @@ def run(cfg, *, steps: int | None = None, device=None,
     latent inference. MRD's cross-view prediction takes 400 inference
     steps, the minibatch MRD's 300, the reference's. `staged` (the
     MRD-SVI: the config's `staged` when None) trains through the two-phase
-    recipe, with `resume` from its phase-A boundary in `out/stages`."""
+    recipe, with `resume` from its phase-A boundary in `out/stages`.
+    `data_dir` holds the oil-flow or AMC files (`load_data`). `plots`
+    draws the latent scatter, the ARD weights and, for the DP-GP-LVM, the
+    assignments and sticks into `out` (matplotlib, asked for before
+    training). `debug_nans` raises FloatingPointError at the first
+    non-finite loss: every full-batch step's (one host read a step), every
+    SVI chunk's; `main --debug-nans` also trains under autograd's anomaly
+    mode."""
+    if plots:
+        if out is None:
+            raise ValueError("--plots needs an output directory")
+        viz.require_matplotlib()
     device = resolve_device(device)
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
@@ -632,7 +675,7 @@ def run(cfg, *, steps: int | None = None, device=None,
 
     views = cfg.model in ("mrd", "mrd_svi")
     if data is None:
-        Y, tag = load_data(cfg, dtype, device)
+        Y, tag = load_data(cfg, dtype, device, data_dir)
     else:
         def given(y):
             return torch.tensor(np.asarray(y), dtype=dtype, device=device)
@@ -673,7 +716,12 @@ def run(cfg, *, steps: int | None = None, device=None,
         return model.init_params(prng.PRNGKey(cfg.seed + r), Y_train, mcfg)
 
     def loss_fn(p, *ys):
-        return model.loss(p, list(ys) if views else ys[0], mcfg)
+        loss = model.loss(p, list(ys) if views else ys[0], mcfg)
+        if debug_nans and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"[{cfg.name}] --debug-nans: non-finite loss "
+                f"{float(loss.detach())}")
+        return loss
 
     print(f"[{cfg.name}] data={tag} model={cfg.model} steps={steps} "
           f"device={device}"
@@ -708,7 +756,7 @@ def run(cfg, *, steps: int | None = None, device=None,
         trained, per_step, total, extra = _train_staged(
             cfg, Y_train, mcfg, steps, device=device, log_every=log_every,
             logger=logger, out=out, resume=resume,
-            inject_nonfinite_at=inject_nonfinite_at,
+            inject_nonfinite_at=inject_nonfinite_at, debug_nans=debug_nans,
             **({"ngd_lr": ngd_lr} if staged_dp else {}))
     elif svi:
         trained, per_step, total, extra = _train_svi(
@@ -716,7 +764,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             log_every=log_every, hyper_lr=hyper_lr, ngd_lr=ngd_lr,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
             stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
-            stream=stream)
+            stream=stream, debug_nans=debug_nans)
         if cfg.model == "mrd_svi":
             trained = mrd_svi.nested(trained)
     if cfg.model == "mrd_svi":
@@ -840,8 +888,45 @@ def run(cfg, *, steps: int | None = None, device=None,
                    else model.constrain(trained))
         with open(os.path.join(out, "result.json"), "w") as fh:
             json.dump(result, fh, indent=2)
+    if plots:
+        _plot(cfg, trained, Y_train, out)
     print(json.dumps(result), flush=True)
     return result
+
+
+def _plot(cfg, trained, Y_train, out):
+    """The reference's --plots: the latent scatter (an amortized model's
+    encoded training rows, at most 4096), the ARD weights and, for the
+    DP-GP-LVM, the assignments and the sticks, as PNGs in `out`."""
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    with torch.no_grad():
+        if "qx_mean" in trained:
+            qx = trained["qx_mean"]
+        else:
+            ys = Y_train if isinstance(Y_train, tuple) else (Y_train,)
+            qx, _ = amortized.encode(trained, torch.cat(
+                [y[:4096] for y in ys], dim=1))
+        viz.plot_latent_scatter(host(qx),
+                                path=os.path.join(out, "latent.png"))
+        ard = os.path.join(out, "ard.png")
+        if cfg.model == "bgplvm":
+            viz.plot_ard_weights(host(bgplvm.constrain(trained)["ard"]),
+                                 path=ard)
+        elif cfg.model in ("mrd", "mrd_svi"):
+            viz.plot_ard_weights(host(MODELS[cfg.model].ard_relevance(
+                trained)), path=ard)
+        elif cfg.model == "dp_gp_lvm":
+            hyp = dp_gp_lvm.constrain(trained)
+            viz.plot_ard_weights(host(hyp["ard"]), path=ard)
+            viz.plot_assignment_matrix(
+                host(hyp["phi"]), path=os.path.join(out, "assignments.png"))
+            if hyp["gamma1"].numel():
+                viz.plot_stick_weights(
+                    host(hyp["gamma1"]), host(hyp["gamma2"]),
+                    path=os.path.join(out, "sticks.png"))
+    print(f"plots saved to {out}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -897,6 +982,18 @@ def main(argv=None) -> int:
                          "and a native gather into pinned buffers) instead "
                          "of gathering them from a resident Y (the MRD-SVI "
                          "with --staged off only)")
+    ap.add_argument("--data-dir", default=None,
+                    help="directory with real oil-flow (DataTrn.txt, "
+                         "DataTrnLbls.txt) or AMC files; without the files "
+                         "the surrogate is drawn")
+    ap.add_argument("--ard-lr", type=float, default=None,
+                    help="override config.ard_lr (raw_ard's own Adam rate)")
+    ap.add_argument("--plots", action="store_true",
+                    help="save latent/ARD/assignment plots to the out dir "
+                         "(needs matplotlib; checked before training)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly mode and a finite check of every "
+                         "step's loss: raise at the first non-finite one")
     ap.add_argument("--staged", choices=("on", "off"), default=None,
                     help="mrd_svi: the two-phase recipe of "
                          "train/mrd_recipe.py (on) or one phase at the "
@@ -909,17 +1006,23 @@ def main(argv=None) -> int:
                                    ("lr", args.lr)) if v}
     if args.seed is not None:
         overrides["seed"] = args.seed
+    if args.ard_lr is not None:
+        overrides["ard_lr"] = args.ard_lr
     cfg = dataclasses.replace(cfg, **overrides)
     out = args.out or str(ROOT / "build" / "runs" / cfg.name)
-    result = run(cfg, steps=args.steps, device=args.device,
-                 dtype=torch.float64 if args.f64 else torch.float32,
-                 out=out, log_every=args.log_every, hyper_lr=args.hyper_lr,
-                 ngd_lr=args.ngd_lr, batch=args.batch,
-                 ckpt_every=args.ckpt_every, resume=args.resume,
-                 stop_after=args.stop_after,
-                 inject_nonfinite_at=args.inject_nonfinite_at,
-                 stream=args.stream,
-                 staged=None if args.staged is None else args.staged == "on")
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        result = run(cfg, steps=args.steps, device=args.device,
+                     dtype=torch.float64 if args.f64 else torch.float32,
+                     out=out, log_every=args.log_every,
+                     hyper_lr=args.hyper_lr, ngd_lr=args.ngd_lr,
+                     batch=args.batch, ckpt_every=args.ckpt_every,
+                     resume=args.resume, stop_after=args.stop_after,
+                     inject_nonfinite_at=args.inject_nonfinite_at,
+                     stream=args.stream,
+                     staged=(None if args.staged is None
+                             else args.staged == "on"),
+                     data_dir=args.data_dir, plots=args.plots,
+                     debug_nans=args.debug_nans)
     if args.check:
         failures = config_lib.evaluate_checks(cfg.name, result)
         if failures:

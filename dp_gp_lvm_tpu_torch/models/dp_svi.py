@@ -48,7 +48,7 @@ from dp_gp_lvm_tpu_torch.core.transforms import (
 )
 from dp_gp_lvm_tpu_torch.core.types import JitterPolicy, pin_full_f32
 from dp_gp_lvm_tpu_torch.distributions import gaussian, stick_breaking
-from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf, linear
 from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members, tri_solve
 from dp_gp_lvm_tpu_torch.models import amortized
@@ -602,27 +602,39 @@ class _Predictive(NamedTuple):
     c: dict
     U: torch.Tensor
     W: torch.Tensor
+    kernel: str = "ard_rbf"
 
 
 @torch.no_grad()
 def _predictive(params, config: Config, policy: JitterPolicy | None = None):
-    if dispatch._kernel(config.kernel) is not ard_rbf:
-        raise _not_ported(f"DP-SVI prediction with the {config.kernel!r} "
-                          f"kernel", "models/dp_svi.py")
     c = {k: v.detach() for k, v in constrain(params, config).items()}
     mean, S, _ = _moments(c["u_h"], c["u_lam"])
     L = _kuu_factors(c, config, policy or JitterPolicy())
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     linv = tri_solve(L, eye)
-    return _Predictive(c, linv.mT @ mean, linv.mT @ (S - eye) @ linv)
+    return _Predictive(c, linv.mT @ mean, linv.mT @ (S - eye) @ linv,
+                       config.kernel)
 
 
-def _row_psi2(variance, ard, mu, s, Z):
-    """Per-atom per-row Psi2 (T, N*, M, M), plain torch."""
+def _row_stats(kernel, variance, ard, mu, s, Z):
+    """Per-atom test-point statistics, plain torch: Psi1 (T, N*, M), the
+    per-row Psi2 (T, N*, M, M) and E[k(x, x)] (T, N*) of the RBF, or of
+    the linear kernel (exact moments: Psi2_n = var^2 Z A (mu_n mu_n^T +
+    diag(s_n)) A Z^T, E[k] = var sum_q alpha_q (mu^2 + s))."""
+    if dispatch._kernel(kernel) is linear:
+        za = Z * ard[:, None, :]                                  # (T, M, Q)
+        second = mu[:, :, None] * mu[:, None, :] + torch.diag_embed(s)
+        p2 = (variance * variance)[:, None, None, None] * (
+            za[:, None] @ second[None] @ za[:, None].mT)
+        k_diag = variance[:, None] * torch.sum(
+            ard[:, None, :] * (mu * mu + s)[None], dim=-1)
+        return linear.psi1(variance, ard, mu, s, Z), p2, k_diag
     _, _, expo = ard_rbf._forward_pieces(variance, ard, mu, s, Z,
                                          ard_rbf._log_e(ard, Z))
-    return (variance * variance)[:, None, None, None] * torch.exp(
+    p2 = (variance * variance)[:, None, None, None] * torch.exp(
         torch.clamp(expo, max=0.0))
+    # the RBF's expected diagonal E[k(x, x)] is its signal variance
+    return psi1_weighted(variance, ard, mu, s, Z), p2, variance[:, None]
 
 
 def _atom_predictive(pred: _Predictive, x_mean, x_var):
@@ -632,15 +644,12 @@ def _atom_predictive(pred: _Predictive, x_mean, x_var):
     L^{-T}: mean = Psi1_n U, and var = E[k_nn] - tr(A2_n) + tr(S A2_n)
     + m_d^T A2_n m_d - mean^2 + noise, where tr(S A2_n) - tr(A2_n) =
     <Psi2_n, W> and m_d^T A2_n m_d = u_d^T Psi2_n u_d."""
-    c, U, W = pred
+    c, U, W, kernel = pred
     var_f, ard, z, noise = c["variance"], c["ard"], c["z"], c["noise"]
-    p1 = psi1_weighted(var_f, ard, x_mean, x_var, z)           # (T, N*, M)
+    p1, p2, k_diag = _row_stats(kernel, var_f, ard, x_mean, x_var, z)
     f_mean = p1 @ U                                            # (T, N*, D)
-    p2 = _row_psi2(var_f, ard, x_mean, x_var, z)               # (T, N*, M, M)
     gp_var = torch.sum(p2 * W[:, None], dim=(-2, -1))
     m_quad = torch.sum(U[:, None] * (p2 @ U[:, None]), dim=-2)
-    # the RBF's expected diagonal E[k(x, x)] is its signal variance
-    k_diag = var_f[:, None]
     noise = noise[:, None, None]
     var = (k_diag + gp_var)[..., None] + m_quad - f_mean * f_mean + noise
     # var >= noise in exact arithmetic; the floor removes f32 cancellation

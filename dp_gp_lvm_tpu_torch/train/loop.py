@@ -1,8 +1,8 @@
 """Training: the optimizer of the GP-LVM family and the training driver
 (counterpart of `dp_gp_lvm_tpu/train/loop.py`: `gp_optimizer` with its
 schedules, `NonFiniteGuard`, `make_step_fn`, `make_multi_step_fn`,
-`time_steps`, `make_streaming_scan_fn`, `fit`), and `STEPS`, the count of
-steps the training loop has taken.
+`time_steps`, `make_streaming_scan_fn`, `fit`, `fit_lbfgs`), and
+`STEPS`, the count of steps the training loop has taken.
 
 `gp_optimizer` reproduces the reference's optax chain
     apply_if_finite(chain(
@@ -25,7 +25,8 @@ written by hand:
     schedule(0)). The NGD group has its count too.
 Schedules are optax's formulas, evaluated on the device from the count
 tensor. `TrainState` is what the SVI loop of the runner carries and
-`train/checkpoint.py` saves. `fit_lbfgs` is not ported yet.
+`train/checkpoint.py` saves. `fit_lbfgs` is optax's L-BFGS with its zoom
+line search, as a loop of autograd evaluations.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import math
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from dp_gp_lvm_tpu_torch.core.transforms import positive_variational_var
@@ -476,3 +478,269 @@ def fit(loss_fn: Callable, params, data: tuple, num_steps: int,
             if callback is not None:
                 callback(i, e, metrics)
     return params, {"elbo": elbos}
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS: optax's `lbfgs` with its zoom line search
+# ---------------------------------------------------------------------------
+
+LBFGS_LINESEARCH_STEPS = 20     # optax.lbfgs's max_linesearch_steps
+_SLOPE_RTOL, _CURV_RTOL = 1e-4, 0.9
+_APPROX_DEC_RTOL = 1e-6
+_INTERVAL_THRESHOLD = 1e-5      # scale_by_zoom_linesearch's stepsize_precision
+_INCREASE_FACTOR = 2.0
+
+
+def _tree_vdot(x: dict, y: dict) -> torch.Tensor:
+    """optax.tree.vdot: per-leaf dot products summed in the leaves' order
+    (a dict's sorted keys, as JAX flattens it)."""
+    out = None
+    for k in sorted(x):
+        v = torch.sum(x[k] * y[k])
+        out = v if out is None else out + v
+    return out
+
+
+def _tree_axpy(x: dict, a, y: dict) -> dict:
+    """optax.tree.add_scale: x + a * y."""
+    return {k: x[k] + a * y[k] for k in x}
+
+
+def _value_and_grad(fun: Callable, params: dict):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        value = fun(leaves)
+        grads = torch.autograd.grad(value, list(leaves.values()))
+    return value.detach(), dict(zip(leaves, grads))
+
+
+class _ZoomLinesearch:
+    """optax's `zoom_linesearch` (Nocedal and Wright's algorithms 3.5 and
+    3.6 with Hager and Zhang's approximate decrease), with the settings
+    `optax.lbfgs` gives it: at most 20 evaluations, a first guess of 1,
+    no largest step, tol 0. Its scalars are host numbers of the
+    parameters' width (numpy float32 or float64: IEEE semantics, NaN
+    included, as the reference's 0-d arrays); the gradients stay on the
+    device. `run` returns (stepsize, value, grad, evaluations)."""
+
+    def __init__(self, fun, params, updates, value, grad, dtype):
+        self.fun, self.params, self.updates = fun, params, updates
+        self.f = np.float32 if dtype == torch.float32 else np.float64
+        f = self.f
+        self.value_init = f(float(value))
+        self.slope_init = f(float(_tree_vdot(updates, grad)))
+        self.stepsize, self.value, self.grad = f(0.0), self.value_init, grad
+        self.slope = self.slope_init
+        self.low = self.high = self.cubic_ref = f(0.0)
+        self.value_low = self.value_high = self.value_cubic_ref = \
+            self.value_init
+        self.slope_low = self.slope_high = self.slope_init
+        self.safe_stepsize, self.safe_value, self.safe_grad = (
+            f(0.0), self.value_init, grad)
+        self.decrease_error = f(np.inf)
+        self.interval_found = self.done = self.failed = False
+        self.count = 0
+
+    def _on_line(self, stepsize):
+        value, grad = _value_and_grad(
+            self.fun, _tree_axpy(self.params, float(stepsize), self.updates))
+        slope = _tree_vdot(grad, self.updates)
+        value, slope = torch.stack([value, slope]).tolist()
+        return self.f(value), grad, self.f(slope)
+
+    def _decrease_error(self, stepsize, value, slope):
+        armijo = (value - self.value_init
+                  - _SLOPE_RTOL * stepsize * self.slope_init)
+        approx = slope - (2 * _SLOPE_RTOL - 1.0) * self.slope_init
+        delta = (value - self.value_init
+                 - _APPROX_DEC_RTOL * np.abs(self.value_init))
+        err = np.maximum(np.minimum(np.maximum(approx, delta), armijo), 0.0)
+        return self.f(np.inf) if np.isnan(err) else err
+
+    def _curvature_error(self, slope):
+        err = np.maximum(np.abs(slope) - _CURV_RTOL * np.abs(self.slope_init),
+                         0.0)
+        return self.f(np.inf) if np.isnan(err) else err
+
+    def _search_interval(self):
+        prev = (self.stepsize, self.value, self.slope)
+        new = (self.f(1.0) if self.count == 0
+               else self.f(_INCREASE_FACTOR) * self.stepsize)
+        value, grad, slope = self._on_line(new)
+        dec = self._decrease_error(new, value, slope)
+        err = np.maximum(dec, self._curvature_error(slope))
+        if dec <= 0.0:
+            self.safe_stepsize, self.safe_value, self.safe_grad = (
+                new, value, grad)
+        set_high = (dec > 0.0) or (value >= prev[1] and self.count > 0)
+        set_low = slope >= 0.0 and not set_high
+        if set_low:
+            (self.low, self.value_low, self.slope_low), \
+                (self.high, self.value_high, self.slope_high) = (
+                    (new, value, slope), prev)
+        else:
+            (self.low, self.value_low, self.slope_low), \
+                (self.high, self.value_high, self.slope_high) = (
+                    prev, (new, value, slope))
+        self.cubic_ref, self.value_cubic_ref = self.low, self.value_low
+        self.interval_found = set_high or set_low or err <= 0.0
+        self.done = bool(err <= 0.0)
+        self.failed = (self.count + 1 >= LBFGS_LINESEARCH_STEPS
+                       and not self.done)
+        self.stepsize, self.value, self.grad, self.slope = (
+            new, value, grad, slope)
+        self.decrease_error = dec
+
+    def _zoom(self):
+        f = self.f
+        low, high = self.low, self.high
+        delta = np.abs(high - low)
+        left, right = np.minimum(high, low), np.maximum(high, low)
+        cubic = _cubicmin(low, self.value_low, self.slope_low, high,
+                          self.value_high, self.cubic_ref,
+                          self.value_cubic_ref)
+        quad = _quadmin(low, self.value_low, self.slope_low, high,
+                        self.value_high)
+        if left + f(0.2) * delta < cubic < right - f(0.2) * delta:
+            middle = cubic
+        elif left + f(0.1) * delta < quad < right - f(0.1) * delta:
+            middle = quad
+        else:
+            middle = (low + high) / f(2.0)
+        value, grad, slope = self._on_line(middle)
+        dec = self._decrease_error(middle, value, slope)
+        err = np.maximum(dec, self._curvature_error(slope))
+        if dec <= 0.0 and value < self.safe_value:
+            self.safe_stepsize, self.safe_value, self.safe_grad = (
+                middle, value, grad)
+        self.done = bool(err <= 0.0)
+        set_high_to_middle = (dec > 0.0) or (value >= self.value_low)
+        set_high_to_low = ((slope * (high - low) >= 0.0)
+                           and not set_high_to_middle)
+        old_low = (low, self.value_low, self.slope_low)
+        old_high = (high, self.value_high)
+        if set_high_to_middle:
+            self.high, self.value_high, self.slope_high = middle, value, slope
+        if set_high_to_low:
+            self.high, self.value_high, self.slope_high = old_low
+        if not set_high_to_middle:
+            self.low, self.value_low, self.slope_low = middle, value, slope
+        self.cubic_ref, self.value_cubic_ref = (
+            old_high if set_high_to_middle or set_high_to_low
+            else old_low[:2])
+        too_small = delta <= _INTERVAL_THRESHOLD
+        self.failed = ((self.count + 1 >= LBFGS_LINESEARCH_STEPS
+                        or (too_small and self.safe_stepsize > 0.0))
+                       and not self.done)
+        self.stepsize, self.value, self.grad, self.slope = (
+            middle, value, grad, slope)
+        self.decrease_error = dec
+
+    def run(self):
+        while not (self.done or self.failed):
+            if self.interval_found:
+                self._zoom()
+            else:
+                self._search_interval()
+            self.count += 1
+            if self.failed and (self.safe_stepsize > 0.0
+                                or np.isinf(self.decrease_error)):
+                # the safeguard: the best step with sufficient decrease
+                # (or none, outside the function's domain)
+                self.stepsize, self.value, self.grad = (
+                    self.safe_stepsize, self.safe_value, self.safe_grad)
+        return self.stepsize, self.value, self.grad, self.count
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """The critical point of the cubic through (a, fa), (b, fb), (c, fc)
+    with slope fpa at a (scipy's, as optax takes it); NaN where it has
+    none."""
+    C = fpa
+    db, dc = b - a, c - a
+    dbc = db * dc
+    denom = dbc * dbc * (db - dc)
+    rb, rc = fb - fa - C * db, fc - fa - C * dc
+    A = (dc * dc * rb - db * db * rc) / denom
+    B = (-(dc * dc * dc) * rb + db * db * db * rc) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """The critical point of the quadratic through (a, fa), (b, fb) with
+    slope fpa at a."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def fit_lbfgs(loss_fn: Callable, params, data: tuple, num_steps: int = 100,
+              memory_size: int = 15, info: dict | None = None):
+    """L-BFGS training, the reference's `fit_lbfgs`: optax's `lbfgs`
+    (`scale_by_lbfgs` with the scaled-identity initial preconditioner, a
+    ring of `memory_size` (s, y) pairs and the two-loop recursion; then
+    the zoom line search from a first step of 1), as a Python loop of
+    autograd evaluations. As optax's `value_and_grad_from_state`, a step
+    reuses the value and gradient the line search computed at the point
+    it accepted, so the evaluations are the reference's. For smooth
+    full-batch problems (GP regression, SGPR, the Bayesian GP-LVM bound).
+
+    `params` is a dict of tensors (left as they are); returns (the trained
+    params, detached, losses (num_steps,) on their device: the loss at
+    the start of each step). With `info`, its "evaluations" is set to the
+    loss evaluations made and "linesearch_steps" to each step's."""
+    fun = lambda p: loss_fn(p, *data)
+    p = {k: v.detach().clone() for k, v in params.items()}
+    first = next(iter(p.values()))
+    zeros = {k: torch.zeros_like(v) for k, v in p.items()}
+    mem_s = [zeros] * memory_size      # parameter differences, a ring
+    mem_y = [zeros] * memory_size      # gradient differences
+    rho = [torch.zeros((), dtype=first.dtype, device=first.device)
+           ] * memory_size
+    prev_p = prev_g = zeros
+    value = grad = None
+    losses, ls_steps, evals = [], [], 0
+    for count in range(num_steps):
+        # value_and_grad_from_state: the line search's, while finite
+        if value is None or not np.isfinite(value):
+            value_t, grad = _value_and_grad(fun, p)
+            evals += 1
+        else:
+            value_t = torch.tensor(value, dtype=first.dtype,
+                                   device=first.device)
+        losses.append(value_t)
+        # scale_by_lbfgs: the newest pair into the ring, then P g
+        idx, prev_idx = count % memory_size, (count - 1) % memory_size
+        if count > 0:
+            ds = {k: p[k] - prev_p[k] for k in p}
+            dy = {k: grad[k] - prev_g[k] for k in p}
+            sy, yy = _tree_vdot(dy, ds), _tree_vdot(dy, dy)
+            mem_s[prev_idx], mem_y[prev_idx] = ds, dy
+            rho[prev_idx] = torch.where(sy == 0.0, torch.zeros_like(sy),
+                                        1.0 / sy)
+            gamma = torch.where(yy > 0.0, sy / yy, torch.ones_like(yy))
+        else:
+            gamma = torch.clamp(1.0 / torch.sqrt(_tree_vdot(grad, grad)),
+                                max=1.0)
+        order = [(idx + i) % memory_size for i in range(memory_size)]
+        vec, alphas = grad, {}
+        for i in reversed(order):
+            alphas[i] = rho[i] * _tree_vdot(mem_s[i], vec)
+            vec = _tree_axpy(vec, -alphas[i], mem_y[i])
+        vec = {k: gamma * v for k, v in vec.items()}
+        for i in order:
+            beta = rho[i] * _tree_vdot(mem_y[i], vec)
+            vec = _tree_axpy(vec, alphas[i] - beta, mem_s[i])
+        prev_p, prev_g = p, grad
+        # scale(-1), then the zoom line search along that direction
+        direction = {k: -v for k, v in vec.items()}
+        with np.errstate(all="ignore"):
+            stepsize, value, grad, n = _ZoomLinesearch(
+                fun, p, direction, value_t, grad, first.dtype).run()
+        evals += n
+        ls_steps.append(n)
+        p = _tree_axpy(p, float(stepsize), direction)
+    if info is not None:
+        info.update(evaluations=evals, linesearch_steps=ls_steps)
+    return p, torch.stack(losses)

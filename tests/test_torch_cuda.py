@@ -1200,3 +1200,60 @@ def test_mrd_svi_predictor_and_sampler_default_to_the_card(card):
     assert mean.shape == var.shape == (8, 32) and f.shape == (4, 8, 32)
     assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
     assert bool(torch.isfinite(f).all())
+
+
+@pytest.mark.cuda
+def test_native_amc_parser_matches_python_on_a_generated_file(card,
+                                                              tmp_path):
+    """The g++-built AMC parser (`csrc/amc_parser.cpp`) on the card's
+    machine: the Python parser's values and the written ones, to the
+    bit."""
+    from dp_gp_lvm_tpu_torch.data import mocap, native_io
+
+    r = np.random.default_rng(3)
+    Y = r.normal(size=(300, 7)) * 30.0
+    path = mocap.write_amc(str(tmp_path / "g.amc"), Y,
+                           [("root", 3), ("lfemur", 3), ("lhand", 1)])
+    assert native_io.available()
+    native = native_io.parse_amc_native(path)
+    python, _ = mocap.parse_amc(path)
+    np.testing.assert_array_equal(native, python)
+    np.testing.assert_array_equal(native, Y)
+
+
+@pytest.mark.cuda
+def test_fit_lbfgs_f32_on_card_tracks_f64(card):
+    """optax's L-BFGS (`train/loop.py::fit_lbfgs`) on a Bayesian GP-LVM
+    bound (N=200, D=12, Q=4, M=20): f32 through K6, K5 and K2 (once each
+    a loss evaluation, line-search trials included) against f64 through
+    the plain path, from one init at one jitter. The first loss agrees at
+    1e-4; both fall; the last within 1e-2 of each other."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.data.synthetic import oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm
+    from dp_gp_lvm_tpu_torch.train.loop import fit_lbfgs
+
+    key = prng.PRNGKey(0)
+    Y, _, _ = oil_flow_like(key, n=200, d=12, dtype=torch.float32,
+                            device=card)
+    cfg = bgplvm.Config(num_latent=4, num_inducing=20)
+    params = bgplvm.init_params(key, Y, cfg)
+    jitter = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+    out = {}
+    for dtype, c in ((torch.float32, cfg),
+                     (torch.float64, cfg._replace(use_fused=False))):
+        info = {}
+        psi.reset_launch_counts()
+        _, losses = fit_lbfgs(
+            lambda p, y: -bgplvm.elbo(p, y, c, jitter),
+            {k: v.detach().to(dtype) for k, v in params.items()},
+            (Y.to(dtype),), 10, info=info)
+        out[dtype] = (losses.double().cpu().numpy(), info, dict(psi.LAUNCHES))
+    (l32, info32, launches32), (l64, _, launches64) = out.values()
+    n = info32["evaluations"]
+    assert {k: v for k, v in launches32.items() if v} == dict(
+        psi1=n, psi2_single=n, psi2_bwd_batched=n)
+    assert not any(launches64.values())
+    assert abs(l32[0] - l64[0]) <= 1e-4 * abs(l64[0])
+    assert l32[-1] < l32[0] and l64[-1] < l64[0]
+    assert abs(l32[-1] - l64[-1]) <= 1e-2 * abs(l64[-1])

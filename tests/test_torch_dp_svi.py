@@ -5,8 +5,10 @@ against the JAX package's, in float64 on the CPU: the generators' draws,
 against `jax.vmap(safe_cholesky)`, `_lam_cholesky`'s rungs and factors on
 indefinite precisions, five steps in each `phi_update` mode on the same
 `fold_in` minibatches at rtol 1e-8, and `expected_residuals`,
-`split_single_atom`, `qu_moments`, `predict_from_latent` and `impute`. The JAX values come from one module-scoped oracle at N=40, B=16,
-M=8, Q=2, T=3, D=8. The reference's own `tests/test_dp_svi.py` cases run
+`split_single_atom`, `qu_moments`, `predict_from_latent` and `impute`,
+and with the linear kernel `predict_from_latent` and
+`make_dp_svi_imputer` at rtol 1e-10. The JAX values come from one
+module-scoped oracle at N=40, B=16, M=8, Q=2, T=3, D=8. The reference's own `tests/test_dp_svi.py` cases run
 on the port in `tests/test_torch_dp_svi_cases.py`."""
 import jax
 import jax.numpy as jnp
@@ -17,12 +19,13 @@ import torch
 from dp_gp_lvm_tpu.data import synthetic as jsyn
 from dp_gp_lvm_tpu.linalg import safe_cholesky as jsafe_cholesky
 from dp_gp_lvm_tpu.models import dp_svi as jdp
+from dp_gp_lvm_tpu.models import serving as jserving
 from dp_gp_lvm_tpu.train import loop as jloop
 from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.core.params import params_from_jax
 from dp_gp_lvm_tpu_torch.data import synthetic
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members
-from dp_gp_lvm_tpu_torch.models import dp_svi
+from dp_gp_lvm_tpu_torch.models import dp_svi, serving
 from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
 
 N, B, M, Q, T = 40, 16, 8, 2, 3
@@ -127,7 +130,23 @@ def _oracle(chol_stack, lam_stack):
     out["mask"] = mask
     out["impute"] = jdp.impute(trained, Y[::7][:6], mask, cfg,
                                num_steps=IMPUTE_STEPS)
+    # the linear kernel's predictive at M = Q (a rank-Q K_uu is singular
+    # past it), q(u | t) at its full-batch optimum
+    cfg_lin = _linear_cfg(jdp.Config)
+    p_lin = jdp.set_optimal_qu(_perturbed(jdp.init_params(
+        jax.random.PRNGKey(6), Y, cfg_lin)), Y, cfg_lin)
+    out["linear"] = dict(
+        params=p_lin,
+        predict=jdp.predict_from_latent(p_lin, xm[:, :Q], xv[:, :Q],
+                                        cfg_lin),
+        imputer=jserving.make_dp_svi_imputer(
+            p_lin, cfg_lin, num_steps=IMPUTE_STEPS)(Y[::7][:6], mask))
     return out
+
+
+def _linear_cfg(config_cls):
+    return config_cls(num_latent=Q, num_inducing=Q, truncation=T, batch=B,
+                      kernel="linear")
 
 
 @pytest.fixture(scope="module")
@@ -267,3 +286,25 @@ def test_predict_and_impute_match_reference(ref):
                         _cfg(), num_steps=IMPUTE_STEPS)
     for g, w in zip(got, ref["impute"]):
         _close(g, w, 1e-7, 1e-10)
+
+
+def test_linear_kernel_predict_and_imputer_match_reference(ref):
+    """The DP-SVI predictive with the linear kernel (K_uu and the test
+    points' Psi statistics through the linear branches): the mixture
+    predictive and the serving imputer against the reference's, f64."""
+    lin = ref["linear"]
+    p = _p(lin["params"])
+    cfg = _linear_cfg(dp_svi.Config)
+    with torch.no_grad():
+        trained = _p(ref["steps_gradient_grad"][0])
+        xm = (trained["qx_mean"][:5] + 0.1)[:, :Q]
+        xv = dp_svi.constrain(trained)["qx_var"][:5, :Q]
+    for g, w in zip(dp_svi.predict_from_latent(p, xm, xv, cfg),
+                    lin["predict"]):
+        _close(g, w, 1e-10, 1e-12)
+    Y = torch.tensor(ref["Y"])
+    impute = serving.make_dp_svi_imputer(p, cfg, num_steps=IMPUTE_STEPS,
+                                         device="cpu")
+    for g, w in zip(impute(Y[::7][:6], torch.tensor(ref["mask"])),
+                    lin["imputer"]):
+        _close(g, w, 1e-10, 1e-12)

@@ -20,6 +20,8 @@ from dp_gp_lvm_tpu_torch.data.synthetic import (
     oil_flow_like,
     toy_gplvm,
 )
+from dp_gp_lvm_tpu_torch.data.mocap import load_mocap
+from dp_gp_lvm_tpu_torch.data.oil_flow import load_oil_flow
 from dp_gp_lvm_tpu_torch.distributions import stick_breaking
 from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, serving
 
@@ -36,6 +38,7 @@ bad = sorted(m for m in sys.modules
 mods = sorted(m for m in sys.modules if m.startswith("dp_gp_lvm_tpu_torch"))
 print(",".join(mods))
 print(",".join(bad))
+print("matplotlib" in sys.modules)
 """
 
 
@@ -53,8 +56,16 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert on_disk <= walked, on_disk - walked   # every module was imported
     assert {"dp_gp_lvm_tpu_torch.models.prediction",
             "dp_gp_lvm_tpu_torch.models.serving",
-            "dp_gp_lvm_tpu_torch.models.bgplvm"} <= walked
+            "dp_gp_lvm_tpu_torch.models.bgplvm",
+            "dp_gp_lvm_tpu_torch.data.oil_flow",
+            "dp_gp_lvm_tpu_torch.data.mocap",
+            "dp_gp_lvm_tpu_torch.data.asf",
+            "dp_gp_lvm_tpu_torch.data.native_io",
+            "dp_gp_lvm_tpu_torch.perf.flops",
+            "dp_gp_lvm_tpu_torch.viz.plots"} <= walked
     assert out[1] == "", f"port pulled in {out[1]}"
+    # the card's machine has no matplotlib: only a plot imports it
+    assert out[2] == "False"
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):
@@ -70,6 +81,10 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         oil_flow_like(gen, n=16, d=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         toy_gplvm(gen, n=16, d=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_oil_flow(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_mocap(None, n=16, d=3)
     Y, X = mocap_like(gen, n=16, d=3, device="cpu")
     assert Y.device.type == "cpu" and Y.shape == (16, 3) and X.shape == (16, 4)
     bg_cfg = bgplvm.Config(num_latent=2, num_inducing=4)

@@ -13,6 +13,7 @@ import json
 import math
 import os
 import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ from dp_gp_lvm_tpu.data import synthetic as jsyn
 from dp_gp_lvm_tpu.models import mrd as jmrd
 from dp_gp_lvm_tpu.train import logging as jlogging
 from dp_gp_lvm_tpu_torch.core import config, prng
-from dp_gp_lvm_tpu_torch.data import synthetic
+from dp_gp_lvm_tpu_torch.data import mocap, synthetic
 from dp_gp_lvm_tpu_torch.experiments import run as runner
 from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
@@ -467,3 +468,98 @@ def test_c9_staged_refuses_the_single_phase_options(tmp_path):
         with pytest.raises(ValueError, match="staged MRD-SVI"):
             runner.run(cfg, steps=8, device="cpu", dtype=torch.float64,
                        out=str(tmp_path), **kw)
+
+
+def _write_amc(path, Y):
+    """Y (N, 6) as an AMC file of three bones, plus a constant channel on
+    the last (which preprocessing drops)."""
+    Y = np.c_[Y, np.full(len(Y), 7.5)]
+    mocap.write_amc(str(path), Y, [("root", 2), ("lfemur", 2),
+                                   ("rfemur", 3)])
+
+
+def test_data_dir_reads_the_files_and_plots(tmp_path):
+    """--data-dir: c2 reads DataTrn.txt / DataTrnLbls.txt and c4 the first
+    .amc file of the directory; N (c2) and D (c4) come from the files, the
+    tags name them, and --plots draws the reference's PNGs."""
+    data = tmp_path / "data"
+    data.mkdir()
+    r = np.random.default_rng(5)
+    oil = r.normal(size=(60, 12))
+    np.savetxt(data / "DataTrn.txt", oil)
+    np.savetxt(data / "DataTrnLbls.txt", np.eye(3)[r.integers(0, 3, 60)])
+    Y_amc = r.normal(size=(70, 6))
+    _write_amc(data / "b.amc", Y_amc)
+    _write_amc(data / "a.amc", Y_amc[:66])       # the first by name
+    base = ["--steps", "2", "--device", "cpu", "--f64", "--log-every", "1",
+            "--data-dir", str(data), "--plots"]
+    for name, tag, pngs in (
+            ("c2_sparse_oil", "file:oil_flow", {"latent", "ard"}),
+            ("c4_dp_mocap", "amc:a.amc",
+             {"latent", "ard", "assignments", "sticks"})):
+        out = tmp_path / name
+        assert runner.main([name, *base, "--out", str(out)]) == 0
+        result = json.loads((out / "result.json").read_text())
+        assert result["data"] == tag
+        assert {p.stem for p in out.glob("*.png")} == pngs
+        params = load_npz(str(out / "params.npz"))
+        if name == "c2_sparse_oil":
+            assert params["qx_mean"].shape == (60, 10)
+        else:                       # 6 varying channels, the constant gone
+            assert params["qx_mean"].shape[0] == 66
+            assert params["phi"].shape == (6, 20)
+    # the loaded Y is the written data, standardized
+    cfg = config.get("c2_sparse_oil")
+    Y, _ = runner.load_data(cfg, torch.float64, "cpu", str(data))
+    np.testing.assert_allclose(Y.numpy(), (oil - oil.mean(0)) / oil.std(0),
+                               rtol=1e-12, atol=1e-12)
+    Y, _ = runner.load_data(config.get("c4_dp_mocap"), torch.float64, "cpu",
+                            str(data))
+    y = Y_amc[:66]
+    np.testing.assert_allclose(Y.numpy(), (y - y.mean(0)) / y.std(0),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_ard_lr_and_debug_nans_reach_the_training(monkeypatch, tmp_path):
+    """--ard-lr is the optimizer's ard_lr; --debug-nans trains in autograd's
+    anomaly mode and raises at a non-finite loss (a NaN in the initial
+    latents of a full-batch run; the injected NaN of an SVI chunk)."""
+    seen = []
+
+    def recording(*args, **kw):
+        seen.append((kw["ard_lr"], torch.is_anomaly_enabled()))
+        return gp_optimizer(*args, **kw)
+
+    gp_optimizer = runner.gp_optimizer
+    monkeypatch.setattr(runner, "gp_optimizer", recording)
+    argv = ["c1_bgplvm_toy", "--device", "cpu", "--f64", "--n", "40",
+            "--steps", "2", "--log-every", "1", "--out", str(tmp_path)]
+    assert runner.main(argv + ["--ard-lr", "0.05", "--debug-nans"]) == 0
+    assert runner.main(argv) == 0
+    assert seen == [(0.05, True), (None, False)]
+    assert not torch.is_anomaly_enabled()
+
+    cfg = dataclasses.replace(config.get("c1_bgplvm_toy"), n=40)
+    Y, _ = runner.load_data(cfg, torch.float64, "cpu")
+    init = {k: v.detach().numpy().copy() for k, v in runner.MODELS[
+        "bgplvm"].init_params(prng.PRNGKey(0), Y, runner._model_config(
+            cfg, None)).items()}
+    init["qx_mean"][3, 1] = np.nan
+    with pytest.raises(FloatingPointError, match="non-finite loss"):
+        runner.run(cfg, steps=2, device="cpu", dtype=torch.float64,
+                   log_every=1, params=init, debug_nans=True)
+    c6 = dataclasses.replace(config.get("c6_svi_bigN"), n=128)
+    with pytest.raises(FloatingPointError, match="at step 2"):
+        runner.run(c6, steps=4, device="cpu", dtype=torch.float64,
+                   batch=32, log_every=2, inject_nonfinite_at=2,
+                   debug_nans=True)
+
+
+def test_plots_without_matplotlib_fail_before_training(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="--plots needs matplotlib"):
+        runner.main(["c1_bgplvm_toy", "--device", "cpu", "--f64", "--n",
+                     "40", "--steps", "2", "--plots", "--out",
+                     str(tmp_path)])
+    assert not (tmp_path / "train.jsonl").exists()
