@@ -63,6 +63,21 @@ imputation servers built on them. Phases, each printing one JSON line:
          kept, and the kernel is held on them against its plain version
          in f64 (at its phase's tolerance) and repeated to the bit; at
          c3's widths each is also timed there (device ms, bound)
+  mesh   the device mesh (`dp_gp_lvm_tpu_torch/parallel/`) at world size
+         1: an NCCL process group of one rank and a 1 x 1 mesh (one
+         all-reduce on it must carry its data); for c4_dp_mocap, c2_sparse_oil
+         and c3_mrd_twoview at full width, drawn and initialized as the
+         runner does, the sharded loss and gradient at init (through
+         `parallel.recipe.sharded_setup`) against the single-device fused
+         path in f32 and the plain path in f64 at the f32 jitter, at the
+         train phase's tolerances; 10 `gp_optimizer` steps on the mesh,
+         finite, launching K1 and K2 once a step and view (the sharded
+         Bayesian GP-LVM takes K1 at T = 1, as the reference's does), the
+         kernels held on the steps' first inputs; 10 unsharded steps from
+         the same init; then the runner trains c4 with `--mesh 1,1` for
+         100 steps, launches held as the runs phase's c4, every numeric
+         leaf finite; ms a step sharded and unsharded (20 steps of each,
+         timed in turns) on one line with the card's name and power limit
   files  writes an oil-flow DataTrn.txt / DataTrnLbls.txt (1000 x 12,
          oil_flow_like) and a 1024-frame AMC file (mocap_like's 59
          channels and a constant one) under build/smoke_files; the native
@@ -745,7 +760,7 @@ def _ten_steps(torch, psi, loss_fn, params, opt):
         start.record()
         loss = loss_fn()
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        opt.step(dict(zip(keys, grads)))
+        opt.step(opt.reduce(dict(zip(keys, grads))))
         end.record()
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
@@ -1289,7 +1304,7 @@ def phase_linear(torch, seed):
         start.record()
         loss = bgplvm.loss(params, Y, cfg)
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        opt.step(dict(zip(keys, grads)))
+        opt.step(opt.reduce(dict(zip(keys, grads))))
         end.record()
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
@@ -1514,6 +1529,210 @@ def phase_runs(torch, seed):
                                      f"inputs: {h}")
         rows[name] = row
     return rows
+
+
+MESH_CONFIGS = ("c4_dp_mocap", "c2_sparse_oil", "c3_mrd_twoview")
+
+
+def _mesh_setup(torch, seed, name):
+    """(model name, module, f32 params at init, data tuple, model config,
+    run config) of a full-batch config at full width, drawn and
+    initialized as the runner does (MRD's held-out rows removed)."""
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+
+    cfg = dataclasses.replace(config.get(name), seed=seed)
+    Y, _ = runner.load_data(cfg, torch.float32, "cuda")
+    if cfg.model == "mrd":
+        keep = torch.as_tensor(runner._holdout_rows(cfg.n), device="cuda")
+        data = tuple(y[keep] for y in Y)
+    else:
+        data = (Y,)
+    model = runner.MODELS[cfg.model]
+    mcfg = runner._model_config(cfg, None)
+    params = model.init_params(prng.PRNGKey(cfg.seed),
+                               list(data) if cfg.model == "mrd" else Y, mcfg)
+    return cfg.model, model, params, data, mcfg, cfg
+
+
+def _f64_tree(params):
+    def leaf(v):
+        return v.detach().double().requires_grad_()
+
+    return {k: ([{kk: leaf(vv) for kk, vv in view.items()} for view in v]
+                if k == "views" else leaf(v)) for k, v in params.items()}
+
+
+def _mesh_model(torch, psi, mesh, seed, name):
+    """One config on the 1 x 1 mesh: the sharded loss and gradient at init
+    against the single-device fused path (f32) and the plain path in f64
+    at the f32 jitter; 10 optimizer steps through sharded_setup (launches
+    held, kernels held on the steps' first inputs), and as many unsharded
+    steps from the same init; then 10 more of each, in the other order,
+    for the ms comparison."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.parallel import recipe
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    family, model, params, data, mcfg, cfg = _mesh_setup(torch, seed, name)
+    views = family == "mrd"
+
+    def given(ys):
+        return list(ys) if views else ys[0]
+
+    leaves = loop.flat_leaves(params)
+    loss32 = model.loss(params, given(data), mcfg)
+    g32 = torch.autograd.grad(loss32, list(leaves.values()))
+    p64 = _f64_tree(params)
+    same_jitter = JitterPolicy(initial=JitterPolicy().initial_for(
+        torch.float32))
+    loss64 = -model.elbo(p64, given([y.double() for y in data]),
+                         mcfg._replace(use_fused=False), same_jitter)
+    g64 = torch.autograd.grad(loss64, list(loop.flat_leaves(p64).values()))
+
+    setup = recipe.sharded_setup(family, params, data, mcfg, mesh)
+    opt = loop.gp_optimizer(setup.params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                            mesh=mesh, placement=setup.placement)
+    local = list(opt.params.values())
+    loss_sh = setup.loss_fn(setup.params, *setup.data)
+    g_sh = opt.reduce(dict(zip(opt.params, torch.autograd.grad(loss_sh,
+                                                               local))))
+    g_sh = list(g_sh.values())
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    def scaled(got, want):
+        return max(float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max())
+                   for a, b in zip(got, want))
+
+    def sharded_steps():
+        return _ten_steps(torch, psi,
+                          lambda: setup.loss_fn(setup.params, *setup.data),
+                          opt.params, opt)
+
+    opt_u = loop.gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr)
+
+    def unsharded_steps():
+        return _ten_steps(torch, psi,
+                          lambda: model.loss(params, given(data), mcfg),
+                          leaves, opt_u)
+
+    with _first_inputs(torch, psi) as seen:
+        losses, ms, launches = sharded_steps()
+    held = _hold_first_inputs(torch, psi, seen)
+    losses_u, ms_u, _ = unsharded_steps()
+    # the host clock moves between rounds: time in turns, sharded,
+    # unsharded, unsharded, sharded, and compare the medians of both
+    ms_u += unsharded_steps()[1]
+    ms += sharded_steps()[1]
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=10 * len(data),
+                    psi2_bwd_batched=10 * len(data))
+    loss_sh, loss32, loss64 = (x.detach() for x in (loss_sh, loss32,
+                                                     loss64))
+    row = dict(phase="mesh", config=name, model=family,
+               loss_sharded_f32=float(loss_sh), loss_fused_f32=float(loss32),
+               loss_plain_f64=float(loss64),
+               loss_rel_err_vs_fused=rel(loss_sh, loss32),
+               loss_rel_err_vs_f64=rel(loss_sh, loss64), tol=TOL_ELBO,
+               grad_scaled_err_vs_fused=scaled(g_sh, g32),
+               grad_scaled_err_vs_f64=scaled(g_sh, g64), tol_grad=TOL_GRAD,
+               losses=losses, losses_unsharded=losses_u,
+               ms_per_step_median=statistics.median(ms),
+               ms_per_step_unsharded_median=statistics.median(ms_u),
+               launches=launches, expected_launches=expected,
+               held_on_the_steps_inputs=held)
+    emit(row)
+    if not (row["loss_rel_err_vs_fused"] <= TOL_ELBO
+            and row["loss_rel_err_vs_f64"] <= TOL_ELBO):
+        raise AssertionError(f"mesh: {name}: sharded loss off: {row}")
+    if not (row["grad_scaled_err_vs_fused"] <= TOL_GRAD
+            and row["grad_scaled_err_vs_f64"] <= TOL_GRAD):
+        raise AssertionError(f"mesh: {name}: sharded gradient off: {row}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh: {name}: non-finite loss in {losses}")
+    if launches != expected:
+        raise AssertionError(f"mesh: {name} launched {launches}, expected "
+                             f"{expected}")
+    if {h["kernel"] for h in held} != {"suffstats_batched",
+                                       "psi2_bwd_batched"}:
+        raise AssertionError(f"mesh: {name} held {held}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"mesh: {name}: {h['kernel']} disagrees "
+                                 f"with its plain version: {h}")
+    return row
+
+
+def phase_mesh(torch, seed, card, runs):
+    """The device mesh at world size 1: an NCCL process group of one rank,
+    a 1 x 1 mesh; c4, c2 and c3 through `_mesh_model`; the runner trains
+    c4 with `--mesh 1,1` for RUN_STEPS steps (launches as the runs
+    phase's c4); ms a step sharded and unsharded on one line with the
+    card."""
+    import torch.distributed as dist
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    mesh = mesh_lib.make_mesh(1, 1, "cuda")
+    try:
+        probe = torch.arange(4.0, device="cuda")
+        dist.all_reduce(probe, group=mesh.group("data"))
+        if dist.get_backend() != "nccl" or not torch.equal(
+                probe, torch.arange(4.0, device="cuda")):
+            raise AssertionError(f"mesh: the group is {dist.get_backend()}, "
+                                 f"its all-reduce gave {probe}")
+        rows = {name: _mesh_model(torch, psi, mesh, seed, name)
+                for name in MESH_CONFIGS}
+
+        cfg = dataclasses.replace(config.get("c4_dp_mocap"), seed=seed)
+        psi.reset_launch_counts()
+        loop.reset_step_count()
+        with _first_inputs(torch, psi) as seen:
+            result = runner.run(cfg, steps=RUN_STEPS, device="cuda",
+                                out=str(RUN_OUT / "mesh_c4_dp_mocap"),
+                                mesh="1,1")
+        launches = dict(psi.LAUNCHES)
+        steps = loop.STEPS["taken"]
+        expected = _expected_run_launches(psi, cfg, steps)
+        held = _hold_first_inputs(torch, psi, seen)
+        unsharded = runs["c4_dp_mocap"]
+        run_row = dict(phase="mesh_run", config=cfg.name, mesh="1,1",
+                       steps=RUN_STEPS, steps_taken=steps,
+                       ms_per_step=result["ms_per_step"],
+                       seconds=result["seconds"], elbo=result["elbo"],
+                       elbo_unsharded_run=unsharded["elbo"],
+                       ms_per_step_unsharded_run=unsharded["ms_per_step"],
+                       nonfinite=config.evaluate_checks("", result),
+                       launches=launches, expected_launches=expected,
+                       held_on_the_runs_inputs=held)
+        emit(run_row)
+    finally:
+        mesh_lib.close_distributed()
+    if run_row["nonfinite"]:
+        raise AssertionError(f"mesh: the --mesh 1,1 run gave a broken "
+                             f"result: {run_row}")
+    if launches != expected:
+        raise AssertionError(f"mesh: the --mesh 1,1 run launched {launches},"
+                             f" expected {expected}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"mesh: the --mesh 1,1 run: {h['kernel']} "
+                                 f"disagrees with its plain version: {h}")
+    emit(dict(phase="mesh_ms", card=card,
+              ms_per_step={name: {"sharded": r["ms_per_step_median"],
+                                  "unsharded": r["ms_per_step_unsharded_median"]}
+                           for name, r in rows.items()},
+              runner_c4_ms_per_step={
+                  "sharded": run_row["ms_per_step"],
+                  "unsharded": run_row["ms_per_step_unsharded_run"]}))
+    return rows, run_row
 
 
 FILES_DIR = ROOT / "build" / "smoke_files"   # the files phase's datasets
@@ -3012,6 +3231,8 @@ def main(argv=None) -> int:
     cavi = phase_cavi(torch, dp_params, dp_Y, dp_cfg)
     linear = phase_linear(torch, args.seed)
     runs = phase_runs(torch, args.seed)
+    mesh_rows, mesh_run = phase_mesh(torch, args.seed, card.splitlines()[0],
+                                     runs)
     files = phase_files(torch, args.seed)
     lbfgs = phase_lbfgs(torch, args.seed)
     phase_mfu(torch, train)
@@ -3039,6 +3260,9 @@ def main(argv=None) -> int:
                   serve_mrd_build=serve3["build_launches"],
                   **{f"runs_{name}": row["launches"]
                      for name, row in runs.items()},
+                  **{f"mesh_{name}": row["launches"]
+                     for name, row in mesh_rows.items()},
+                  mesh_run_c4_dp_mocap=mesh_run["launches"],
                   **{f"files_{name}": row["launches"]
                      for name, row in files.items()},
                   lbfgs_f32=lbfgs["f32"]["launches"],

@@ -80,6 +80,9 @@ from dp_gp_lvm_tpu_torch.models import (
     prediction,
     svi_gplvm,
 )
+from dp_gp_lvm_tpu_torch.parallel import auto as parallel_auto
+from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+from dp_gp_lvm_tpu_torch.parallel import recipe as parallel_recipe
 from dp_gp_lvm_tpu_torch.train import dp_recipe, mrd_recipe
 from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer, export_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
@@ -601,6 +604,25 @@ def _abort_nonfinite(cfg, out, guard, done):
     raise SystemExit(3)
 
 
+def open_mesh(spec: str, device: torch.device):
+    """The runner's mesh from `--mesh DATA[,MODEL]`: its size must be the
+    world size `torchrun` started (1 without it), and on the card it is
+    1 x 1 (NCCL takes one rank per card)."""
+    data, model = parallel_recipe.parse_mesh(spec)
+    if device.type == "cuda" and data * model > 1:
+        raise ValueError(
+            f"--mesh {spec}: NCCL runs one rank per card and refuses two "
+            "ranks on one GPU, so on a one-card machine the mesh is 1 or "
+            "1,1; run a larger mesh on the CPU (--device cpu) under "
+            "torchrun")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if data * model != world:
+        raise ValueError(
+            f"--mesh {spec} is {data * model} ranks, and {world} run: start "
+            f"it under torchrun --nproc-per-node {data * model}")
+    return mesh_lib.make_mesh(data, model, device.type)
+
+
 def run(cfg, *, steps: int | None = None, device=None,
         dtype=torch.float32, data=None, params=None, out=None,
         log_every: int = 50, hyper_lr: float | None = None,
@@ -610,7 +632,8 @@ def run(cfg, *, steps: int | None = None, device=None,
         inject_nonfinite_at: int | None = None,
         impute_steps: int = 200, stream: bool = False,
         staged: bool | None = None, data_dir: str | None = None,
-        plots: bool = False, debug_nans: bool = False) -> dict:
+        plots: bool = False, debug_nans: bool = False,
+        mesh: str | None = None) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout, a tuple of
@@ -634,12 +657,21 @@ def run(cfg, *, steps: int | None = None, device=None,
     training). `debug_nans` raises FloatingPointError at the first
     non-finite loss: every full-batch step's (one host read a step), every
     SVI chunk's; `main --debug-nans` also trains under autograd's anomaly
-    mode."""
+    mode. `mesh` ("DATA[,MODEL]", the full-batch configs c1-c5) trains
+    the rank's shards of the sharded loss (`parallel/recipe.py`) under
+    `torchrun --nproc-per-node DATA*MODEL` (gloo on the CPU; on the card
+    only "1" or "1,1", over NCCL); every restart is placed anew, and
+    the metrics read the gathered parameters. Only rank 0 writes to
+    `out` (`main` also keeps the other ranks quiet)."""
     if plots:
         if out is None:
             raise ValueError("--plots needs an output directory")
         viz.require_matplotlib()
     device = resolve_device(device)
+    if mesh is not None and cfg.model in SVI_MODELS:
+        raise NotImplementedError(
+            f"--mesh for {cfg.model} ({cfg.name}) is not ported yet "
+            "(parallel/recipe.place_svi)")
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
                          "CPU parity mode (--device cpu)")
@@ -667,6 +699,10 @@ def run(cfg, *, steps: int | None = None, device=None,
             "single-phase loop only (--staged off)")
     if device.type == "cuda":
         pin_full_f32()
+    if mesh is not None:
+        spec, mesh = mesh, open_mesh(mesh, device)
+        if mesh.rank != 0:
+            out, plots = None, False
     steps = steps or cfg.steps
     model = MODELS[cfg.model]
     if out is not None:
@@ -715,41 +751,50 @@ def run(cfg, *, steps: int | None = None, device=None,
         # reference does
         return model.init_params(prng.PRNGKey(cfg.seed + r), Y_train, mcfg)
 
-    def loss_fn(p, *ys):
-        loss = model.loss(p, list(ys) if views else ys[0], mcfg)
+    def checked(loss):
         if debug_nans and not bool(torch.isfinite(loss)):
             raise FloatingPointError(
                 f"[{cfg.name}] --debug-nans: non-finite loss "
                 f"{float(loss.detach())}")
         return loss
 
+    def loss_fn(p, *ys):
+        return checked(model.loss(p, list(ys) if views else ys[0], mcfg))
+
     print(f"[{cfg.name}] data={tag} model={cfg.model} steps={steps} "
           f"device={device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""), flush=True)
+             if device.type == "cuda" else "")
+          + (f" mesh={spec}" if mesh is not None else ""), flush=True)
     ngd_lr = cfg.ngd_lr if ngd_lr is None else ngd_lr
     # one host read per chunk; the reference's loop runs whole chunks, so
     # it runs past `steps` where the chunk does not divide it
     chunk = max(1, min(log_every, steps))
 
     def train_from(p0, label):
-        """(p0 trained in place, its optimizer, the last ELBO). The
-        optimizer holds the leaves flat (MRD's views too); the loss closes
-        over p0 itself."""
+        """(p0 trained in place, its optimizer, the last ELBO, and the
+        step's loss and data). The optimizer holds the leaves flat (MRD's
+        views too); the loss closes over p0 itself. On a mesh p0 is placed
+        first: the rank's shards train on the sharded loss."""
+        loss, data, placement = loss_fn, step_data, None
+        if mesh is not None:
+            sharded, p0, data, placement = parallel_recipe.sharded_setup(
+                cfg.model, p0, step_data, mcfg, mesh)
+            loss = lambda p, *ys: checked(sharded(p, *ys))
         opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr,
                            ard_lr=cfg.ard_lr, decay_steps=steps,
-                           ngd_lr=ngd_lr)
-        multi_step = make_multi_step_fn(lambda _, *d: loss_fn(p0, *d), opt,
-                                        chunk)
+                           ngd_lr=ngd_lr, mesh=mesh, placement=placement)
+        step_loss = lambda _, *d: loss(p0, *d)
+        multi_step = make_multi_step_fn(step_loss, opt, chunk)
         done = 0
         while done < steps:
-            losses = multi_step(*step_data)
+            losses = multi_step(*data)
             done += chunk
             elbo_now = -float(losses[-1])
             logger.log(done - 1, elbo=elbo_now)
             print(f"  step {done - 1}{label}: elbo={elbo_now:.3f}",
                   flush=True)
-        return p0, opt, elbo_now
+        return p0, opt, elbo_now, (step_loss, data, placement)
 
     extra, restart_elbos = {}, []
     if staged_dp or staged_mrd:
@@ -796,25 +841,28 @@ def run(cfg, *, steps: int | None = None, device=None,
         # non-convex models train from cfg.restarts init seeds; the best
         # final ELBO is kept
         t0 = time.perf_counter()
-        trained, opt, best_elbo = train_from(
+        trained, opt, best_elbo, stepping = train_from(
             init(0), " [r0]" if cfg.restarts > 1 else "")
         restart_elbos = [best_elbo]
         for r in range(1, cfg.restarts):
-            p_r, opt_r, elbo_r = train_from(init(r), f" [r{r}]")
+            p_r, opt_r, elbo_r, stepping_r = train_from(init(r), f" [r{r}]")
             restart_elbos.append(elbo_r)
             if elbo_r > best_elbo:
-                trained, opt, best_elbo = p_r, opt_r, elbo_r
+                trained, opt, best_elbo, stepping = (p_r, opt_r, elbo_r,
+                                                     stepping_r)
         total = time.perf_counter() - t0
         if cfg.restarts > 1:
             print(f"[{cfg.name}] restart elbos: "
                   f"{[round(e, 2) for e in restart_elbos]} -> best "
                   f"{best_elbo:.2f}", flush=True)
-        per_step = time_steps(
-            make_step_fn(lambda _, *d: loss_fn(trained, *d), opt), step_data,
-            10)
+        step_loss, data, placement = stepping
+        per_step = time_steps(make_step_fn(step_loss, opt), data, 10)
         print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} "
               "ms/step", flush=True)
         logger.close()
+        if mesh is not None:
+            # every metric below reads the whole parameters
+            trained = parallel_auto.gather(trained, placement, mesh)
         with torch.no_grad():
             terms = _scalar_terms(model.elbo_terms(trained, Y_train, mcfg))
     result = {"config": cfg.name, "data": tag, "steps": steps,
@@ -999,6 +1047,11 @@ def main(argv=None) -> int:
                          "train/mrd_recipe.py (on) or one phase at the "
                          "config's rates (off); default: the config's "
                          "`staged`")
+    ap.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
+                    help="full-batch configs (c1-c5): train on a mesh of "
+                         "ranks, rows over DATA, DP atoms over MODEL, under "
+                         "torchrun --nproc-per-node DATA*MODEL (gloo on "
+                         "the CPU; on the card 1 or 1,1, over NCCL)")
     args = ap.parse_args(argv)
 
     cfg = config_lib.get(args.config)
@@ -1010,7 +1063,15 @@ def main(argv=None) -> int:
         overrides["ard_lr"] = args.ard_lr
     cfg = dataclasses.replace(cfg, **overrides)
     out = args.out or str(ROOT / "build" / "runs" / cfg.name)
-    with torch.autograd.set_detect_anomaly(args.debug_nans):
+    with contextlib.ExitStack() as stack:
+        if args.mesh:
+            stack.callback(mesh_lib.close_distributed)
+        if args.mesh and int(os.environ.get("RANK", 0)) != 0:
+            # on a mesh rank 0 prints; the other ranks train quietly
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        stack.enter_context(
+            torch.autograd.set_detect_anomaly(args.debug_nans))
         result = run(cfg, steps=args.steps, device=args.device,
                      dtype=torch.float64 if args.f64 else torch.float32,
                      out=out, log_every=args.log_every,
@@ -1022,8 +1083,9 @@ def main(argv=None) -> int:
                      staged=(None if args.staged is None
                              else args.staged == "on"),
                      data_dir=args.data_dir, plots=args.plots,
-                     debug_nans=args.debug_nans)
-    if args.check:
+                     debug_nans=args.debug_nans, mesh=args.mesh)
+        if not args.check:
+            return 0
         failures = config_lib.evaluate_checks(cfg.name, result)
         if failures:
             print(f"[{cfg.name}] REGRESSION GATES FAILED:", flush=True)

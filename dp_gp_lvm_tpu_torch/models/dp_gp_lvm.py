@@ -115,7 +115,8 @@ def per_dim_atom_bound(hyp, Y, config: Config,
         kuu_b = dispatch.gram(variance, ard, z, kernel=config.kernel)
     with named_scope("psi_stats"):
         if dispatch.resolve_fused(config.use_fused, config.kernel,
-                                  mu.device, *z.shape[1:], Y.shape[1]):
+                                  mu.device, *z.shape[1:], Y.shape[1],
+                                  inputs=(variance, ard, mu, s, z, Y)):
             # one kernel gives Psi2 AND Psi1^T Y per atom; Psi1 never stored
             p0_b = ard_rbf.psi0(variance, mu)
             p2_b, p1y_b = psi_ops.suffstats_batched_fused(

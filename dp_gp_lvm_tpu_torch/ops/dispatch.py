@@ -3,9 +3,12 @@
 
 Two kernels: "ard_rbf" and "linear". `use_fused` (True | False |
 "auto") takes the meaning of the reference's `use_pallas`: "auto" takes
-the fused CUDA kernels (`ops/psi.py`) for tensors on the card where every
-kernel of the path takes the shape (`psi.fused_fits`: M <= 128, blocks
-that fit an SM), and the non-fused plain path otherwise. The reference's
+the fused CUDA kernels (`ops/psi.py`) where every input is a float32
+tensor on the card and every kernel of the path takes the shape
+(`psi.fused_fits`: M <= 128, blocks that fit an SM), and the non-fused
+plain path otherwise (float64 inputs included: the kernels take float32
+only). An explicit True launches the kernels whatever the inputs, and
+their wrappers refuse what they do not take. The reference's
 M >= 96 and 5e8 cut-overs were measured against XLA on a TPU and are not
 carried over. The linear kernel's psi statistics are plain matrix
 products (`kernels/linear.py`): no CUDA kernel takes them, whatever
@@ -71,7 +74,8 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
     if _kernel(kernel) is linear:
         return linear.psi_stats(variance, ard, mu, s, Z, weights, block_n)
     p0 = ard_rbf.psi0(variance, mu, weights)
-    if not resolve_fused(use_fused, kernel, mu.device, *Z.shape):
+    if not resolve_fused(use_fused, kernel, mu.device, *Z.shape,
+                         inputs=(variance, ard, mu, s, Z, weights)):
         return (
             p0,
             psi1_weighted(variance, ard, mu, s, Z, weights),
@@ -88,15 +92,20 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
 
 
 def resolve_fused(use_fused, kernel: str, device: torch.device, M: int,
-                  Q: int, D: int = 0) -> bool:
+                  Q: int, D: int = 0, *, inputs=()) -> bool:
     """Fused-kernel decision for the path at M inducing points, Q latent
     dims and D output dims: D > 0 is K1 + K2 (Psi2 with Psi1^T Y), D = 0
     K4/K5 and K6 + K2 (Psi2 alone). "auto" means fused on the card where
-    every kernel of the path takes (M, Q, D), decided before any launch."""
+    every tensor of `inputs` (None entries skipped) is float32 on the card
+    and every kernel of the path takes (M, Q, D), decided before any
+    launch. The fused ops make their inputs contiguous, so the layout
+    does not decide."""
     if kernel != "ard_rbf":
         return False
     if use_fused == "auto":
         return (torch.device(device).type == "cuda"
+                and all(x.dtype == torch.float32 and x.device.type == "cuda"
+                        for x in inputs if x is not None)
                 and psi_ops.fused_fits_on(device, M, Q, D))
     return bool(use_fused)
 
@@ -105,7 +114,8 @@ def psi2_batched(variance, ard, mu, s, Zs, weights=None, block_n=None,
                  use_fused="auto", kernel: str = "ard_rbf"):
     """Per-atom Psi2 stack (T, M, M): K4 with the K2 pullback when fused,
     else the non-fused path atom by atom."""
-    if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:]):
+    if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:],
+                     inputs=(variance, ard, mu, s, Zs, weights)):
         return psi_ops.psi2_batched_fused(variance, ard, mu, s, Zs, weights,
                                           block_n or 64)
     psi2 = linear.psi2 if _kernel(kernel) is linear else psi2_analytic
@@ -124,7 +134,8 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
     Yw = Y if weights is None else Y * weights[:, None]
     p0 = ard_rbf.psi0(variance, mu, weights)
     if resolve_fused(use_fused, kernel, mu.device, *Zs.shape[1:],
-                     Y.shape[1]):
+                     Y.shape[1], inputs=(variance, ard, mu, s, Zs, Y,
+                                         weights)):
         p2, p1y = psi_ops.suffstats_batched_fused(
             variance, ard, mu, s, Zs, Y, weights, block_n or 64
         )
@@ -158,7 +169,8 @@ def suff_stats(variance, ard, mu, s, Z, Y, weights=None, block_n=None,
     with K2 in its backward, and Psi1 is never stored; else the plain psi
     statistics. `"auto"` decides as `dp_batched_suffstats` does."""
     _kernel(kernel)
-    if resolve_fused(use_fused, kernel, mu.device, *Z.shape, Y.shape[1]):
+    if resolve_fused(use_fused, kernel, mu.device, *Z.shape, Y.shape[1],
+                     inputs=(variance, ard, mu, s, Z, Y, weights)):
         p2, p1y = psi_ops.suffstats_batched_fused(
             variance[None], ard[None], mu, s, Z[None], Y, weights,
             block_n or 64)

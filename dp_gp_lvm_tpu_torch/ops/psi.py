@@ -665,6 +665,13 @@ def psi1(variance, ard, mu, s, Z, weights=None, block_n: int = 128):
 # ---------------------------------------------------------------------------
 
 
+def _contiguous(*xs):
+    """The inputs in the layout the kernels take: the fused ops accept any
+    strides (a transposed Y, a view cut from a larger q(X)) and copy only
+    what is not contiguous; None stays None."""
+    return tuple(None if x is None else x.contiguous() for x in xs)
+
+
 class SuffstatsBatchedFused(torch.autograd.Function):
     """(Psi2 (T,M,M), Psi1^T Y (T,M,D)): K1 forward; backward K2 for the
     Psi2 pullback plus the plain-torch Psi1 pullback. Row weights are
@@ -672,6 +679,8 @@ class SuffstatsBatchedFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, variances, ards, mu, s, Zs, Y, weights, block_n):
+        variances, ards, mu, s, Zs, Y, weights = _contiguous(
+            variances, ards, mu, s, Zs, Y, weights)
         ctx.save_for_backward(variances, ards, mu, s, Zs, Y, weights)
         ctx.block_n = block_n
         return suffstats_batched(variances, ards, mu, s, Zs, Y, weights,
@@ -712,6 +721,8 @@ class Psi2BatchedFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, variances, ards, mu, s, Zs, weights, block_n):
+        variances, ards, mu, s, Zs, weights = _contiguous(
+            variances, ards, mu, s, Zs, weights)
         ctx.save_for_backward(variances, ards, mu, s, Zs, weights)
         ctx.block_n = block_n
         return psi2_batched(variances, ards, mu, s, Zs, weights, block_n)
@@ -739,6 +750,8 @@ class Psi2Fused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, variance, ard, mu, s, Z, weights, block_n):
+        variance, ard, mu, s, Z, weights = _contiguous(
+            variance, ard, mu, s, Z, weights)
         ctx.save_for_backward(variance, ard, mu, s, Z, weights)
         ctx.block_n = block_n
         return psi2_single(variance, ard, mu, s, Z, weights, block_n)
@@ -764,6 +777,7 @@ class Psi1Fused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, variance, ard, mu, s, Z):
+        variance, ard, mu, s, Z = _contiguous(variance, ard, mu, s, Z)
         ctx.save_for_backward(variance, ard, mu, s, Z)
         return psi1(variance, ard, mu, s, Z)
 

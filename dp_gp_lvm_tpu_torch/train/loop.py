@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from dp_gp_lvm_tpu_torch.core.transforms import positive_variational_var
+from dp_gp_lvm_tpu_torch.parallel import collectives
 
 HYPER_PARAM_NAMES = frozenset(
     {"raw_variance", "raw_ard", "raw_noise", "raw_gamma1", "raw_gamma2",
@@ -176,14 +177,28 @@ class GPOptimizer:
     a float, or a schedule (integer count tensor -> rate tensor). `clip`
     is the global-norm clip (None: no clip).
     `step(grads)` updates the parameter tensors in place and returns
-    whether it applied the update (a 0-d bool tensor, not read here)."""
+    whether it applied the update (a 0-d bool tensor, not read here).
 
-    def __init__(self, params, labels, rates, clip, skip_nonfinite):
+    Across ranks (`mesh`, a `parallel.mesh.Mesh`, with `placement`, the
+    flat table of where each leaf lies): `params` are the rank's shards,
+    and `reduce(grads)` turns the rank's share of the gradient into the
+    logical one (`parallel.collectives.reduce_grads`). The global norm
+    then counts each shard of a cut leaf once and each whole leaf once,
+    optax's norm of the logical tree, and the finiteness test is one
+    decision for all ranks, so every rank applies or skips the same step
+    and the whole leaves stay the same bits on every rank."""
+
+    def __init__(self, params, labels, rates, clip, skip_nonfinite,
+                 mesh=None, placement=None):
         self.params = params
         self.labels = labels
         self.rates = rates
         self.clip = clip
         self.skip_nonfinite = skip_nonfinite
+        if (mesh is None) != (placement is None):
+            raise ValueError("a mesh needs its placement table, and a "
+                             "table its mesh")
+        self.mesh, self.placement = mesh, placement
         device = next(iter(params.values())).device
         zero = torch.zeros((), dtype=torch.int64, device=device)
         self.count = {g: zero.clone() for g in rates}
@@ -192,11 +207,29 @@ class GPOptimizer:
         self.nu = {k: torch.zeros_like(params[k]) for k in adam}
         self.notfinite_count = zero.clone()
 
+    def _across_ranks(self) -> bool:
+        return self.mesh is not None and self.mesh.world_size > 1
+
+    def reduce(self, grads):
+        """The logical gradient from this rank's share (the identity on
+        one rank)."""
+        if not self._across_ranks():
+            return grads
+        return collectives.reduce_grads(grads, self.placement, self.mesh)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """optax's global norm of the (logical) gradient tree."""
+        if not self._across_ranks():
+            return global_norm(grads)
+        return collectives.global_norm(grads, self.placement, self.mesh)
+
     @torch.no_grad()
     def step(self, grads):
         keys = list(self.params)
         finite = torch.stack(
             [torch.isfinite(grads[k]).all() for k in keys]).all()
+        if self._across_ranks():
+            finite = collectives.all_true(finite, self.mesh)
         if self.skip_nonfinite:
             self.notfinite_count = torch.where(
                 finite, torch.zeros_like(self.notfinite_count),
@@ -208,7 +241,7 @@ class GPOptimizer:
         if self.clip is None:
             clipped = grads
         else:
-            g_norm = global_norm(grads)
+            g_norm = self.global_norm(grads)
             clipped = {
                 k: torch.where(g_norm < self.clip, grads[k],
                                (grads[k] / g_norm) * self.clip)
@@ -275,7 +308,8 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
                  ard_lr: float | None = None, ard_warmup: int | None = None,
                  hyper_warmup: int | None = None,
                  freeze: frozenset = frozenset(),
-                 slow: frozenset = frozenset()) -> GPOptimizer:
+                 slow: frozenset = frozenset(), mesh=None,
+                 placement=None) -> GPOptimizer:
     """Stability-tuned optimizer of the GP-LVM family: hypers at lr/10,
     global-norm clip, non-finite steps skipped, optional NGD on q(X).
 
@@ -289,7 +323,9 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
     rate. The NGD group is dropped when no leaf carries its label. MRD's
     per-view leaves are labelled by their own key, as the reference
     labels its `views` subtree; the optimizer holds them flat
-    (`flat_leaves`).
+    (`flat_leaves`). `mesh` and `placement` (the params' table,
+    `parallel/auto.py`, nested as the params are) train the rank's
+    shards of a sharded loss (`parallel/recipe.py::sharded_setup`).
     """
     hyper_lr = lr / 10.0 if hyper_lr is None else hyper_lr
     lr_rate, hyper_rate, ngd_rate, ard_rate = lr, hyper_lr, ngd_lr, None
@@ -331,7 +367,8 @@ def gp_optimizer(params, lr: float = 1e-2, hyper_lr: float | None = None,
         rates["ard"] = ard_rate
     if "ngd" in labels.values():
         rates["ngd"] = ngd_rate
-    return GPOptimizer(leaves, labels, rates, clip, skip_nonfinite)
+    return GPOptimizer(leaves, labels, rates, clip, skip_nonfinite, mesh,
+                       None if placement is None else flat_leaves(placement))
 
 
 @dataclasses.dataclass
@@ -386,7 +423,8 @@ def _gradient_step(loss_fn: Callable, optimizer: GPOptimizer):
 
     def one(*data):
         loss = loss_fn(optimizer.params, *data)
-        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        grads = optimizer.reduce(
+            dict(zip(keys, torch.autograd.grad(loss, leaves))))
         optimizer.step(grads)
         STEPS["taken"] += 1
         return loss.detach(), grads
@@ -402,7 +440,8 @@ def make_step_fn(loss_fn: Callable, optimizer: GPOptimizer):
 
     def step(*data):
         loss, grads = one(*data)
-        return {"loss": loss, "elbo": -loss, "grad_norm": global_norm(grads)}
+        return {"loss": loss, "elbo": -loss,
+                "grad_norm": optimizer.global_norm(grads)}
 
     return step
 

@@ -1240,8 +1240,8 @@ def test_fit_lbfgs_f32_on_card_tracks_f64(card):
     params = bgplvm.init_params(key, Y, cfg)
     jitter = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
     out = {}
-    for dtype, c in ((torch.float32, cfg),
-                     (torch.float64, cfg._replace(use_fused=False))):
+    # "auto" takes the kernels for f32 and the plain path for f64
+    for dtype, c in ((torch.float32, cfg), (torch.float64, cfg)):
         info = {}
         psi.reset_launch_counts()
         _, losses = fit_lbfgs(
@@ -1257,3 +1257,148 @@ def test_fit_lbfgs_f32_on_card_tracks_f64(card):
     assert abs(l32[0] - l64[0]) <= 1e-4 * abs(l64[0])
     assert l32[-1] < l32[0] and l64[-1] < l64[0]
     assert abs(l32[-1] - l64[-1]) <= 1e-2 * abs(l64[-1])
+
+
+# ---------------------------------------------------------------------------
+# "auto" and the inputs the kernels do not take; the mesh at world size 1
+# ---------------------------------------------------------------------------
+
+C4 = dict(T=20, N=1024, M=64, Q=10, D=59)
+
+
+def _c4_dp(card, dtype, use_fused="auto"):
+    """c4_dp_mocap's widths on a mocap_like draw, with its init."""
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+
+    key = prng.PRNGKey(0)
+    Y, _ = mocap_like(key, n=C4["N"], d=C4["D"], dtype=dtype, device=card)
+    cfg = dp_gp_lvm.Config(num_latent=C4["Q"], num_inducing=C4["M"],
+                           truncation=C4["T"], use_fused=use_fused)
+    return Y, dp_gp_lvm.init_params(key, Y, cfg), cfg
+
+
+def _loss_and_grads(model, params, Y, cfg):
+    loss = model.loss(params, Y, cfg)
+    return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+
+@pytest.mark.cuda
+def test_auto_takes_the_plain_path_for_float64_at_c4(card):
+    """f64 inputs under "auto" at c4's widths: no kernel launches, and the
+    value and every gradient are those of use_fused=False."""
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+
+    Y, params, cfg = _c4_dp(card, torch.float64)
+    psi.reset_launch_counts()
+    loss, grads = _loss_and_grads(dp_gp_lvm, params, Y, cfg)
+    assert psi.LAUNCHES == _launched()
+    want, want_grads = _loss_and_grads(dp_gp_lvm, params, Y,
+                                       cfg._replace(use_fused=False))
+    assert torch.equal(loss, want)
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_a_transposed_y_gives_the_bits_of_its_contiguous_copy(card):
+    """A non-contiguous Y (the transpose of a row-major D x N array) goes
+    through K1 and K2 (`suffstats_batched_fused`, which "auto" takes) at
+    c4's widths and gives the same bits as Y itself, forward and every
+    gradient."""
+    a, f = _inputs(card, False, **C4)
+    Y_t = f["Y"].T.contiguous().T
+    assert not Y_t.is_contiguous() and torch.equal(Y_t, f["Y"])
+    r = np.random.default_rng(11)
+    G1 = torch.as_tensor(r.normal(size=(C4["T"], C4["M"], C4["D"])),
+                         dtype=torch.float32, device=card)
+    out = []
+    for y in (f["Y"], Y_t):
+        leaves = [f[k].clone().requires_grad_()
+                  for k in ("vs", "ards", "mu", "s", "Zs")]
+        leaves.append(y.clone().requires_grad_())
+        psi.reset_launch_counts()
+        p2, p1y = psi.suffstats_batched_fused(*leaves)
+        grads = torch.autograd.grad((p2 * f["G"]).sum() + (p1y * G1).sum(),
+                                    leaves)
+        assert psi.LAUNCHES == _launched(suffstats_batched=1,
+                                         psi2_bwd_batched=1)
+        out.append((p2, p1y, *grads))
+    for x, x_t in zip(*out):
+        assert torch.equal(x, x_t)
+
+
+@pytest.mark.cuda
+def test_use_fused_true_still_refuses_float64(card):
+    """Where the caller asks for the kernel, f64 raises: no silent plain
+    path."""
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm
+
+    Y, params, cfg = _c4_dp(card, torch.float64, use_fused=True)
+    with pytest.raises(TypeError, match="float32"):
+        dp_gp_lvm.loss(params, Y, cfg)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1 x 1 mesh over an NCCL process group of one rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import torch.distributed as dist
+
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(1, 1, "cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    mesh_lib.close_distributed()
+
+
+def _sharded_family(card, family):
+    """(model name, model module, full params, data tuple, config) at
+    c5_pose's (DP), c1's (Bayesian GP-LVM) and c3's (MRD) widths."""
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like, toy_gplvm
+    from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm, mrd
+
+    key = prng.PRNGKey(0)
+    if family == "dp_gp_lvm":
+        Y, _ = mocap_like(key, n=C5_POSE["N"], d=C5_POSE["D"],
+                          dtype=torch.float32, device=card)
+        cfg = dp_gp_lvm.Config(num_latent=C5_POSE["Q"],
+                               num_inducing=C5_POSE["M"],
+                               truncation=C5_POSE["T"])
+        return dp_gp_lvm, dp_gp_lvm.init_params(key, Y, cfg), (Y,), cfg
+    if family == "bgplvm":
+        Y, _ = toy_gplvm(key, n=C1["N"], d=C1["D"], q_true=2,
+                         q_total=C1["Q"], dtype=torch.float32, device=card)
+        cfg = bgplvm.Config(num_latent=C1["Q"], num_inducing=C1["M"])
+        return bgplvm, bgplvm.init_params(key, Y, cfg), (Y,), cfg
+    Ys, params, cfg = _mrd_setup(card, torch.float32)
+    return mrd, params, tuple(Ys), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dp_gp_lvm", "bgplvm", "mrd"])
+def test_sharded_loss_at_world_size_one_equals_the_fused_path(
+        card, nccl_mesh, family):
+    """The sharded loss and its gradient on a 1 x 1 mesh over NCCL equal
+    the unsharded fused path (f32; the sharded Bayesian GP-LVM takes K1 at
+    T = 1 where the unsharded one takes K6 and K5). The sharded step
+    launches K1 and K2 once per view."""
+    from dp_gp_lvm_tpu_torch.parallel import recipe
+    from dp_gp_lvm_tpu_torch.train.loop import flat_leaves
+
+    model, params, data, cfg = _sharded_family(card, family)
+    views = family == "mrd"
+    leaves = flat_leaves(params)
+    loss = model.loss(params, list(data) if views else data[0], cfg)
+    want = torch.autograd.grad(loss, list(leaves.values()))
+    setup = recipe.sharded_setup(family, params, data, cfg, nccl_mesh)
+    psi.reset_launch_counts()
+    sharded = setup.loss_fn(setup.params, *setup.data)
+    local = flat_leaves(setup.params)
+    got = torch.autograd.grad(sharded, list(local.values()))
+    assert psi.LAUNCHES == _launched(suffstats_batched=len(data),
+                                     psi2_bwd_batched=len(data))
+    assert abs(float(sharded) - float(loss)) <= 1e-4 * abs(float(loss))
+    assert max(_scaled_errors(got, want)) <= 5e-3   # chip_smoke's TOL_GRAD

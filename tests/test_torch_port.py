@@ -62,7 +62,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "dp_gp_lvm_tpu_torch.data.asf",
             "dp_gp_lvm_tpu_torch.data.native_io",
             "dp_gp_lvm_tpu_torch.perf.flops",
-            "dp_gp_lvm_tpu_torch.viz.plots"} <= walked
+            "dp_gp_lvm_tpu_torch.viz.plots",
+            "dp_gp_lvm_tpu_torch.parallel.mesh",
+            "dp_gp_lvm_tpu_torch.parallel.collectives",
+            "dp_gp_lvm_tpu_torch.parallel.auto",
+            "dp_gp_lvm_tpu_torch.parallel.recipe",
+            "dp_gp_lvm_tpu_torch.parallel.sharded_elbo"} <= walked
     assert out[1] == "", f"port pulled in {out[1]}"
     # the card's machine has no matplotlib: only a plot imports it
     assert out[2] == "False"
