@@ -177,6 +177,21 @@ imputation servers built on them. Phases, each printing one JSON line:
          against f64; cross_view_sample draws 64 joint samples of view 1
          at 8 held-out rows, whose mean and variance plus noise are held
          against cross_view_predict's
+  mesh_svi the minibatch families on the device mesh at world size 1 (an
+         NCCL group of one rank, a 1 x 1 mesh): c6, c8, c9 and c7's
+         stage-2c step (T = 8) on reduced draws (4096 rows; 8192 for c7
+         and c9) from q(u) at its optimum over the draw: the sharded loss,
+         every gradient and the stepped leaves against the unsharded
+         fused path to the bit; the loss, the gradients of the leaves the
+         optimizer steps and the step's blended q(u) against the plain
+         f64 path; 20 sharded and 20 unsharded steps in turns (ms a
+         step, the launches of a step held exactly: K1 2 and K2 1 for c6
+         and c8, K1 1 and K2 1 for c7, K1 2 and K2 2 for c9; K1 and K2
+         held against f64 on the sharded steps' first inputs); then the
+         runner with `--mesh 1`: c6 as the svi phase runs it, resumed from
+         its step-100 checkpoint to the straight mesh run's bits, and c7
+         as the dp_svi phase runs it, each with those phases' launches;
+         the final ELBOs against theirs
   sgpr   SGPR's bound and predictive and the exact GP's marginal and
          predictive at toy widths (N=200, M=10), f32 on the card against
          f64 on the CPU at the same jitter; also reported, not held, at
@@ -2976,6 +2991,372 @@ def phase_mrd_svi(torch, seed):
     return row
 
 
+# the minibatch families on the 1 x 1 mesh: (draw rows, K1 and K2
+# launches a step); c7's is its stage-2c step (T = 8, phi locked)
+MESH_SVI = {"c6_svi_bigN": (4096, 2, 1), "c8_amortized_svi": (4096, 2, 1),
+            "c9_mrd_svi_bigN": (8192, 2, 2), "c7_dp_svi": (8192, 1, 1)}
+# f32 against f64: each view's or atom's blended q(u) after one step, as
+# tests/test_torch_cuda.py holds the unsharded steps
+TOL_BLEND = 1e-3
+# the DP-SVI's Z gradient (c7) against f64, scaled by max|ref|: at q(u | t)'s
+# optimum it is the collapsed bound's, small beside the per-row terms it
+# sums, and f32 keeps ~2e-2 of it (an H100: 2.01e-2); at the prior it is
+# exactly 0 in both precisions, so neither state escapes the cancellation
+TOL_GRAD_DP_Z = 5e-2
+
+
+def _mesh_svi_setup(torch, seed, name):
+    """(data: Y or the views, model module, model config, draw rows, init
+    -> params, step factory (opt, mesh) -> step, gp_optimizer keywords) of
+    an SVI config at full width on a reduced draw, its step as the runner
+    (c6, c8, c9) or the staged recipe's stage 2c (c7) builds it."""
+    from dp_gp_lvm_tpu_torch.core import config, prng
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import dp_svi, mrd_svi, svi_gplvm
+
+    cfg = dataclasses.replace(config.get(name), seed=seed)
+    mcfg = runner._model_config(cfg, None)
+    n, key = MESH_SVI[name][0], prng.PRNGKey(cfg.seed)
+    opt_kw = dict(lr=cfg.lr, ngd_lr=cfg.ngd_lr, decay_steps=cfg.steps,
+                  slow=frozenset({"z"}) if cfg.amortized else frozenset())
+    if cfg.model == "dp_svi":
+        Y, _, _ = synthetic.grouped_dims_big(
+            key, n=n, dims_per_group=runner.grouped_dims_per_group(cfg.d),
+            q=cfg.q, dtype=torch.float32)
+        return (Y, dp_svi, mcfg, n,
+                lambda: dp_svi.init_params(key, Y, mcfg),
+                lambda opt, mesh: dp_svi.make_dp_svi_step(
+                    mcfg, n, opt, rho=0.3, phi_update="frozen", mesh=mesh),
+                opt_kw)
+    if cfg.model == "mrd_svi":
+        Y1, Y2, _ = synthetic.two_view_big(key, n=n, d1=cfg.views[0],
+                                           d2=cfg.views[1],
+                                           dtype=torch.float32)
+        return ((Y1, Y2), mrd_svi, mcfg, n,
+                lambda: mrd_svi.init_params(key, (Y1, Y2), mcfg),
+                lambda opt, mesh: runner._svi_step(cfg, mcfg, n, opt, False,
+                                                   mesh), opt_kw)
+    Y, _ = synthetic.mocap_like(key, n=n, d=cfg.d, dtype=torch.float32)
+    return (Y, svi_gplvm, mcfg, n,
+            lambda: svi_gplvm.init_params(key, Y, mcfg),
+            lambda opt, mesh: runner._svi_step(cfg, mcfg, n, opt, False,
+                                               mesh), opt_kw)
+
+
+def _at_optimal_qu(torch, model, params, data, mcfg):
+    """params with q(u) (each view's, each atom's) at its optimum over
+    every row of the draw, in place: off the prior, where the bound does
+    not read Psi2 and the hypers' and Z's gradients vanish."""
+    from dp_gp_lvm_tpu_torch.train.loop import flat_leaves
+
+    with torch.no_grad():
+        best = flat_leaves(model.set_optimal_qu(
+            params, list(data) if isinstance(data, tuple) else data, mcfg))
+        for k, v in flat_leaves(params).items():
+            v.copy_(best[k])
+    return params
+
+
+def _mesh_svi_model(torch, psi, mesh, seed, name):
+    """One SVI config on the 1 x 1 mesh (see the module docstring)."""
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import dp_svi
+    from dp_gp_lvm_tpu_torch.parallel import recipe
+    from dp_gp_lvm_tpu_torch.parallel import sharded_elbo as se
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    data, model, mcfg, n, init, make_step, opt_kw = _mesh_svi_setup(
+        torch, seed, name)
+    family = model.__name__.rsplit(".", 1)[-1]
+    views = isinstance(data, tuple)
+    _, k1, k2 = MESH_SVI[name]
+    same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
+
+    base = _at_optimal_qu(torch, model, init(), data, mcfg)
+
+    def fresh():
+        """A copy of the checked state, new leaves."""
+        return {k: ([{kk: torch.nn.Parameter(vv.detach().clone())
+                      for kk, vv in view.items()} for view in v]
+                    if k == "views" else torch.nn.Parameter(
+                        v.detach().clone())) for k, v in base.items()}
+
+    idx_all = dp_svi.minibatch_indices(
+        prng.fold_in(prng.PRNGKey(1), torch.arange(21)), mcfg.batch,
+        n).cuda()
+    idx = idx_all[0]
+    rows = [y[idx] for y in data] if views else data[idx]
+
+    # the loss and every gradient: unsharded f32, sharded f32, plain f64
+    params = fresh()
+    leaves = loop.flat_leaves(params)
+    loss_u = model.loss_minibatch(params, rows, idx, n, mcfg)
+    g_u = torch.autograd.grad(loss_u, list(leaves.values()))
+    local, _, table = recipe.place_svi(family, fresh(), (), mesh)
+    sharded = {"svi_gplvm": se.svi_loss_sharded,
+               "dp_svi": se.dp_svi_loss_sharded,
+               "mrd_svi": se.mrd_svi_loss_sharded}[family]
+    loss_s = sharded(local, rows, idx, n, mcfg, mesh)
+    g_s = torch.autograd.grad(loss_s, list(loop.flat_leaves(local).values()))
+    p64 = _f64_tree(params)
+    rows64 = [y.double() for y in rows] if views else rows.double()
+    loss64 = -model.elbo_minibatch(p64, rows64, idx, n,
+                                   mcfg._replace(use_fused=False), same)
+    g64 = torch.autograd.grad(loss64, list(loop.flat_leaves(p64).values()))
+
+    def scaled(got, want, names=tuple(leaves)):
+        """Per leaf |got - want| / max|want|; leaves whose reference is
+        exactly 0 are left out."""
+        return {k: float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max())
+                for k, a, b in zip(names, got, want)
+                if float(b.abs().max()) > 0}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    # one step from the same state: unsharded f32, sharded f32, plain f64
+    step_u = make_step(loop.gp_optimizer(params, **opt_kw), None)
+    step_u(0, idx, data)
+    opt_s = loop.gp_optimizer(local, mesh=mesh, placement=table, **opt_kw)
+    step_s = make_step(opt_s, mesh)
+    step_s(0, idx, data)
+    p64_step = _f64_tree(fresh())
+    cfg64 = mcfg._replace(use_fused=False)
+    opt64 = loop.gp_optimizer(p64_step, **opt_kw)
+    data64 = (tuple(y.double() for y in data) if views else data.double())
+    if family == "svi_gplvm":
+        step64 = model.make_svi_natgrad_step(
+            cfg64, n, opt64, rho=0.2, policy=same,
+            qu_trust=100.0 if mcfg.amortized else None)
+    elif family == "mrd_svi":
+        step64 = model.make_svi_natgrad_step(cfg64, n, opt64, rho=0.2,
+                                             policy=same)
+    else:
+        step64 = model.make_dp_svi_step(cfg64, n, opt64, rho=0.3,
+                                        phi_update="frozen", policy=same)
+    step64(0, idx, data64)
+    after_u, after_s, after64 = ({k: v.detach().clone() for k, v in
+                                  loop.flat_leaves(p).items()}
+                                 for p in (params, local, p64_step))
+    blend = [k for k in after_u if k.rsplit(".", 1)[-1] in (
+        "u_mean", "raw_u_scale", "u_h", "u_lam")]
+    step_bits = all(bool(torch.equal(after_s[k], after_u[k]))
+                    for k in after_u)
+    blend_vs_u = max(scaled([after_s[k] for k in blend],
+                            [after_u[k] for k in blend], blend).values())
+    blend_vs_f64 = scaled([after_s[k] for k in blend],
+                          [after64[k] for k in blend], blend)
+
+    # 20 sharded and 20 unsharded steps, in turns (10, 10, 10, 10), each
+    # side on the minibatches 1-20 (both continue from the step above)
+    t = [1]
+
+    def ten(step):
+        out = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(t[0], idx_all[t[0]], data)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+            t[0] += 1
+        return out
+
+    psi.reset_launch_counts()
+    loop.reset_step_count()
+    with _first_inputs(torch, psi, lambda name, args: (
+            name != "psi2_bwd_batched" or bool(args[5].any()))) as seen:
+        ms = ten(step_s)
+    launches, steps = dict(psi.LAUNCHES), loop.STEPS["taken"]
+    held = _hold_first_inputs(torch, psi, seen)
+    t[0] = 1
+    ms_u = ten(step_u)
+    ms_u += ten(step_u)
+    t[0] = 11
+    ms += ten(step_s)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=k1 * steps, psi2_bwd_batched=k2 * steps)
+    grad_vs_u = scaled(g_s, g_u)
+    grad_vs_f64 = scaled(g_s, g64)
+    # the leaves the optimizer steps by their gradient; the blend sets
+    # q(u) (held above), and the DP-SVI's blend or CAVI its other leaves
+    set_by_blend = ("u_mean", "raw_u_scale") + dp_svi._BLEND_LEAVES
+    stepped_vs_f64 = {k: v for k, v in grad_vs_f64.items()
+                      if k.rsplit(".", 1)[-1] not in set_by_blend}
+    tol_stepped = {k: TOL_GRAD_DP_Z if (family, k) == ("dp_svi", "z")
+                   else TOL_GRAD for k in stepped_vs_f64}
+    row = dict(
+        phase="mesh_svi", config=name, model=family, rows=n,
+        batch=mcfg.batch,
+        loss_sharded_f32=float(loss_s), loss_unsharded_f32=float(loss_u),
+        loss_plain_f64=float(loss64),
+        loss_bitwise_equal=bool(torch.equal(loss_s.detach(),
+                                            loss_u.detach())),
+        grads_bitwise_equal=all(bool(torch.equal(a, b))
+                                for a, b in zip(g_s, g_u)),
+        step_bitwise_equal=step_bits,
+        loss_rel_err_vs_unsharded=rel(loss_s, loss_u),
+        loss_rel_err_vs_f64=rel(loss_s, loss64), tol=TOL_ELBO,
+        grad_scaled_err_vs_unsharded=max(grad_vs_u.values()),
+        grad_scaled_err_vs_f64=grad_vs_f64,
+        stepped_grad_scaled_err_vs_f64=stepped_vs_f64,
+        tol_stepped_grad=tol_stepped,
+        grads_zero_at_this_state=sorted(set(leaves) - set(grad_vs_f64)),
+        blend_scaled_err_vs_unsharded=blend_vs_u,
+        blend_scaled_err_vs_f64=blend_vs_f64,
+        tol_blend=TOL_BLEND,
+        ms_per_step_median=statistics.median(ms),
+        ms_per_step_unsharded_median=statistics.median(ms_u),
+        launches=launches, expected_launches=expected,
+        launches_per_step={k: v / steps for k, v in launches.items() if v},
+        held_on_the_steps_inputs=held,
+        seconds=time.perf_counter() - t_start)
+    emit(row)
+    # one rank runs the unsharded path's kernels in its order: the same bits
+    if not (row["loss_bitwise_equal"] and row["grads_bitwise_equal"]
+            and row["step_bitwise_equal"]):
+        raise AssertionError(f"mesh_svi: {name}: the sharded loss, gradient "
+                             f"or step is not the unsharded one's bits: "
+                             f"{row}")
+    if not row["loss_rel_err_vs_f64"] <= TOL_ELBO:
+        raise AssertionError(f"mesh_svi: {name}: sharded loss off: {row}")
+    if any(v > tol_stepped[k] for k, v in stepped_vs_f64.items()):
+        raise AssertionError(f"mesh_svi: {name}: sharded gradient off: "
+                             f"{row}")
+    if not max(row["blend_scaled_err_vs_f64"].values()) <= TOL_BLEND:
+        raise AssertionError(f"mesh_svi: {name}: blended q(u) off: {row}")
+    if launches != expected or steps != 10:
+        raise AssertionError(f"mesh_svi: {name} launched {launches} in "
+                             f"{steps} steps, expected {expected}")
+    if {h["kernel"] for h in held} != {"suffstats_batched",
+                                       "psi2_bwd_batched"}:
+        raise AssertionError(f"mesh_svi: {name} held {held}")
+    for h in held:
+        if not (h["scaled_err"] <= h["tol"] and h["repeat_bitwise_equal"]):
+            raise AssertionError(f"mesh_svi: {name}: {h['kernel']} "
+                                 f"disagrees with its plain version: {h}")
+    return row
+
+
+def phase_mesh_svi(torch, seed, card, svi, dp):
+    """The minibatch families at world size 1 (module docstring): the
+    per-step checks of each config, then the runner's `--mesh 1` runs of
+    c6 (with the resume) and c7 against the svi and dp_svi phases'
+    unsharded runs of the same configs."""
+    import shutil
+
+    import numpy as np
+
+    from dp_gp_lvm_tpu_torch.core import config
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+    from dp_gp_lvm_tpu_torch.train import loop
+    from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "smoke_mesh_svi"
+    shutil.rmtree(out, ignore_errors=True)
+    mesh = mesh_lib.make_mesh(1, 1, "cuda")
+    try:
+        rows = {name: _mesh_svi_model(torch, psi, mesh, seed, name)
+                for name in MESH_SVI}
+        runs = {}
+        c6 = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
+        kw = dict(steps=C6_STEPS, device="cuda", ckpt_every=C6_CKPT_EVERY,
+                  impute_steps=C6_IMPUTE_STEPS, mesh="1")
+        psi.reset_launch_counts()
+        loop.reset_step_count()
+        t0 = time.perf_counter()
+        straight = runner.run(c6, out=str(out / "c6"), **kw)
+        c6_launches = dict(psi.LAUNCHES)
+        wall = [time.perf_counter() - t0]
+        resumed_dir = out / "c6_resumed"
+        (resumed_dir / "ckpt").mkdir(parents=True)
+        shutil.copy(out / "c6" / "ckpt" / f"ckpt_{C6_CKPT_EVERY}.pt",
+                    resumed_dir / "ckpt")
+        loop.reset_step_count()
+        t0 = time.perf_counter()
+        resumed = runner.run(c6, out=str(resumed_dir), resume=True, **kw)
+        wall.append(time.perf_counter() - t0)
+        resumed_steps = loop.STEPS["taken"]
+        a, b = (load_npz(str(d / "params.npz"))
+                for d in (out / "c6", resumed_dir))
+        runs["c6_svi_bigN"] = dict(
+            phase="mesh_svi_run", config=c6.name, mesh="1", steps=C6_STEPS,
+            ms_per_step=straight["ms_per_step"],
+            ms_per_step_unsharded_run=svi["ms_per_step"],
+            seconds=straight["seconds"], elbo_f64=straight["elbo"],
+            elbo_f64_unsharded_run=svi["elbo_f64"],
+            elbo_diff_vs_unsharded_run=straight["elbo"] - svi["elbo_f64"],
+            launches=c6_launches, launches_unsharded_run=svi["launches"],
+            resumed_from=C6_CKPT_EVERY, resumed_steps=resumed_steps,
+            resume_bitwise_equal=sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in a)
+            and resumed["elbo"] == straight["elbo"],
+            nonfinite=config.evaluate_checks("", straight),
+            wall_seconds_straight_and_resumed=wall)
+        emit(runs["c6_svi_bigN"])
+
+        c7 = dataclasses.replace(config.get("c7_dp_svi"), seed=seed)
+        psi.reset_launch_counts()
+        loop.reset_step_count()
+        t0 = time.perf_counter()
+        result = runner.run(c7, steps=C7_STEPS, device="cuda",
+                            out=str(out / "c7"), mesh="1",
+                            impute_steps=C7_IMPUTE_STEPS)
+        wall = time.perf_counter() - t0
+        runs["c7_dp_svi"] = dict(
+            phase="mesh_svi_run", config=c7.name, mesh="1", steps=C7_STEPS,
+            steps_taken=loop.STEPS["taken"],
+            ms_per_step_stage2c=result["ms_per_step"],
+            ms_per_step_stage2c_unsharded_run=dp["ms_per_step_stage2c"],
+            seconds=result["seconds"], elbo=result["elbo"],
+            elbo_unsharded_run=dp["elbo"],
+            elbo_diff_vs_unsharded_run=result["elbo"] - dp["elbo"],
+            group_purities=result["group_purities"],
+            group_purities_unsharded_run=dp["group_purities"],
+            launches=dict(psi.LAUNCHES), launches_unsharded_run=dp["launches"],
+            nonfinite=config.evaluate_checks("", result), wall_seconds=wall)
+        emit(runs["c7_dp_svi"])
+    finally:
+        mesh_lib.close_distributed()
+    for name, r in runs.items():
+        if r["nonfinite"]:
+            raise AssertionError(f"mesh_svi: the --mesh 1 run of {name} gave "
+                                 f"a broken result: {r}")
+        if r["launches"] != r["launches_unsharded_run"]:
+            raise AssertionError(f"mesh_svi: the --mesh 1 run of {name} "
+                                 f"launched {r['launches']}, the unsharded "
+                                 f"run {r['launches_unsharded_run']}")
+    r6 = runs["c6_svi_bigN"]
+    if r6["resumed_steps"] != C6_STEPS - C6_CKPT_EVERY or not r6[
+            "resume_bitwise_equal"]:
+        raise AssertionError("mesh_svi: the resumed --mesh 1 c6 run did not "
+                             "end on the straight mesh run's bits")
+    emit(dict(phase="mesh_svi_ms", card=card,
+              phase_seconds=time.perf_counter() - t_phase,
+              ms_per_step={name: {"sharded": r["ms_per_step_median"],
+                                  "unsharded": r[
+                                      "ms_per_step_unsharded_median"]}
+                           for name, r in rows.items()},
+              runner_ms_per_step={
+                  "c6_svi_bigN": {"sharded": r6["ms_per_step"],
+                                  "unsharded": r6[
+                                      "ms_per_step_unsharded_run"]},
+                  "c7_dp_svi stage 2c": {
+                      "sharded": runs["c7_dp_svi"]["ms_per_step_stage2c"],
+                      "unsharded": runs["c7_dp_svi"][
+                          "ms_per_step_stage2c_unsharded_run"]}}))
+    return rows, runs
+
+
 TOL_SGPR = 1e-4   # relative, of the bound and the exact marginal
 # (N, M) of the sgpr phase: held at the first; the second, whose K_uu has
 # a condition number near 4e4, is reported only (f32 solves lose about
@@ -3242,6 +3623,8 @@ def main(argv=None) -> int:
     dp = phase_dp_svi(torch, args.seed)
     amort = phase_amortized(torch, args.seed)
     c9 = phase_mrd_svi(torch, args.seed)
+    mesh_svi, mesh_svi_runs = phase_mesh_svi(torch, args.seed,
+                                             card.splitlines()[0], svi, dp)
     phase_sgpr(torch, args.seed)
     phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
 
@@ -3272,7 +3655,11 @@ def main(argv=None) -> int:
                   amortized_c8_amortized_svi=amort["launches"],
                   amortized_stream_c8_amortized_svi=amort[
                       "streamed_launches"],
-                  mrd_svi_c9_mrd_svi_bigN=c9["launches"])
+                  mrd_svi_c9_mrd_svi_bigN=c9["launches"],
+                  **{f"mesh_svi_{name}": row["launches"]
+                     for name, row in mesh_svi.items()},
+                  **{f"mesh_svi_run_{name}": row["launches"]
+                     for name, row in mesh_svi_runs.items()})
     csrc = "dp_gp_lvm_tpu_torch/csrc"
     pallas = "dp_gp_lvm_tpu/ops/pallas/psi.py"
 
@@ -3340,6 +3727,10 @@ def main(argv=None) -> int:
                     s["stage"]: s["launches_per_step"][name]
                     for s in c9["stages"]}}
 
+    def on_mesh(name):
+        """A kernel's launches a step on the 1 x 1 mesh (mesh_svi phase)."""
+        return {c: r["launches_per_step"][name] for c, r in mesh_svi.items()}
+
     c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
     c9_full = c9["kernels_at_c9"]["suffstats_batched T=1 N=131072"]
     kernels = [
@@ -3369,7 +3760,8 @@ def main(argv=None) -> int:
              c9_full_n_device_ms=c9_full["device_ms"],
              c9_full_n_bound_ms=c9_full["bound_ms"],
              c9_full_n_ms=c9_full["ms"],
-             c9_full_n_plain_ms=c9_full["plain_ms"]),
+             c9_full_n_plain_ms=c9_full["plain_ms"],
+             mesh_svi_launches_per_step=on_mesh("suffstats_batched")),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
@@ -3386,7 +3778,8 @@ def main(argv=None) -> int:
              c6_streamed_launches_per_step=streamed["launches_per_step"][
                  "psi2_bwd_batched"],
              **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched"),
-             **at_c8("psi2_bwd_batched"), **at_c9("psi2_bwd_batched")),
+             **at_c8("psi2_bwd_batched"), **at_c9("psi2_bwd_batched"),
+             mesh_svi_launches_per_step=on_mesh("psi2_bwd_batched")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],

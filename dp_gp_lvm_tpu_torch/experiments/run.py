@@ -81,6 +81,7 @@ from dp_gp_lvm_tpu_torch.models import (
     svi_gplvm,
 )
 from dp_gp_lvm_tpu_torch.parallel import auto as parallel_auto
+from dp_gp_lvm_tpu_torch.parallel import collectives
 from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
 from dp_gp_lvm_tpu_torch.parallel import recipe as parallel_recipe
 from dp_gp_lvm_tpu_torch.train import dp_recipe, mrd_recipe
@@ -413,26 +414,35 @@ def _rows_per_sec(batch, per_step):
         else None
 
 
-def _svi_step(cfg, mcfg, n_total, opt, stream):
+def _svi_step(cfg, mcfg, n_total, opt, stream, mesh=None):
     if cfg.model == "dp_svi":
         return dp_svi.make_dp_svi_step(mcfg, n_total, opt, rho=0.3,
-                                       rho_phi=0.1, streaming=stream)
+                                       rho_phi=0.1, streaming=stream,
+                                       mesh=mesh)
     if cfg.model == "mrd_svi":
         # one K1 and one K2 a view and step: the blend reads the gradient
         # pass's statistics
         return mrd_svi.make_svi_natgrad_step(
-            mcfg, n_total, opt, rho=0.2, streaming=stream,
+            mcfg, n_total, opt, rho=0.2, streaming=stream, mesh=mesh,
             qu_trust=100.0 if cfg.amortized else None)
     # the amortized model's q(u) blend in a trust region (G's RMS
     # eigenvalue and the mean's step capped at 100)
     return svi_gplvm.make_svi_natgrad_step(
-        mcfg, n_total, opt, rho=0.2, streaming=stream,
+        mcfg, n_total, opt, rho=0.2, streaming=stream, mesh=mesh,
         qu_trust=100.0 if cfg.amortized else None)
+
+
+def _svi_table(cfg, params):
+    """The placement table of an SVI config's (rank's) parameters."""
+    if cfg.model == "dp_svi":
+        return parallel_auto.dp_svi_shardings(params)[0]
+    return parallel_auto.svi_shardings(params)[0]
 
 
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
-               inject_nonfinite_at, stream, debug_nans=False):
+               inject_nonfinite_at, stream, debug_nans=False, mesh=None,
+               work_dir=None):
     """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1; the
     MRD-SVI with `--staged off`, Y the tuple of its aligned views): q(u)
     by stochastic natural gradient, the rest by `gp_optimizer`, in chunks
@@ -444,26 +454,38 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
     and a `data.stream.ChunkStream` (seed + 7, the native loader on the
     card) draws and gathers each chunk on the host; the step gets the rows,
     never Y (the MRD-SVI's views concatenated column-wise, which its step
-    splits again). Returns (params, s per step after the first chunk,
-    seconds, result keys)."""
+    splits again).
+
+    On a `mesh` p0 is placed (`parallel.recipe.place_svi`) and every rank
+    draws the same full batches, resident or streamed, and steps on its
+    block of rows; the checkpoints in `work_dir/ckpt` hold the full state
+    (`train/checkpoint.py`). `out` is where rank 0 writes, `work_dir` the
+    run's directory on every rank (default `out`). Returns (params, s per
+    step after the first chunk, seconds, result keys); on a mesh the
+    rank's parameters."""
     Y_flat = torch.cat(Y, dim=1) if isinstance(Y, tuple) else Y
     n_total = Y_flat.shape[0]
+    work_dir = work_dir or out
+    table = None
+    if mesh is not None:
+        p0, _, table = parallel_recipe.place_svi(cfg.model, p0, (Y,), mesh)
     # amortized: inducing points at the full rate cluster under the
     # encoder's compressed latent cloud and drive cond(K_uu) past the f32
     # whitening limit; at the hyper rate they keep it conditioned
     opt = gp_optimizer(p0, lr=cfg.lr, hyper_lr=hyper_lr, ard_lr=cfg.ard_lr,
                        decay_steps=steps, ngd_lr=ngd_lr,
-                       slow=frozenset({"z"}) if cfg.amortized else frozenset())
-    step_fn = _svi_step(cfg, mcfg, n_total, opt, stream)
+                       slow=frozenset({"z"}) if cfg.amortized else frozenset(),
+                       mesh=mesh, placement=table)
+    step_fn = _svi_step(cfg, mcfg, n_total, opt, stream, mesh)
     chunk = _svi_chunk(device, log_every, steps, stop_after)
     state = TrainState(opt)
     ck = None
     if ckpt_every or resume or stream:
-        if out is None:
+        if work_dir is None:
             raise ValueError("--ckpt-every, --resume and --stream need an "
                              "output directory")
     if ckpt_every or resume:
-        ck = Checkpointer(os.path.join(out, "ckpt"))
+        ck = Checkpointer(os.path.join(work_dir, "ckpt"))
         if resume and ck.restore(state) is not None:
             print(f"[{cfg.name}] resumed at step {state.step}", flush=True)
     loop_steps = min(steps, stop_after or steps)
@@ -484,8 +506,11 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                     f"--resume at step {start}: the streaming Philox "
                     f"fast-forward needs a chunk-multiple checkpoint "
                     f"(chunk={chunk})")
-            y_path = stream_lib.write_rows(
-                os.path.join(out, "y_stream.f32"), Y_flat.cpu().numpy())
+            y_path = os.path.join(work_dir, "y_stream.f32")
+            if mesh is None or mesh.rank == 0:
+                stream_lib.write_rows(y_path, Y_flat.cpu().numpy())
+            if mesh is not None:       # every rank streams rank 0's file
+                collectives.barrier(mesh)
             # the card's feed is the native gather, never the numpy one
             loader = (stream_lib.StreamLoader if device.type == "cuda"
                       else stream_lib.open_loader)(y_path, n_total,
@@ -528,16 +553,19 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
 
 
 def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
-                  resume, inject_nonfinite_at, debug_nans=False,
-                  **recipe_kw):
+                  resume, inject_nonfinite_at, debug_nans=False, mesh=None,
+                  work_dir=None, **recipe_kw):
     """A staged recipe on the resident rows: the DP-SVI at T > 1 through
     `train/dp_recipe.py` (a boundary after each stage), or the MRD-SVI, Y
     its tuple of views, through `train/mrd_recipe.py` (the phase-A
     boundary). The init is drawn from PRNGKey(seed), the minibatches from
     PRNGKey(seed + 100); the boundaries are written to `out/stages`, and
     with `resume` the recipe restarts after the last one. `recipe_kw`
-    goes to the recipe. Returns (params, the last stage's s per step,
-    seconds, result keys)."""
+    goes to the recipe. On a `mesh` the recipe steps sharded and its
+    boundaries go to `work_dir/stages` (default `out`, where rank 0
+    writes). Returns (params, the last stage's s per step, seconds, result
+    keys); on a mesh the rank's parameters."""
+    work_dir = work_dir or out
     chunk = _svi_chunk(device, log_every, steps, None)
 
     def drive(step_fn, state, n_steps, key, Y_cur, label=""):
@@ -560,8 +588,9 @@ def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
         prng.PRNGKey(cfg.seed), prng.PRNGKey(cfg.seed + 100), Y, mcfg,
         (Y[0] if mrd_views else Y).shape[0], steps=steps, chunk=chunk,
         lr=cfg.lr, drive=drive,
-        ckpt_dir=os.path.join(out, "stages") if out is not None else None,
-        resume=resume, **recipe_kw)
+        mesh=mesh, resume=resume, **recipe_kw,
+        ckpt_dir=(os.path.join(work_dir, "stages") if work_dir is not None
+                  else None))
     per_step, total = info.pop("per_step"), info.pop("seconds")
     extra = {"batch": mcfg.batch, **info,
              "rows_per_sec": _rows_per_sec(mcfg.batch, per_step)}
@@ -657,21 +686,20 @@ def run(cfg, *, steps: int | None = None, device=None,
     training). `debug_nans` raises FloatingPointError at the first
     non-finite loss: every full-batch step's (one host read a step), every
     SVI chunk's; `main --debug-nans` also trains under autograd's anomaly
-    mode. `mesh` ("DATA[,MODEL]", the full-batch configs c1-c5) trains
-    the rank's shards of the sharded loss (`parallel/recipe.py`) under
+    mode. `mesh` ("DATA[,MODEL]") trains on a mesh of ranks under
     `torchrun --nproc-per-node DATA*MODEL` (gloo on the CPU; on the card
-    only "1" or "1,1", over NCCL); every restart is placed anew, and
-    the metrics read the gathered parameters. Only rank 0 writes to
-    `out` (`main` also keeps the other ranks quiet)."""
+    only "1" or "1,1", over NCCL): the full-batch configs c1-c5 the
+    rank's shards of the sharded loss (`parallel/recipe.py`), every
+    restart placed anew; the SVI configs c6-c9 each batch's block of rows
+    (the DP-SVI's atoms over MODEL), streamed or resident, staged or not,
+    with checkpoints of the full state. The metrics read the gathered
+    parameters. Only rank 0 writes to `out` (`main` also keeps the other
+    ranks quiet); every rank reads the checkpoints there."""
     if plots:
         if out is None:
             raise ValueError("--plots needs an output directory")
         viz.require_matplotlib()
     device = resolve_device(device)
-    if mesh is not None and cfg.model in SVI_MODELS:
-        raise NotImplementedError(
-            f"--mesh for {cfg.model} ({cfg.name}) is not ported yet "
-            "(parallel/recipe.place_svi)")
     if device.type == "cuda" and dtype != torch.float32:
         raise ValueError("the CUDA kernels take float32 only; --f64 is the "
                          "CPU parity mode (--device cpu)")
@@ -699,6 +727,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             "single-phase loop only (--staged off)")
     if device.type == "cuda":
         pin_full_f32()
+    work_dir = out       # the run's directory: checkpoints, stream, stages
     if mesh is not None:
         spec, mesh = mesh, open_mesh(mesh, device)
         if mesh.rank != 0:
@@ -707,6 +736,8 @@ def run(cfg, *, steps: int | None = None, device=None,
     model = MODELS[cfg.model]
     if out is not None:
         os.makedirs(out, exist_ok=True)
+    if mesh is not None:     # rank 0 made it before any rank writes there
+        collectives.barrier(mesh)
     logger = JsonlLogger(os.path.join(out, "train.jsonl") if out else None)
 
     views = cfg.model in ("mrd", "mrd_svi")
@@ -802,6 +833,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             cfg, Y_train, mcfg, steps, device=device, log_every=log_every,
             logger=logger, out=out, resume=resume,
             inject_nonfinite_at=inject_nonfinite_at, debug_nans=debug_nans,
+            mesh=mesh, work_dir=work_dir,
             **({"ngd_lr": ngd_lr} if staged_dp else {}))
     elif svi:
         trained, per_step, total, extra = _train_svi(
@@ -809,9 +841,14 @@ def run(cfg, *, steps: int | None = None, device=None,
             log_every=log_every, hyper_lr=hyper_lr, ngd_lr=ngd_lr,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
             stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
-            stream=stream, debug_nans=debug_nans)
+            stream=stream, debug_nans=debug_nans, mesh=mesh,
+            work_dir=work_dir)
         if cfg.model == "mrd_svi":
             trained = mrd_svi.nested(trained)
+    if svi and mesh is not None:
+        # every metric below reads the whole parameters
+        trained = parallel_auto.gather(trained, _svi_table(cfg, trained),
+                                       mesh)
     if cfg.model == "mrd_svi":
         logger.close()
         # the reference's gated ELBO: the bound in the run's dtype over
@@ -1048,10 +1085,11 @@ def main(argv=None) -> int:
                          "config's rates (off); default: the config's "
                          "`staged`")
     ap.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                    help="full-batch configs (c1-c5): train on a mesh of "
-                         "ranks, rows over DATA, DP atoms over MODEL, under "
-                         "torchrun --nproc-per-node DATA*MODEL (gloo on "
-                         "the CPU; on the card 1 or 1,1, over NCCL)")
+                    help="train on a mesh of ranks, rows (the SVI "
+                         "configs: each batch's rows) over DATA, DP atoms "
+                         "over MODEL, under torchrun --nproc-per-node "
+                         "DATA*MODEL (gloo on the CPU; on the card 1 or "
+                         "1,1, over NCCL)")
     args = ap.parse_args(argv)
 
     cfg = config_lib.get(args.config)

@@ -26,8 +26,9 @@ runs on the whole (T, M, M) stack at once: K_uu through
 Lambda through `_lam_cholesky` (on the device, no host read). The
 prediction half computes its psi statistics in plain torch, as the
 reference does (`use_pallas=False`). q(X) is the (N, Q) table, or with
-`Config.amortized` the recognition network of `models/amortized.py`. The
-device mesh (`parallel/`) is not ported and raises.
+`Config.amortized` the recognition network of `models/amortized.py`. On a
+device mesh (`parallel/`) the batch rows are cut over "data" and the atoms
+over "model" (`make_dp_svi_step(mesh=)`).
 """
 from __future__ import annotations
 
@@ -53,8 +54,10 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members, tri_solve
 from dp_gp_lvm_tpu_torch.models import amortized
 from dp_gp_lvm_tpu_torch.models.bgplvm import _log_normal_hyperprior
-from dp_gp_lvm_tpu_torch.models.svi_gplvm import _not_ported
+from dp_gp_lvm_tpu_torch.models.svi_gplvm import _mesh_checked, batch_block
 from dp_gp_lvm_tpu_torch.ops import dispatch
+from dp_gp_lvm_tpu_torch.parallel.collectives import all_gather, all_true
+from dp_gp_lvm_tpu_torch.parallel.mesh import MODEL_AXIS
 from dp_gp_lvm_tpu_torch.train.init import (
     inducing_from_latents,
     near_uniform_assignments,
@@ -382,11 +385,15 @@ _BLEND_LEAVES_GRAD_PHI = ("u_h", "u_lam", "raw_gamma1", "raw_gamma2",
 
 
 @torch.no_grad()
-def _guarded(params, updates: dict):
+def _guarded(params, updates: dict, mesh=None):
     """Store every blended leaf in `params` in place, or none of them where
-    any holds a non-finite value (decided on the device)."""
+    any holds a non-finite value (decided on the device; on a mesh of
+    several ranks one decision for all of them, since a rank's atom
+    leaves are its own)."""
     ok = torch.stack([torch.isfinite(torch.sum(v))
                       for v in updates.values()]).all()
+    if mesh is not None and mesh.world_size > 1:
+        ok = all_true(ok, mesh)
     for k, v in updates.items():
         params[k].copy_(torch.where(ok, v, params[k]))
 
@@ -426,20 +433,33 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
     blend_at: "grad" reuses the gradient pass's whitened statistics (one
     K1 a step); "updated" recomputes them at the updated parameters.
 
+    mesh: a `parallel.mesh.Mesh` (the optimizer built with its `mesh` and
+    the table of `parallel.recipe.place_svi("dp_svi", ...)`, the atom
+    leaves the rank's T / model atoms): every rank gets the same full
+    batch and takes its block of rows over "data"; the bound runs through
+    `parallel.sharded_elbo.dp_svi_elbo_sharded`, q(u | t) blends on the
+    local atoms from their statistics summed over "data", and the phi
+    CAVI reads every atom's free energies (gathered over "model"). The
+    math of the step without a mesh.
+
     Returns step(t, idx, Y) -> loss (a 0-d device tensor): t the global
     step (for rho), idx the (B,) minibatch rows of the resident Y. With
     `streaming` the host feeds the rows and it is step(t, (idx, y_b)).
     `step.indices(keys)` draws the rows of a (K, 2) stack of keys at
     once, on the parameters' device: `sample_idx(key)` when given, else
     the reference's int32 randint (`minibatch_indices`)."""
-    if mesh is not None:
-        raise _not_ported("the device mesh", "parallel/")
     if blend_at not in ("updated", "grad"):
         raise ValueError(f"blend_at must be 'updated'|'grad', got "
                          f"{blend_at!r}")
     if phi_update not in ("gradient", "cavi", "frozen"):
         raise ValueError(f"phi_update must be 'gradient'|'cavi'|'frozen', "
                          f"got {phi_update!r}")
+    if mesh is not None:
+        _mesh_checked(mesh, optimizer, config.batch)
+        # sharded_elbo imports this module
+        from dp_gp_lvm_tpu_torch.parallel.sharded_elbo import (
+            dp_svi_elbo_sharded,
+        )
     policy = _policy(config, policy)
     rho_phi = rho if rho_phi is None else rho_phi
     blend = (_BLEND_LEAVES_GRAD_PHI if phi_update == "gradient"
@@ -456,7 +476,16 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
 
     def loss_with_stats(y_b, idx):
         """(loss, a, A2, beta, f_td): the loss and, detached, what the blend
-        and the CAVI update read."""
+        and the CAVI update read (on a mesh a, A2 and beta of the rank's
+        atoms, f_td of every atom)."""
+        if mesh is not None:
+            bound, (f_local, a, A2) = dp_svi_elbo_sharded(
+                params, y_b, idx, n_total, config, mesh, policy,
+                with_aux=True)
+            beta = 1.0 / constrain(params, config)["noise"]
+            f_td = (all_gather(f_local, mesh, MODEL_AXIS)
+                    if phi_update == "cavi" else f_local)
+            return -bound, *(x.detach() for x in (a, A2, beta, f_td))
         c = constrain(params, config)
         terms = _minibatch_terms(c, y_b, idx, n_total, config, policy)
         return -terms["elbo"], *(x.detach() for x in (
@@ -464,7 +493,8 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
 
     def one(t: int, idx, y_b):
         loss, a, A2, beta, f_td = loss_with_stats(y_b, idx)
-        grads = dict(zip(grad_keys, torch.autograd.grad(loss, leaves)))
+        grads = optimizer.reduce(
+            dict(zip(grad_keys, torch.autograd.grad(loss, leaves))))
         grads.update({k: torch.zeros_like(params[k]) for k in zero_keys})
         optimizer.step(grads)
         with torch.no_grad():
@@ -492,15 +522,16 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
             if config.learn_alpha and "raw_alpha" in params:
                 new["raw_alpha"] = positive_inverse(
                     stick_breaking.alpha_cavi_update(g1, g2))
-        _guarded(params, new)
+        _guarded(params, new, mesh)
         STEPS["taken"] += 1
         return loss.detach()
 
     if streaming:
         def step(t: int, batch):
-            return one(t, *batch)
+            return one(t, *batch_block(mesh, *batch))
     else:
         def step(t: int, idx, Y):
+            (idx,) = batch_block(mesh, idx)
             return one(t, idx, Y[idx])
 
     def indices(keys):

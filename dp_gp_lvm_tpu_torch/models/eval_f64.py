@@ -84,11 +84,15 @@ def _psi_chunk(variance, ard, mu, s, z, log_e):
     sterm = np.sum(b * mu * mu, axis=-1)
     t = (b * mu) @ z.T
     pq = b @ (z * z).T
-    cz = np.einsum("bq,mq,lq->bml", b, z, z)
     h = t - 0.25 * pq
-    expo = (log_e[None, :, :] + (log_norm2 - sterm)[:, None, None]
-            + h[:, :, None] + h[:, None, :] - 0.5 * cz)
-    return psi1, (variance ** 2) * np.sum(np.exp(expo), axis=0)
+    # the (B, M, M) exponent built in place in one buffer
+    expo = np.matmul(b[:, None, :] * z[None, :, :], z.T)
+    expo *= -0.5
+    expo += log_e[None, :, :]
+    expo += (log_norm2 - sterm)[:, None, None]
+    expo += h[:, :, None]
+    expo += h[:, None, :]
+    return psi1, (variance ** 2) * np.sum(np.exp(expo, out=expo), axis=0)
 
 
 def elbo_f64(params, Y, config, chunk: int = 8192) -> float:

@@ -23,8 +23,9 @@ statistics of the gradient pass (one K1 forward and one K2 backward a view
 and step); the rest by `train.loop.gp_optimizer`. Cross-view serving reads
 the explicit q(u^v) alone, with no training data: infer the shared q(x*)
 from the observed views, predict the target view. Its psi statistics are
-plain torch, as the reference computes them off its kernels. The device
-mesh (`parallel/`) is not ported and raises.
+plain torch, as the reference computes them off its kernels. On a device
+mesh (`parallel/`) the aligned batch rows are cut over "data"
+(`make_svi_natgrad_step(mesh=)`).
 """
 from __future__ import annotations
 
@@ -164,20 +165,33 @@ def constrain_views(params, config: Config | None = None):
             for v in range(len(params["views"]))]
 
 
+def _view_stats(c_views, y_views, mu, s, config: Config):
+    """Each view's SuffStats of the rows y_views at the q(X) moments
+    (mu, s): on the card K1 at T = 1 a view, K2 in its backward."""
+    if mu.device.type == "cuda":
+        pin_full_f32()
+    return [dispatch.suff_stats(
+        c["variance"], c["ard"], mu, s, c["z"], y,
+        block_n=config.psi2_block, use_fused=config.use_fused,
+        kernel=config.kernel) for c, y in zip(c_views, y_views)]
+
+
 def _bounds_per_view(c_views, y_views, mu, s, config: Config, policy,
                      scale=None):
     """Each view's whitened bound (KL(q(X)) left out) and its whitened
     statistics (a, A2, beta), from the q(X) moments (mu, s) of the rows;
     `scale` multiplies the statistics (N/B of a minibatch; None: every
     row)."""
-    if mu.device.type == "cuda":
-        pin_full_f32()
+    return _bounds_from_stats(
+        c_views, _view_stats(c_views, y_views, mu, s, config), config,
+        policy, scale)
+
+
+def _bounds_from_stats(c_views, view_stats, config: Config, policy,
+                       scale=None):
+    """`_bounds_per_view` from each view's (unscaled) SuffStats."""
     bounds, whitened = [], []
-    for c, y in zip(c_views, y_views):
-        stats = dispatch.suff_stats(
-            c["variance"], c["ard"], mu, s, c["z"], y,
-            block_n=config.psi2_block, use_fused=config.use_fused,
-            kernel=config.kernel)
+    for c, stats in zip(c_views, view_stats):
         if scale is not None:
             stats = stats._replace(
                 psi0=stats.psi0 * scale, psi1T_y=stats.psi1T_y * scale,
@@ -290,6 +304,13 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     and one K2 backward a view and step. Each view's blend is stored or
     dropped on its own (`svi_gplvm._guarded_qu`).
 
+    mesh: a `parallel.mesh.Mesh` (the optimizer built with its `mesh` and
+    the table of `parallel.recipe.place_svi("mrd_svi", ...)`): every rank
+    gets the same full batch and takes its block of rows over "data"; the
+    bound runs through `parallel.sharded_elbo.mrd_svi_elbo_sharded` and
+    each view blends from its statistics summed over "data", the same
+    bits on every rank. The math of the step without a mesh.
+
     rho_t0: Robbins-Monro decay rho (1 + t / t0)^-kappa. qu_trust: the
     blend's trust region (None: the exact natural gradient).
 
@@ -301,7 +322,11 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     the rows of a (K, 2) stack of keys on the parameters' device:
     `sample_idx(key)` when given, else the reference's int32 randint."""
     if mesh is not None:
-        raise svi._not_ported("the device mesh", "parallel/")
+        svi._mesh_checked(mesh, optimizer, config.batch)
+        # sharded_elbo imports this module
+        from dp_gp_lvm_tpu_torch.parallel.sharded_elbo import (
+            mrd_svi_elbo_sharded,
+        )
     if streaming and len(config.view_dims) != config.num_views:
         raise ValueError(
             "streaming mrd_svi needs Config.view_dims (the per-view column "
@@ -319,10 +344,16 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
             -rho_kappa)
 
     def one(t: int, idx, y_b):
-        bound, whitened = _minibatch_bound(params, y_b, idx, n_total, config,
-                                           policy)
+        if mesh is not None:
+            bound, whitened = mrd_svi_elbo_sharded(
+                params, y_b, idx, n_total, config, mesh, policy,
+                with_aux=True)
+        else:
+            bound, whitened = _minibatch_bound(params, y_b, idx, n_total,
+                                               config, policy)
         loss = -bound
-        grads = dict(zip(grad_keys, torch.autograd.grad(loss, leaves)))
+        grads = optimizer.reduce(
+            dict(zip(grad_keys, torch.autograd.grad(loss, leaves))))
         grads.update({k: torch.zeros_like(flat[k]) for k in zero_keys})
         optimizer.step(grads)
         for vp, (a, A2, beta) in zip(params["views"], whitened):
@@ -337,11 +368,12 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
 
     if streaming:
         def step(t: int, batch):
-            idx, y_cat = batch
-            return one(t, idx, [y.contiguous() for y in torch.split(
-                y_cat, list(config.view_dims), dim=1)])
+            idx, *y_views = svi.batch_block(mesh, batch[0], *torch.split(
+                batch[1], list(config.view_dims), dim=1))
+            return one(t, idx, [y.contiguous() for y in y_views])
     else:
         def step(t: int, idx, Ys):
+            (idx,) = svi.batch_block(mesh, idx)
             return one(t, idx, [Y[idx] for Y in Ys])
 
     def indices(keys):

@@ -18,8 +18,9 @@ q(X) is an (N, Q) table on the device, or, with `Config.amortized` (c8),
 a recognition network that encodes each minibatch row
 (`models/amortized.py`): then no q(X) state on the device grows with N. Y
 is either resident there too, or streamed from the host a chunk at a time
-(`data/stream.py`, the step's `streaming=True`). The device mesh
-(`parallel/`) is not ported and raises.
+(`data/stream.py`, the step's `streaming=True`). On a device mesh
+(`parallel/`) each rank takes its block of the batch rows and the step's
+bound sums their statistics over "data" (`make_svi_natgrad_step(mesh=)`).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky, tri_solve
 from dp_gp_lvm_tpu_torch.models import amortized
 from dp_gp_lvm_tpu_torch.ops import dispatch
+from dp_gp_lvm_tpu_torch.parallel.auto import check_divides, shard
+from dp_gp_lvm_tpu_torch.parallel.mesh import DATA_AXIS, DATA_SHARDED
 from dp_gp_lvm_tpu_torch.train.init import inducing_from_latents, pca_latents
 from dp_gp_lvm_tpu_torch.train.loop import STEPS
 
@@ -74,10 +77,6 @@ class Config(NamedTuple):
     # statistics hyper-local and the natural-gradient q(u) recursion
     # diverge at c8's scale
     qx_var_floor: float = 0.0
-
-
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported yet ({where})")
 
 
 def init_params(key, Y, config: Config):
@@ -176,7 +175,7 @@ def _stats(c, y, idx, config: Config):
     every row; the encoder reads y itself)."""
     if y.device.type == "cuda":
         pin_full_f32()
-    mu, s = amortized.qx_batch(c, y, idx)
+    mu, s = _qx_batch(c, y, idx)
     stats = dispatch.suff_stats(
         c["variance"], c["ard"], mu, s, c["z"], y,
         block_n=config.psi2_block, use_fused=config.use_fused,
@@ -184,14 +183,24 @@ def _stats(c, y, idx, config: Config):
     return stats, gaussian.kl_to_standard_normal(mu, s)
 
 
-def _scaled_batch_stats(c, y_b, idx, n_total: int, config: Config):
-    """(N/B)-scaled SuffStats and q(X)-KL of a minibatch."""
-    stats, kl_x = _stats(c, y_b, idx, config)
-    scale = n_total / y_b.shape[0]
+def _qx_batch(c, y, idx):
+    """q(X) moments of data rows: the table's rows `idx` (None: every row)
+    or the encoder's forward pass of y (`amortized.qx_batch`)."""
+    return amortized.qx_batch(c, y, idx)
+
+
+def _scale_stats(stats, kl_x, scale):
+    """SuffStats and KL(q(X)) of B rows scaled to N rows (scale = N/B)."""
     stats = stats._replace(
         psi0=stats.psi0 * scale, psi1T_y=stats.psi1T_y * scale,
         psi2=stats.psi2 * scale, yty=stats.yty * scale, n=stats.n * scale)
     return stats, scale * kl_x
+
+
+def _scaled_batch_stats(c, y_b, idx, n_total: int, config: Config):
+    """(N/B)-scaled SuffStats and q(X)-KL of a minibatch."""
+    stats, kl_x = _stats(c, y_b, idx, config)
+    return _scale_stats(stats, kl_x, n_total / y_b.shape[0])
 
 
 def elbo_minibatch(params, y_batch, idx, n_total: int, config: Config,
@@ -474,6 +483,23 @@ def _guarded_qu(params, u_mean, raw_u_scale):
         params[k].copy_(torch.where(ok, new, params[k]))
 
 
+def _mesh_checked(mesh, optimizer, batch: int):
+    """Refuse a mesh step whose optimizer cannot reduce its gradients or
+    whose batch does not cut evenly over "data"."""
+    if optimizer.mesh is None and mesh.world_size > 1:
+        raise ValueError("a step on a mesh needs gp_optimizer(..., mesh=, "
+                         "placement=) to reduce its gradients")
+    check_divides(batch, DATA_AXIS, mesh, "batch")
+
+
+def batch_block(mesh, *arrays):
+    """The rank's block of each batch array (its rows over "data"); the
+    arrays themselves without a mesh."""
+    if mesh is None:
+        return arrays
+    return tuple(shard(x, DATA_SHARDED, mesh, "batch") for x in arrays)
+
+
 def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
                           rho: float = 0.2, rho_t0: float | None = None,
                           rho_kappa: float = 0.6, blend_at: str = "updated",
@@ -491,16 +517,27 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     parameters (a second K1 forward a step), "grad" reuses those of the
     gradient pass.
 
+    mesh: a `parallel.mesh.Mesh` (the optimizer built with its `mesh` and
+    the table of `parallel.recipe.place_svi`): every rank gets the same
+    full batch, takes its block of rows over "data", and the bound runs
+    through `parallel.sharded_elbo.svi_elbo_sharded`; the blend reads its
+    whitened statistics, summed over "data", so every rank blends the
+    same bits. The math of the step without a mesh.
+
     Returns step(t, idx, Y) -> loss (a 0-d device tensor): t is the global
     step (for rho), idx the (B,) minibatch rows of the resident Y. With
     `streaming` the host feeds the rows (`data/stream.py`) and the step is
     step(t, (idx, y_b)): idx (B,) and y_b (B, D) on the device, nothing
     gathered there; at equal rows it is the resident step, bit for bit."""
-    if mesh is not None:
-        raise _not_ported("the device mesh", "parallel/")
     if blend_at not in ("updated", "grad"):
         raise ValueError(f"blend_at must be 'updated'|'grad', got "
                          f"{blend_at!r}")
+    if mesh is not None:
+        _mesh_checked(mesh, optimizer, config.batch)
+        # sharded_elbo imports this module
+        from dp_gp_lvm_tpu_torch.parallel.sharded_elbo import (
+            svi_elbo_sharded,
+        )
     params = optimizer.params
     keys = list(params)
     leaves = [params[k] for k in keys]
@@ -510,6 +547,11 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
             -rho_kappa)
 
     def loss_with_stats(y_b, idx):
+        if mesh is not None:
+            bound, (a, A2) = svi_elbo_sharded(
+                params, y_b, idx, n_total, config, mesh, policy,
+                with_aux=True)
+            return -bound, a, A2, 1.0 / constrain(params, config)["noise"]
         c = constrain(params, config)
         stats, kl_x = _scaled_batch_stats(c, y_b, idx, n_total, config)
         bound, a, A2 = _bound_and_whitened(c, stats, kl_x, policy,
@@ -519,6 +561,8 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     def one(t: int, idx, y_b):
         loss, a, A2, beta = loss_with_stats(y_b, idx)
         grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        grads.update(optimizer.reduce({k: g for k, g in grads.items()
+                                       if k not in QU_NAMES}))
         for k in QU_NAMES:
             grads[k] = torch.zeros_like(grads[k])
         optimizer.step(grads)
@@ -535,8 +579,9 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
 
     if streaming:
         def step(t: int, batch):
-            return one(t, *batch)
+            return one(t, *batch_block(mesh, *batch))
     else:
         def step(t: int, idx, Y):
+            (idx,) = batch_block(mesh, idx)
             return one(t, idx, Y[idx])
     return step

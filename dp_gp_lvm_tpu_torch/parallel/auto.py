@@ -1,4 +1,4 @@
-"""Placement tables of the full-batch families (counterpart of
+"""Placement tables of every family (counterpart of
 `dp_gp_lvm_tpu/parallel/auto.py`), and `place` / `gather`, which cut a
 parameter tree to a rank's shards and put it back together.
 
@@ -17,15 +17,17 @@ partitioner that would turn the single-device model into the sharded
 program, so the port runs the explicit programs only. The tables stand
 in for the annotation: the same layout, the same losses.
 
-The SVI layouts (`svi_shardings`, `dp_svi_shardings`) are not ported
-yet.
+The SVI families cut no rows of their parameters: the q(X) table (or the
+encoder) stays whole and each step gathers its batch rows by index, so
+the batch, not the dataset, is what the step programs cut over "data"
+(`parallel/sharded_elbo.py`). Their data placement is whole too.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
+from dp_gp_lvm_tpu_torch.parallel.collectives import all_gather
 from dp_gp_lvm_tpu_torch.parallel.mesh import (
     ATOM_SHARDED,
     DATA_SHARDED,
@@ -81,6 +83,42 @@ def mrd_shardings(num_views: int):
     return params, DATA_SHARDED
 
 
+def _table_like(params, placement_of):
+    """A table of the structure of `params` (a dict, MRD's with its
+    `views` list of dicts): `placement_of(key)` for each leaf."""
+    return {k: ([{kk: placement_of(kk) for kk in view} for view in v]
+                if k == "views" else placement_of(k))
+            for k, v in params.items()}
+
+
+def svi_shardings(params):
+    """(params table, data placement) of the SVI-GPLVM, amortized or not,
+    and of the MRD-SVI (each view's leaves too): every leaf whole, and the
+    data whole (rows are gathered by index each step)."""
+    return _table_like(params, lambda k: REPLICATED), REPLICATED
+
+
+# the DP-SVI's atom-stacked leaves: hypers, inducing inputs, q(u | t)
+DP_SVI_ATOM_LEAVES = ("z", "raw_variance", "raw_ard", "raw_noise", "u_h",
+                      "u_lam")
+
+
+def dp_svi_shardings(params):
+    """The minibatch DP-GP-LVM's: the atom-stacked hypers, inducing inputs
+    and q(u | t) naturals over "model"; the q(X) table or the encoder,
+    phi, the sticks and a learned alpha whole; the data whole."""
+    return _table_like(params, lambda k: (
+        ATOM_SHARDED if k in DP_SVI_ATOM_LEAVES else REPLICATED)), REPLICATED
+
+
+def check_divides(n: int, axis: str, mesh: Mesh, name: str) -> None:
+    """Raise where `n` rows or atoms do not cut evenly over `axis`."""
+    if n % mesh.size(axis):
+        raise ValueError(
+            f"{name}: leading dim {n} is not evenly divisible by the "
+            f"{axis!r} axis of size {mesh.size(axis)}")
+
+
 def _tree_map(fn, tree, table, path=""):
     """`fn(path, leaf, placement)` over a params tree (a dict, MRD's with
     its `views` list of dicts) and its table of the same structure."""
@@ -101,13 +139,8 @@ def shard(x: torch.Tensor, placement, mesh: Mesh, name: str = "array"):
     placement's axis (a view), or `x` itself when whole."""
     if placement.axis is None:
         return x
-    size = mesh.size(placement.axis)
-    n = x.shape[0]
-    if n % size:
-        raise ValueError(
-            f"{name}: leading dim {n} is not evenly divisible by the "
-            f"{placement.axis!r} axis of size {size}")
-    k = n // size
+    check_divides(x.shape[0], placement.axis, mesh, name)
+    k = x.shape[0] // mesh.size(placement.axis)
     return x.narrow(0, mesh.coordinate(placement.axis) * k, k)
 
 
@@ -127,11 +160,8 @@ def gather(params, table, mesh: Mesh):
     each cut leaf's shards joined along its leading dim in the order of
     their coordinates."""
     def join(name, x, p):
-        x = x.detach()
-        if p.axis is None or mesh.size(p.axis) == 1:
-            return x.clone()
-        parts = [torch.empty_like(x) for _ in range(mesh.size(p.axis))]
-        dist.all_gather(parts, x.contiguous(), group=mesh.group(p.axis))
-        return torch.cat(parts)
+        if p.axis is None:
+            return x.detach().clone()
+        return all_gather(x, mesh, p.axis)
 
     return _tree_map(join, params, table)

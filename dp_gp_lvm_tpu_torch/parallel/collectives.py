@@ -1,6 +1,7 @@
 r"""The collectives of the sharded programs: `psum` (the reference's
-`jax.lax.psum` inside shard_map), the loss's per-rank share, and the
-gradient and norm reductions the optimizer needs across ranks.
+`jax.lax.psum` inside shard_map), the loss's per-rank share, the gradient
+and norm reductions the optimizer needs across ranks, and `all_gather`,
+which joins the blocks of a cut array (no gradient).
 
 How a gradient comes out right. Every rank evaluates the same replicated
 loss L from its local shards and all-reduced partial sums. Let each rank
@@ -148,6 +149,25 @@ def global_norm(grads: dict, placement: dict, mesh: Mesh) -> torch.Tensor:
         dist.all_reduce(parts)
         total = total + torch.sum(parts)
     return torch.sqrt(total)
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The blocks of `x` of every rank of `axis` joined along dim 0 in the
+    order of their coordinates (the reference's shard_map output cut over
+    that axis); no gradient. `x` itself, copied, on an axis of size 1."""
+    if mesh.size(axis) == 1:
+        return x.detach().clone()
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size(axis))]
+    dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts)
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every rank waits for every other (nothing to wait for on one)."""
+    if mesh.world_size > 1:
+        dist.barrier()
 
 
 @torch.no_grad()

@@ -1,9 +1,12 @@
 """The multi-rank recipe (counterpart of `dp_gp_lvm_tpu/parallel/recipe.py`)
 the runner's `--mesh DATA[,MODEL]` takes: `sharded_setup` gives, for a
 full-batch family, the sharded loss and the rank's shards of the
-parameters and data. The caller's training loop is the single-device one,
-with the mesh and the placement table handed to `gp_optimizer`, which
-reduces the gradients across ranks after each backward.
+parameters and data; `place_svi` gives, for a minibatch family, the
+rank's parameters and their table, and its step factory takes the mesh
+(`make_svi_natgrad_step(mesh=)`, `make_dp_svi_step(mesh=)`). The caller's
+training loop is the single-device one, with the mesh and the placement
+table handed to `gp_optimizer`, which reduces the gradients across ranks
+after each backward.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def sharded_setup(model: str, params, data: tuple, config,
     `data` and q(X) must divide evenly over "data", the DP atoms over
     "model", else it raises.
 
-    The SVI families take `place_svi`, which is not ported yet."""
+    The SVI families take `place_svi`: their step factories take the
+    mesh themselves (the batch, not the dataset, is cut)."""
     if model == "bgplvm":
         loss_fn = lambda p, y: bgplvm_loss_sharded(p, y, config, mesh)
         table, row = auto.bgplvm_shardings()
@@ -62,9 +66,23 @@ def sharded_setup(model: str, params, data: tuple, config,
                         table)
 
 
-def place_svi(model: str, params, data: tuple, mesh: Mesh):
-    """The SVI families' placement (the reference's: atom leaves over
-    "model" for dp_svi, everything whole for svi_gplvm and mrd_svi)."""
-    raise NotImplementedError(
-        f"the device mesh of the SVI families ({model!r}) is not ported "
-        "yet (parallel/recipe.place_svi)")
+class SviPlacement(NamedTuple):
+    params: dict          # the rank's parameters, new leaf tensors
+    data: tuple           # the data arrays, whole
+    placement: dict       # the params' table (parallel/auto.py)
+
+
+def place_svi(model: str, params, data: tuple, mesh: Mesh) -> SviPlacement:
+    """The SVI families' placement on `mesh` from the full `params`:
+    "dp_svi" cuts its atom leaves over "model" (T must divide it, else
+    ValueError), "svi_gplvm" (amortized or not) and "mrd_svi" keep every
+    leaf whole. The data stays whole on every rank: each step gathers its
+    batch rows by index and cuts the batch over "data". The table goes to
+    `gp_optimizer(..., mesh=, placement=)`, which reduces the gradients."""
+    if model == "dp_svi":
+        table, _ = auto.dp_svi_shardings(params)
+    elif model in ("svi_gplvm", "mrd_svi"):
+        table, _ = auto.svi_shardings(params)
+    else:
+        raise ValueError(f"not an SVI family: {model!r}")
+    return SviPlacement(auto.place(params, table, mesh), tuple(data), table)

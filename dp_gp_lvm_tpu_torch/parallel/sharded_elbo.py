@@ -29,8 +29,18 @@ value, the same on every rank, whose backward is the rank's share:
 module). The objectives hold every term of the single-device ELBOs, the
 hyperprior and the learnable alpha included.
 
-The SVI half of the reference module (`svi_elbo_sharded`,
-`mrd_svi_elbo_sharded`, `dp_svi_elbo_sharded`) is not ported yet.
+The minibatch families (the second half of the reference module) cut
+the batch, not the dataset: `svi_elbo_sharded`, `mrd_svi_elbo_sharded`
+and `dp_svi_elbo_sharded` take the rank's block of the batch rows and of
+their indices (the block its "data" coordinate selects; every rank draws
+the same full batch), gather their q(X) moments from the whole table or
+encode them, and sum the block's statistics and KL[q(X)] over "data"
+before scaling them by N / B (B the whole batch). The whitened bound then
+runs on every rank; the DP-SVI's per-atom free energies run on the rank's
+atoms and their phi-weighted sum over "model". With `with_aux` each also
+returns the whitened statistics the natural-gradient q(u) blend reads:
+summed over "data", so every rank of a model coordinate holds the same
+bits, and the blend needs no collective of its own.
 """
 from __future__ import annotations
 
@@ -44,6 +54,8 @@ from dp_gp_lvm_tpu_torch.core.transforms import (
 from dp_gp_lvm_tpu_torch.core.types import JitterPolicy, pin_full_f32
 from dp_gp_lvm_tpu_torch.distributions import gaussian, stick_breaking
 from dp_gp_lvm_tpu_torch.models.bgplvm import _log_normal_hyperprior
+from dp_gp_lvm_tpu_torch.models import dp_svi, mrd_svi
+from dp_gp_lvm_tpu_torch.models import svi_gplvm as svi
 from dp_gp_lvm_tpu_torch.models.bound import SuffStats, collapsed_bound
 from dp_gp_lvm_tpu_torch.models.mrd import constrain_view
 from dp_gp_lvm_tpu_torch.ops import dispatch
@@ -189,3 +201,115 @@ def mrd_elbo_sharded(params, Ys, config, mesh: Mesh,
 
 def mrd_loss_sharded(params, Ys, config, mesh: Mesh):
     return -mrd_elbo_sharded(params, Ys, config, mesh)
+
+
+def _batch_scale(n_total: int, y_local, mesh: Mesh) -> float:
+    """N / B: B the whole batch, every data rank's block of equal rows."""
+    return n_total / (y_local.shape[0] * mesh.size(DATA_AXIS))
+
+
+def svi_elbo_sharded(params, y_batch, idx, n_total: int, config, mesh: Mesh,
+                     policy: JitterPolicy = JitterPolicy(),
+                     with_aux: bool = False):
+    """Data-parallel minibatch SVI-GPLVM (`models/svi_gplvm.py`), resident
+    or amortized: y_batch (B_l, D) and idx (B_l,) are the rank's block of
+    the batch; every parameter is whole. The block's statistics (on the
+    card K1 at T = 1, K2 in the backward) and its KL[q(X)] are summed over
+    "data" in one all-reduce and scaled by N / B; the whitened bound runs
+    on every rank. With `with_aux` it returns (bound, (a, A2)), the summed
+    whitened statistics."""
+    c = svi.constrain(params, config)
+    stats, kl = svi._stats(c, y_batch, idx, config)
+    (stats,), kl = _psum_with_kl([stats], kl, mesh)
+    stats, kl_x = svi._scale_stats(stats, kl,
+                                   _batch_scale(n_total, y_batch, mesh))
+    bound, a, A2 = svi._bound_and_whitened(c, stats, kl_x, policy,
+                                           config.kernel)
+    bound = share(bound, mesh)
+    return (bound, (a, A2)) if with_aux else bound
+
+
+def svi_loss_sharded(params, y_batch, idx, n_total: int, config,
+                     mesh: Mesh):
+    return -svi_elbo_sharded(params, y_batch, idx, n_total, config, mesh)
+
+
+def mrd_svi_elbo_sharded(params, y_batches, idx, n_total: int, config,
+                         mesh: Mesh, policy: JitterPolicy | None = None,
+                         with_aux: bool = False):
+    """Data-parallel minibatch MRD-SVI (`models/mrd_svi.py`): y_batches
+    are the rank's block of the aligned batch rows of every view, idx
+    their indices; the shared q(X) table or encoder (over the views'
+    concatenated rows) and each view's leaves are whole. Every view's
+    statistics and KL[q(X)] are summed over "data" in one all-reduce; the
+    bound is the sum of the views' whitened bounds less KL[q(X)]. With
+    `with_aux` it returns (bound, ((a, A2, beta) of each view))."""
+    policy = mrd_svi._policy(config, policy)
+    c_views = mrd_svi.constrain_views(params, config)
+    y_cat = torch.cat(list(y_batches), dim=1)
+    mu_b, s_b = svi._qx_batch(c_views[0], y_cat, idx)
+    stats = mrd_svi._view_stats(c_views, y_batches, mu_b, s_b, config)
+    stats, kl = _psum_with_kl(stats, gaussian.kl_to_standard_normal(mu_b, s_b),
+                              mesh)
+    scale = _batch_scale(n_total, y_cat, mesh)
+    bounds, whitened = mrd_svi._bounds_from_stats(c_views, stats, config,
+                                                  policy, scale)
+    bound = share(sum(bounds) - scale * kl, mesh)
+    return (bound, tuple(whitened)) if with_aux else bound
+
+
+def mrd_svi_loss_sharded(params, y_batches, idx, n_total: int, config,
+                         mesh: Mesh):
+    return -mrd_svi_elbo_sharded(params, y_batches, idx, n_total, config,
+                                 mesh)
+
+
+def dp_svi_elbo_sharded(params, y_batch, idx, n_total: int, config,
+                        mesh: Mesh, policy: JitterPolicy | None = None,
+                        with_aux: bool = False):
+    """2-D parallel minibatch DP-SVI (`models/dp_svi.py`): y_batch and idx
+    the rank's block of the batch over "data"; z, the kernel hypers, the
+    noise, u_h and u_lam the rank's T / model atoms; the q(X) table or
+    encoder, phi, the sticks and a learned alpha whole.
+
+    The local atoms' statistics of the block (on the card one K1 launch,
+    K2 in the backward) and KL[q(X)] are summed over "data" in one
+    all-reduce and scaled; the local atoms' free energies f_local
+    (T_l, D) follow, and the phi-weighted fit with the hyperprior is
+    summed over "model". The stick and assignment terms (and alpha's
+    Gamma prior where alpha is learned) run on every rank. With
+    `with_aux` it returns (bound, (f_local, a_l, A2_l)): the local atoms'
+    free energies and whitened statistics."""
+    policy = dp_svi._policy(config, policy)
+    c = dp_svi.constrain(params, config)
+    mu_b, s_b = dp_svi._qx(c, y_batch, idx)
+    stats = dp_svi._batch_stats(c, mu_b, s_b, y_batch, config)
+    flat = psum([*stats, gaussian.kl_to_standard_normal(mu_b, s_b)], mesh,
+                DATA_AXIS)
+    scale = _batch_scale(n_total, y_batch, mesh)
+    stats, kl_x = dp_svi._scale_stats(flat[:-1], scale), scale * flat[-1]
+    f_local, a_l, A2_l = dp_svi._free_energy_and_whitened(c, stats, config,
+                                                          policy)
+    t_local = f_local.shape[0]
+    t0 = mesh.coordinate(MODEL_AXIS) * t_local
+    phi = c["phi"]                                        # (D, T) whole
+    hp = _log_normal_hyperprior(config.hyperprior_std, c["variance"],
+                                c["ard"], c["noise"])     # 0.0 without one
+    fit, *hp = psum([torch.sum(phi[:, t0:t0 + t_local] * f_local.T),
+                     *([hp] if torch.is_tensor(hp) else [])], mesh,
+                    MODEL_AXIS)
+    alpha = c.get("alpha", config.alpha)
+    dp_terms = stick_breaking.dp_kl_terms(phi, c["gamma1"], c["gamma2"],
+                                          alpha, logits=c["phi_logits"])
+    if "alpha" in c:
+        dp_terms = dp_terms + stick_breaking.alpha_log_prior(alpha)
+    bound = fit + dp_terms - kl_x
+    if hp:
+        bound = bound + hp[0]
+    bound = share(bound, mesh)
+    return (bound, (f_local, a_l, A2_l)) if with_aux else bound
+
+
+def dp_svi_loss_sharded(params, y_batch, idx, n_total: int, config,
+                        mesh: Mesh):
+    return -dp_svi_elbo_sharded(params, y_batch, idx, n_total, config, mesh)

@@ -34,6 +34,8 @@ from torch import nn
 
 from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.models import dp_svi
+from dp_gp_lvm_tpu_torch.parallel import auto, collectives
+from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
 from dp_gp_lvm_tpu_torch.train.loop import TrainState, gp_optimizer
 
 # stage2b's freeze set: the manifold and the kernel hypers but the noise
@@ -78,15 +80,23 @@ def _path(ckpt_dir: str, stage: str) -> str:
     return os.path.join(ckpt_dir, f"{stage}.npz")
 
 
-def _save_boundary(ckpt_dir: str | None, stage: str, params) -> None:
+def _save_boundary(ckpt_dir: str | None, stage: str, params,
+                   mesh=None, table=None) -> None:
+    """Write the stage's parameters; on a mesh the full tree, gathered
+    from every rank's atoms, written by rank 0 while the others wait."""
     if ckpt_dir is None:
         return
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = _path(ckpt_dir, stage) + ".tmp"
-    with open(tmp, "wb") as f:        # a file handle: np.savez must not
-        np.savez(f, **{k: v.detach().cpu().numpy()   # add .npz to the name
-                       for k, v in params.items()})
-    os.replace(tmp, _path(ckpt_dir, stage))
+    if table is not None:
+        params = auto.gather(params, table, mesh)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = _path(ckpt_dir, stage) + ".tmp"
+        with open(tmp, "wb") as f:    # a file handle: np.savez must not
+            np.savez(f, **{k: v.detach().cpu().numpy()   # add .npz
+                           for k, v in params.items()})
+        os.replace(tmp, _path(ckpt_dir, stage))
+    if mesh is not None:
+        collectives.barrier(mesh)
 
 
 def _load_boundary(ckpt_dir: str, stage: str, device) -> dict:
@@ -129,10 +139,15 @@ def staged_dp_svi(
     `drive(step_fn, state, n_steps, key, Y, label=...)` runs n_steps of a
     `dp_svi.make_dp_svi_step` step from `state` (step t drawing its rows
     from the key `fold_in(key, t)` in the runner's drive) and returns
-    (state, seconds a step, wall seconds)."""
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet "
-                                  "(parallel/)")
+    (state, seconds a step, wall seconds).
+
+    `mesh`: stage 1 and the split run whole on every rank (a T = 1 model
+    has no atoms to cut); the split parameters, or those a resume loads,
+    are then placed (`parallel.recipe.place_svi("dp_svi", ...)`) and
+    stages 2a-2c step on the mesh, each rank its T / model atoms and its
+    block of every batch. The boundaries hold the full parameters; the
+    state returned holds the rank's (`parallel.auto.dp_svi_shardings`
+    gives their table)."""
     p = plan(steps, chunk)
     start_after = _latest_boundary(ckpt_dir) if resume else None
     info: dict = {"stage1_steps": p["s1_steps"],
@@ -159,36 +174,41 @@ def staged_dp_svi(
         with torch.no_grad():
             resid = dp_svi.expected_residuals(params1, Y, config1)
         params = dp_svi.split_single_atom(params1, config, residuals=resid)
-        _save_boundary(ckpt_dir, STAGE_SPLIT, params)
+        _save_boundary(ckpt_dir, STAGE_SPLIT, params, mesh)
     else:
         params = _load_boundary(ckpt_dir, start_after, Y.device)
+    table = None
+    if mesh is not None:
+        params, _, table = place_svi("dp_svi", params, (Y,), mesh)
+    on_mesh = dict(mesh=mesh, placement=table)
 
     t2 = time.perf_counter()
     key_run, rw = prng.split(key_run)
     if start_after in (None, STAGE_SPLIT):
-        opt_w = gp_optimizer(params, lr=0.0, hyper_lr=0.0)
+        opt_w = gp_optimizer(params, lr=0.0, hyper_lr=0.0, **on_mesh)
         warm_step = dp_svi.make_dp_svi_step(config, n_total, opt_w, rho=0.5,
-                                            phi_update="frozen")
+                                            phi_update="frozen", mesh=mesh)
         idx = warm_step.indices(prng.split(rw, p["warm"]))
         losses = torch.stack([warm_step(i, idx[i], Y)
                               for i in range(p["warm"])])
         log(f"  [stage2 warmup] {p['warm']} frozen-phi steps, loss "
             f"{float(losses[-1]):.4g}")
-        _save_boundary(ckpt_dir, STAGE_WARM, params)
+        _save_boundary(ckpt_dir, STAGE_WARM, params, mesh, table)
 
     if start_after in (None, STAGE_SPLIT, STAGE_WARM):
         opt_a = gp_optimizer(params, lr=lr, decay_steps=p["s2_assign"],
-                             freeze=_frozen_manifold_for(params))
+                             freeze=_frozen_manifold_for(params), **on_mesh)
         assign_step = dp_svi.make_dp_svi_step(
-            config, n_total, opt_a, rho=0.3, rho_phi=0.2, phi_update="cavi")
+            config, n_total, opt_a, rho=0.3, rho_phi=0.2, phi_update="cavi",
+            mesh=mesh)
         drive(assign_step, TrainState(opt_a), p["s2_assign"], r2, Y,
               label=f"[stage2b assign T={config.truncation}] ")
-        _save_boundary(ckpt_dir, STAGE_ASSIGN, params)
+        _save_boundary(ckpt_dir, STAGE_ASSIGN, params, mesh, table)
 
     opt2 = gp_optimizer(params, lr=lr, decay_steps=p["s2_joint"],
-                        ngd_lr=ngd_lr)
+                        ngd_lr=ngd_lr, **on_mesh)
     nat_step = dp_svi.make_dp_svi_step(config, n_total, opt2, rho=0.3,
-                                       phi_update="frozen")
+                                       phi_update="frozen", mesh=mesh)
     key_run, r2c = prng.split(key_run)
     state, per_step, _ = drive(
         nat_step, TrainState(opt2), p["s2_joint"], r2c, Y,

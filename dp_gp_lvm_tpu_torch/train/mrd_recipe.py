@@ -21,7 +21,8 @@ With `ckpt_dir` the phase-A parameters are written as
 `<ckpt_dir>/phaseA.npz` (keys `views/<i>/<leaf>` for the views' leaves),
 under a temporary name renamed into place; `resume=True` restarts at phase
 B from it on the same key splits, and ends on the bits of an
-uninterrupted run.
+uninterrupted run. On a device mesh (`mesh=`) both phases cut their batch
+rows over "data".
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from dp_gp_lvm_tpu_torch.core.transforms import (
     positive_inverse,
 )
 from dp_gp_lvm_tpu_torch.models import mrd_svi
+from dp_gp_lvm_tpu_torch.parallel import auto, collectives
+from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
 from dp_gp_lvm_tpu_torch.train.loop import TrainState, gp_optimizer
 
 RECIPE = (
@@ -65,9 +68,17 @@ def _path(ckpt_dir: str) -> str:
     return os.path.join(ckpt_dir, f"{PHASE_A}.npz")
 
 
-def _save_boundary(ckpt_dir: str | None, params) -> None:
+def _save_boundary(ckpt_dir: str | None, params, mesh=None,
+                   table=None) -> None:
+    """Write the phase-A parameters; on a mesh the gathered tree, written
+    by rank 0 while the others wait."""
     if ckpt_dir is None:
         return
+    if mesh is not None:
+        params = auto.gather(params, table, mesh)
+        if mesh.rank != 0:
+            collectives.barrier(mesh)
+            return
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = {}
     for k, v in params.items():
@@ -81,6 +92,8 @@ def _save_boundary(ckpt_dir: str | None, params) -> None:
     with open(tmp, "wb") as f:        # a file handle: np.savez must not
         np.savez(f, **flat)           # add .npz to the name
     os.replace(tmp, _path(ckpt_dir))
+    if mesh is not None:
+        collectives.barrier(mesh)
 
 
 def _load_boundary(ckpt_dir: str, device) -> dict:
@@ -169,10 +182,13 @@ def staged_mrd_svi(
     `drive(step_fn, state, n_steps, key, Ys, label=...)` runs n_steps of a
     `mrd_svi.make_svi_natgrad_step` step from `state` (step t drawing its
     rows from fold_in(key, t) in the runner's drive) and returns (state,
-    seconds a step, wall seconds), as for `dp_recipe.staged_dp_svi`."""
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet "
-                                  "(parallel/)")
+    seconds a step, wall seconds), as for `dp_recipe.staged_dp_svi`.
+
+    `mesh`: the parameters are placed after the init, or after a phase-A
+    resume loads them (`parallel.recipe.place_svi("mrd_svi", ...)`: every
+    leaf whole), and both phases step on the mesh, each rank its block of
+    every batch. The phase-A boundary is gathered before it is
+    written."""
     p = plan(steps, chunk, phase_a_frac)
     sa, sb = p["phase_a_steps"], p["phase_b_steps"]
     info: dict = {"phase_a_steps": sa, "phase_b_steps": sb,
@@ -185,19 +201,27 @@ def staged_mrd_svi(
     # same phase-B key
     _, ra, rb = prng.split(key_run, 3)
     seconds_a = 0.0
+    def placed(params):
+        """(the rank's parameters, their table; None without a mesh)."""
+        if mesh is None:
+            return params, None
+        params, _, table = place_svi("mrd_svi", params, tuple(Ys), mesh)
+        return params, table
+
     if not resume_b:
-        params = mrd_svi.init_params(key, list(Ys), config)
+        params, table = placed(mrd_svi.init_params(key, list(Ys), config))
         opt_a = gp_optimizer(params, lr=hot_lr, hyper_lr=hot_lr / 10.0,
-                             decay_steps=sa, hyper_warmup=max(1, sa // 10))
+                             decay_steps=sa, hyper_warmup=max(1, sa // 10),
+                             mesh=mesh, placement=table)
         step_a = mrd_svi.make_svi_natgrad_step(config, n_total, opt_a,
-                                               rho=rho)
+                                               rho=rho, mesh=mesh)
         _, _, seconds_a = drive(step_a, TrainState(opt_a), sa, ra, tuple(Ys),
                                 label="[phaseA hot] ")
-        _save_boundary(ckpt_dir, params)
+        _save_boundary(ckpt_dir, params, mesh, table)
     else:
         info["resumed_from"] = PHASE_A
         log(f"  [resume] phaseA checkpoint found in {ckpt_dir}")
-        params = _load_boundary(ckpt_dir, Ys[0].device)
+        params, table = placed(_load_boundary(ckpt_dir, Ys[0].device))
 
     tb = time.perf_counter()
     with torch.no_grad():
@@ -208,8 +232,9 @@ def staged_mrd_svi(
     params = _as_parameters(recalibrated(params, reset_variance,
                                          reset_noise))
     opt_b = gp_optimizer(params, lr=lr, decay_steps=sb,
-                         freeze=FROZEN_STRUCTURE)
-    step_b = mrd_svi.make_svi_natgrad_step(config, n_total, opt_b, rho=rho)
+                         freeze=FROZEN_STRUCTURE, mesh=mesh, placement=table)
+    step_b = mrd_svi.make_svi_natgrad_step(config, n_total, opt_b, rho=rho,
+                                           mesh=mesh)
     state, per_step, _ = drive(step_b, TrainState(opt_b), sb, rb, tuple(Ys),
                                label="[phaseB recal] ")
     info["per_step"] = per_step

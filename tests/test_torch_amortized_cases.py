@@ -6,9 +6,10 @@ bounds agree (SVI-GPLVM and DP-SVI), the minibatch partition, training
 that moves the encoder, the split that keeps it, the DP-SVI's training
 without the mesh, its streamed step against the resident one, and
 imputation from the encoder's init and by the one-pass encoder imputer.
-Left out: the reference's sharded cases (`parallel/` is not ported). The
-port's random stream is the reference's (`core/prng.py`), so each case
-runs on the reference's own data, init and minibatches. Beside them, what
+The reference's sharded cases run on four ranks in
+`tests/test_torch_parallel_svi.py`. The port's random stream is the
+reference's (`core/prng.py`), so each case runs on the reference's own
+data, init and minibatches. Beside them, what
 the port adds: the variance floor carried through every walk of a
 constrained dict, `params_from_jax` and the export round trip of encoder
 leaves, and the staged recipe's frozen manifold over them. No JAX is

@@ -1402,3 +1402,98 @@ def test_sharded_loss_at_world_size_one_equals_the_fused_path(
                                      psi2_bwd_batched=len(data))
     assert abs(float(sharded) - float(loss)) <= 1e-4 * abs(float(loss))
     assert max(_scaled_errors(got, want)) <= 5e-3   # chip_smoke's TOL_GRAD
+
+
+C9_VIEW = dict(T=1, N=1024, M=32, Q=4, D=32)   # one c9 view's minibatch
+
+
+def _svi_family(card, family):
+    """(model module, its step factory, fresh full params, data, batch
+    rows, config, step launches of K1 and K2) at c6's (SVI-GPLVM), c7's
+    (DP-SVI, T = 8) and c9's (MRD-SVI, two views) minibatch widths, on a
+    draw of 4 batches' rows."""
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.models import dp_svi, mrd_svi, svi_gplvm
+
+    key = prng.PRNGKey(0)
+    if family == "svi_gplvm":
+        s = C6
+        Y, _ = synthetic.mocap_like(key, n=4 * s["N"], d=s["D"],
+                                    dtype=torch.float32, device=card)
+        cfg = svi_gplvm.Config(num_latent=s["Q"], num_inducing=s["M"],
+                               batch=s["N"])
+        return (svi_gplvm, lambda c, n, o, mesh=None:
+                svi_gplvm.make_svi_natgrad_step(c, n, o, mesh=mesh),
+                lambda: svi_gplvm.init_params(key, Y, cfg), Y, cfg, (2, 1))
+    if family == "dp_svi":
+        s = C7
+        Y, _ = synthetic.mocap_like(key, n=4 * s["N"], d=s["D"],
+                                    dtype=torch.float32, device=card)
+        cfg = dp_svi.Config(num_latent=s["Q"], num_inducing=s["M"],
+                            truncation=s["T"], batch=s["N"])
+        return (dp_svi, lambda c, n, o, mesh=None: dp_svi.make_dp_svi_step(
+                    c, n, o, rho=0.3, phi_update="cavi", mesh=mesh),
+                lambda: dp_svi.init_params(key, Y, cfg), Y, cfg, (1, 1))
+    s = C9_VIEW
+    Y1, Y2, _ = synthetic.two_view(key, n=4 * s["N"], d1=s["D"], d2=s["D"],
+                                   q_shared=2, dtype=torch.float32,
+                                   device=card)
+    cfg = mrd_svi.Config(num_latent=s["Q"], num_inducing=s["M"],
+                         num_views=2, batch=s["N"])
+    return (mrd_svi, lambda c, n, o, mesh=None:
+            mrd_svi.make_svi_natgrad_step(c, n, o, mesh=mesh),
+            lambda: mrd_svi.init_params(key, [Y1, Y2], cfg), [Y1, Y2], cfg,
+            (2, 2))
+
+
+def _scaled_or_zero(got, want):
+    return max(float((g.double() - w.double()).abs().max()
+                     / max(float(w.abs().max()), 1e-30))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["svi_gplvm", "dp_svi", "mrd_svi"])
+def test_sharded_svi_at_world_size_one_equals_the_fused_path(
+        card, nccl_mesh, family):
+    """The sharded minibatch bound (its loss and every leaf's gradient) on
+    a 1 x 1 mesh over NCCL equals the unsharded fused path at the same
+    rows, and so does a whole step, the q(u) blend (and the DP-SVI's phi
+    CAVI) included; the mesh step launches K1 and K2 as the unsharded step
+    does: the SVI-GPLVM's K1 twice (blend_at="updated"), each MRD-SVI
+    view's once, the DP-SVI's once at T = 8."""
+    from dp_gp_lvm_tpu_torch.parallel import recipe
+    from dp_gp_lvm_tpu_torch.parallel import sharded_elbo as se
+    from dp_gp_lvm_tpu_torch.train.loop import flat_leaves, gp_optimizer
+
+    model, make_step, init, data, cfg, (k1, k2) = _svi_family(card, family)
+    first = data[0] if family == "mrd_svi" else data
+    n = first.shape[0]
+    idx = torch.arange(0, 2 * cfg.batch, 2, device=card)
+    rows = [y[idx] for y in data] if family == "mrd_svi" else data[idx]
+    sharded_fn = {"svi_gplvm": se.svi_loss_sharded,
+                  "dp_svi": se.dp_svi_loss_sharded,
+                  "mrd_svi": se.mrd_svi_loss_sharded}[family]
+
+    params = init()
+    leaves = flat_leaves(params)
+    loss = model.loss_minibatch(params, rows, idx, n, cfg)
+    want = torch.autograd.grad(loss, list(leaves.values()))
+    local, _, table = recipe.place_svi(family, init(), (), nccl_mesh)
+    sharded = sharded_fn(local, rows, idx, n, cfg, nccl_mesh)
+    got = torch.autograd.grad(sharded, list(flat_leaves(local).values()))
+    assert abs(float(sharded) - float(loss)) <= 1e-5 * abs(float(loss))
+    assert _scaled_or_zero(got, want) <= 5e-3       # chip_smoke's TOL_GRAD
+
+    step = make_step(cfg, n, gp_optimizer(params, lr=1e-2))
+    opt = gp_optimizer(local, lr=1e-2, mesh=nccl_mesh, placement=table)
+    mesh_step = make_step(cfg, n, opt, mesh=nccl_mesh)
+    loss_u = step(0, idx, data)
+    psi.reset_launch_counts()
+    loss_m = mesh_step(0, idx, data)
+    assert psi.LAUNCHES == _launched(suffstats_batched=k1,
+                                     psi2_bwd_batched=k2)
+    assert abs(float(loss_m) - float(loss_u)) <= 1e-5 * abs(float(loss_u))
+    after = flat_leaves(params)
+    assert _scaled_or_zero(list(flat_leaves(local).values()),
+                           list(after.values())) <= 1e-4

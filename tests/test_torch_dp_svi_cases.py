@@ -10,7 +10,8 @@ alpha, `_lam_cholesky`'s repairs, the residual ladder, prediction at T = 1
 and at one-hot phi, imputation, the serving imputer, and the streamed step
 against the resident one. The port's random stream is the reference's
 (`core/prng.py`), so each case runs on the reference's own data, init and
-minibatches. No JAX is imported here."""
+minibatches. The reference's mesh cases run on four ranks in
+`tests/test_torch_parallel_svi.py`. No JAX is imported here."""
 import numpy as np
 import pytest
 import torch
@@ -389,13 +390,31 @@ def test_reference_dp_svi_case(case):
     REFERENCE_CASES[case]()
 
 
-def test_mesh_and_amortized_are_not_ported_yet():
-    """The mesh still raises; the amortized q(X) is ported
-    (tests/test_torch_amortized.py): its init holds encoder leaves in place
-    of the table."""
+def test_one_rank_mesh_cavi_step_is_the_unsharded_step():
+    """The mesh and the amortized q(X): on a one-rank mesh (a gloo group
+    of one, as the card's NCCL group of one) a "cavi" step, its phi
+    reading the gathered free energies, is the unsharded step to the bit
+    (tests/test_torch_parallel_svi.py holds the mesh of four ranks); the
+    amortized init holds encoder leaves in place of the table
+    (tests/test_torch_amortized.py)."""
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+    from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
+
     Y, _, cfg, _, params = _setup()
+    idx = torch.arange(cfg.batch)
     opt = gp_optimizer(params, lr=1e-2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        dp_svi.make_dp_svi_step(cfg, Y.shape[0], opt, mesh=object())
+    want = dp_svi.make_dp_svi_step(cfg, Y.shape[0], opt,
+                                   phi_update="cavi")(0, idx, Y)
+    mesh = mesh_lib.make_mesh(1, 1, "cpu")
+    try:
+        local, _, table = place_svi("dp_svi", _setup()[4], (Y,), mesh)
+        opt = gp_optimizer(local, lr=1e-2, mesh=mesh, placement=table)
+        got = dp_svi.make_dp_svi_step(cfg, Y.shape[0], opt, mesh=mesh,
+                                      phi_update="cavi")(0, idx, Y)
+    finally:
+        mesh_lib.close_distributed()
+    assert torch.equal(got, want)
+    for k, v in params.items():
+        assert torch.equal(local[k], v), k
     p = dp_svi.init_params(prng.PRNGKey(1), Y, cfg._replace(amortized=True))
     assert "qx_mean" not in p and "enc_wlin" in p

@@ -6,8 +6,9 @@ to the full bound; a rho = 1 full-batch step lands on the optimum;
 training raises the bound; cross-view prediction beats the mean; the
 streamed step is the resident step; the predictor answers as the
 pipeline; the amortized init is the resident one and trains; sampled
-cross-view moments match the predictive. The reference's three mesh
-cases wait for the port of `parallel/`."""
+cross-view moments match the predictive; on a one-rank mesh the streamed
+step is the unsharded one. The reference's three mesh cases run on four
+ranks in `tests/test_torch_parallel_svi.py`."""
 import numpy as np
 import pytest
 import torch
@@ -170,9 +171,23 @@ def test_streaming_step_matches_resident():
     with pytest.raises(ValueError, match="view_dims"):
         mrd_svi.make_svi_natgrad_step(cfg, n, gp_optimizer(p1, lr=2e-2),
                                       streaming=True)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        mrd_svi.make_svi_natgrad_step(cfg, n, gp_optimizer(p1, lr=2e-2),
-                                      mesh=object())
+    # on a one-rank mesh (a gloo group of one, as the card's NCCL group of
+    # one) the streamed step is the unsharded one, to the bit
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+    from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
+
+    mesh = mesh_lib.make_mesh(1, 1, "cpu")
+    try:
+        p3, _, table = place_svi("mrd_svi", _setup()[2], Ys, mesh)
+        on_mesh = mrd_svi.make_svi_natgrad_step(
+            cfg_s, n, gp_optimizer(p3, lr=2e-2, mesh=mesh, placement=table),
+            rho=0.3, streaming=True, mesh=mesh)
+        c = on_mesh(0, (idx, torch.cat([Y[idx] for Y in Ys], dim=1)))
+    finally:
+        mesh_lib.close_distributed()
+    assert torch.equal(a, c)
+    for (k, x), y in zip(flat_leaves(p1).items(), flat_leaves(p3).values()):
+        assert torch.equal(x, y), k
 
 
 def test_serving_predictor_matches_pipeline():

@@ -73,6 +73,46 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out[2] == "False"
 
 
+# the reference's parallel/ names the port spells otherwise: its sharding
+# constructors are the port's placement tags
+PARALLEL_RENAMED = {"mesh.data_sharding": "mesh.DATA_SHARDED",
+                    "mesh.atom_sharding": "mesh.ATOM_SHARDED",
+                    "mesh.replicated": "mesh.REPLICATED"}
+# GSPMD's annotation, which torch.distributed has no partitioner for
+PARALLEL_JAX_ONLY = {"auto.auto_sharded_value_and_grad"}
+
+
+def test_every_name_of_the_reference_parallel_package_has_a_counterpart():
+    """Every top-level function and constant the reference's `parallel/`
+    modules define (the SVI programs, `place_svi` and the SVI tables
+    included) is in the port's module of the same name, under its own
+    name or the one PARALLEL_RENAMED gives, but for the JAX-only ones."""
+    import importlib
+    import inspect
+    import re
+
+    missing = []
+    for mod in ("auto", "mesh", "recipe", "sharded_elbo"):
+        ref = importlib.import_module(f"dp_gp_lvm_tpu.parallel.{mod}")
+        port = importlib.import_module(f"dp_gp_lvm_tpu_torch.parallel.{mod}")
+        src = inspect.getsource(ref)
+        for name, obj in vars(ref).items():
+            own = (inspect.isfunction(obj) and obj.__module__ == ref.__name__
+                   or re.search(rf"^{name} = ", src, re.M) is not None)
+            if name.startswith("_") or not own:
+                continue
+            key = f"{mod}.{name}"
+            if key in PARALLEL_JAX_ONLY:
+                continue
+            mod2, name2 = PARALLEL_RENAMED.get(key, key).split(".")
+            target = importlib.import_module(
+                f"dp_gp_lvm_tpu_torch.parallel.{mod2}")
+            if not hasattr(target, name2):
+                missing.append(key)
+        assert port.__doc__
+    assert not missing, missing
+
+
 def test_entry_points_without_a_card_raise(monkeypatch):
     """With no CUDA device and no `device`, entry points refuse instead of
     running on the CPU."""

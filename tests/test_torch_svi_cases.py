@@ -5,8 +5,9 @@ identity at the optimal q(u), the minibatch partition, training by plain
 and natural-gradient SVI, imputation, the full-batch rho = 1 blends, the
 non-finite guard, the noise floor, and the f32 blend from a pathological
 state. The port's random stream is the reference's (`core/prng.py`), so
-each case runs on the reference's own data, init and minibatches. No JAX
-is imported here."""
+each case runs on the reference's own data, init and minibatches. The
+reference's mesh case runs on four ranks in
+`tests/test_torch_parallel_svi.py`. No JAX is imported here."""
 import numpy as np
 import pytest
 import torch
@@ -247,19 +248,42 @@ def test_reference_svi_case(case):
     REFERENCE_CASES[case]()
 
 
-def test_mesh_streaming_and_amortized_are_not_ported_yet():
-    """The mesh still raises; the streamed feed is ported
-    (tests/test_torch_stream.py): its step takes the host-fed pair (idx,
-    y_b) instead of the resident Y; so is the amortized q(X)
-    (tests/test_torch_amortized.py), whose init holds encoder leaves in
-    place of the table."""
+def test_one_rank_mesh_step_is_the_unsharded_step():
+    """The mesh, the streamed feed and the amortized q(X): on a one-rank
+    mesh (a gloo group of one, as the card's NCCL group of one) the step
+    is the unsharded step to the bit (tests/test_torch_parallel_svi.py
+    holds the mesh of four ranks); the streamed step takes the host-fed pair (idx,
+    y_b) instead of the resident Y (tests/test_torch_stream.py); the
+    amortized init holds encoder leaves in place of the table
+    (tests/test_torch_amortized.py)."""
     Y, cfg, params = _setup(n=32)
     opt = gp_optimizer(params)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        svi_gplvm.make_svi_natgrad_step(cfg, 32, opt, mesh=object())
-    step = svi_gplvm.make_svi_natgrad_step(cfg, 32, opt, streaming=True)
     idx = torch.arange(cfg.batch)
+    local, got = _one_rank_mesh_step(Y, cfg, idx)
+    want = svi_gplvm.make_svi_natgrad_step(cfg, 32, opt)(0, idx, Y)
+    assert torch.equal(got, want)
+    for k, v in params.items():
+        assert torch.equal(local[k], v), k
+    step = svi_gplvm.make_svi_natgrad_step(cfg, 32, opt, streaming=True)
     assert bool(torch.isfinite(step(0, (idx, Y[idx]))))
     p = svi_gplvm.init_params(prng.PRNGKey(0), Y,
                               cfg._replace(amortized=True))
     assert "qx_mean" not in p and "enc_wlin" in p
+
+
+def _one_rank_mesh_step(Y, cfg, idx):
+    """One step of the `_setup` parameters on a 1 x 1 mesh: (the rank's
+    parameters after it, the loss)."""
+    from dp_gp_lvm_tpu_torch.parallel import mesh as mesh_lib
+    from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
+
+    mesh = mesh_lib.make_mesh(1, 1, "cpu")
+    try:
+        params, _, table = place_svi("svi_gplvm", _setup(n=Y.shape[0])[2],
+                                     (Y,), mesh)
+        opt = gp_optimizer(params, mesh=mesh, placement=table)
+        loss = svi_gplvm.make_svi_natgrad_step(cfg, Y.shape[0], opt,
+                                               mesh=mesh)(0, idx, Y)
+        return params, loss
+    finally:
+        mesh_lib.close_distributed()
