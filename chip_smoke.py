@@ -33,6 +33,23 @@ imputation servers built on them. Phases, each printing one JSON line:
          once each
   scale  one forward and backward of SuffstatsBatchedFused at N=8192,
          M=128 (timing only)
+  m256   the models at M = 256, where K1's body and K2 run their tiled
+         forms under the default use_fused="auto": mocap_like (N=8192,
+         D=60) -> dp_gp_lvm.init_params (Q=10, M=256, T=20) ->
+         gp_optimizer and oil_flow_like (N=8192) -> bgplvm (Q=10, M=256);
+         each model's fused f32 ELBO and gradient at init against the
+         plain path in f32 on the card and in f64 at the same jitter (the
+         train phase's tolerances, both gaps printed); 10 steps each with
+         finite losses, launching K1 and K2 (DP) or K6, K5 and K2 once a
+         step, beside 3 steps of the plain f32 path (ms a step);
+         make_dp_imputer on the DP parameters (the build launches K1 once)
+         answers batches 1 and 32; sum Psi2^2 through Psi2BatchedFused (K4
+         and K2) against f64 on the DP path's first 2048 rows; every
+         kernel held against f64 on the first inputs the paths gave it and
+         on synthetic inputs at M = 129, 192, 256, weighted and not, each
+         repeated to the bit; K1, K2, K4 and K5 timed at M = 256 on the
+         paths' inputs (device ms, bound, plain ms), with their launch
+         geometry
   train_bgplvm  oil_flow_like -> bgplvm.init_params -> gp_optimizer; the
          same checks; each step must launch K6, K5 and K2 once
   serve_bgplvm  make_bgplvm_imputer on those parameters answers requests
@@ -763,13 +780,13 @@ def phase_gate(torch, psi, gen):
     return row
 
 
-def _ten_steps(torch, psi, loss_fn, params, opt):
-    """Ten training steps with the launch counts set to 0 just before:
-    (losses, CUDA-event ms per step, launch counts just after)."""
+def _ten_steps(torch, psi, loss_fn, params, opt, steps=10):
+    """Ten (`steps`) training steps with the launch counts set to 0 just
+    before: (losses, CUDA-event ms per step, launch counts just after)."""
     keys = list(params)
     losses, step_ms = [], []
     psi.reset_launch_counts()
-    for _ in range(10):
+    for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3555,6 +3572,416 @@ def phase_scale(torch, psi, gen):
     return row
 
 
+# the m256 phase: each model at M = 256 (K1's body and K2 tiled), the
+# reference's scaling widths (experiments/scaling.py) at Q = 10
+M256 = dict(T=20, N=8192, M=256, Q=10, D=60)       # the DP-GP-LVM
+M256_BG = dict(N=8192, M=256, Q=10, D=12)           # the Bayesian GP-LVM
+M256_HELD = dict(T=4, N=2048, Q=10, D=60)           # synthetic holds
+M256_HELD_M = (129, 192, 256)
+M256_PLAIN_BLOCK = 512    # rows a block of the plain path's Psi2
+M256_PLAIN_STEPS = 3
+# The Bayesian GP-LVM on oil_flow_like at M = 256 is f32-limited: its 256
+# inducing points lie in a 2-dim latent, K_uu's condition number is ~1e10
+# (1.5e10 at N = 1024 on a CPU), and the plain f32 path itself misses f64
+# by more than TOL_ELBO/TOL_GRAD. Its gaps are printed, not held; the same
+# model is held on the DP path's mocap_like data (K_uu's condition ~9 at
+# N = 1024), and K2 on its first inputs with a random G.
+
+
+def _grads(torch, loss, params):
+    keys = list(params)
+    return dict(zip(keys, torch.autograd.grad(loss, [params[k]
+                                                     for k in keys])))
+
+
+def _scaled_gaps(got, want):
+    return {k: float((got[k].double() - want[k].double()).abs().max()
+                     / want[k].double().abs().max()) for k in want}
+
+
+def _m256_init(torch, psi, model, params, Y, cfg, step,
+               f32_limited_ok=False):
+    """A model's fused f32 ELBO and gradient at `params` against the plain
+    path in f32 (same card) and in f64 (same jitter). Each gap is held at
+    TOL_ELBO or TOL_GRAD, except, with `f32_limited_ok`, where the plain
+    f32 path itself misses f64 by more: those are listed in `f32_limited`,
+    printed and not held. The fused ELBO and loss-and-gradient must launch
+    the forward kernels of `step` (a step's launches) twice and K2 once.
+    Returns the row, the failures and the plain f32 params (a copy)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+
+    same_jitter = JitterPolicy(initial=JitterPolicy().initial_for(
+        torch.float32))
+    plain = cfg._replace(use_fused=False, psi2_block=M256_PLAIN_BLOCK)
+    p32 = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    p64 = {k: v.detach().double().requires_grad_()
+           for k, v in params.items()}
+    psi.reset_launch_counts()
+    with torch.no_grad():
+        fused_elbo = float(model.elbo(params, Y, cfg))
+    g_fused = _grads(torch, model.loss(params, Y, cfg), params)
+    torch.cuda.synchronize()
+    launches = dict(psi.LAUNCHES)
+    with torch.no_grad():
+        elbo = dict(fused_f32=fused_elbo,
+                    plain_f32=float(model.elbo(p32, Y, plain)),
+                    plain_f64=float(model.elbo(p64, Y.double(), plain,
+                                               same_jitter)))
+    g32 = _grads(torch, model.loss(p32, Y, plain), p32)
+    g64 = _grads(torch, -model.elbo(p64, Y.double(), plain, same_jitter),
+                 p64)
+    row = dict(
+        elbo_init=elbo,
+        elbo_rel_err_vs_plain_f32=abs(elbo["fused_f32"] - elbo["plain_f32"])
+        / abs(elbo["plain_f32"]),
+        elbo_rel_err_vs_plain_f64=abs(elbo["fused_f32"] - elbo["plain_f64"])
+        / abs(elbo["plain_f64"]),
+        plain_f32_elbo_rel_err_vs_f64=abs(elbo["plain_f32"]
+                                          - elbo["plain_f64"])
+        / abs(elbo["plain_f64"]),
+        grad_scaled_err_vs_plain_f32=_scaled_gaps(g_fused, g32),
+        grad_scaled_err_vs_plain_f64=_scaled_gaps(g_fused, g64),
+        plain_f32_grad_scaled_err_vs_f64=_scaled_gaps(g32, g64),
+        tol=TOL_ELBO, tol_grad=TOL_GRAD, init_launches=launches,
+        f32_limited=[])
+    failures = []
+    gaps = [("elbo", row["elbo_rel_err_vs_plain_f32"],
+             row["elbo_rel_err_vs_plain_f64"],
+             row["plain_f32_elbo_rel_err_vs_f64"], TOL_ELBO)]
+    gaps += [(f"grad {k}", row["grad_scaled_err_vs_plain_f32"][k],
+              row["grad_scaled_err_vs_plain_f64"][k],
+              row["plain_f32_grad_scaled_err_vs_f64"][k], TOL_GRAD)
+             for k in g64]
+    for what, vs32, vs64, plain_gap, tol in gaps:
+        if f32_limited_ok and plain_gap > tol:
+            row["f32_limited"].append(what)
+        elif not (vs32 <= tol and vs64 <= tol):
+            failures.append(f"{what}: fused {vs32} off plain f32, {vs64} "
+                            f"off f64 (tolerance {tol})")
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update({k: n * (1 if k == "psi2_bwd_batched" else 2)
+                     for k, n in step.items()})
+    if launches != expected:
+        failures.append(f"the fused ELBO and gradient launched {launches}, "
+                        f"expected {expected}")
+    return row, failures, p32
+
+
+def _m256_model(torch, psi, model, params, Y, cfg, lr, ngd_lr, step,
+                f32_limited_ok=False):
+    """A model at M = 256: `_m256_init` at init; 10 fused steps (each
+    launching `step`) and M256_PLAIN_STEPS plain f32 steps from the same
+    init."""
+    from dp_gp_lvm_tpu_torch.train.loop import gp_optimizer
+
+    row, failures, p32 = _m256_init(torch, psi, model, params, Y, cfg, step,
+                                    f32_limited_ok)
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update({k: 10 * n for k, n in step.items()})
+    plain = cfg._replace(use_fused=False, psi2_block=M256_PLAIN_BLOCK)
+    opt = gp_optimizer(params, lr=lr, ngd_lr=ngd_lr)
+    losses, step_ms, launches = _ten_steps(
+        torch, psi, lambda: model.loss(params, Y, cfg), params, opt)
+    opt32 = gp_optimizer(p32, lr=lr, ngd_lr=ngd_lr)
+    plain_losses, plain_ms, plain_launches = _ten_steps(
+        torch, psi, lambda: model.loss(p32, Y, plain), p32, opt32,
+        steps=M256_PLAIN_STEPS)
+    row.update(losses=losses, ms_per_step_median=statistics.median(step_ms),
+               ms_per_step=step_ms, launches=launches,
+               expected_launches=expected, plain_losses=plain_losses,
+               plain_ms_per_step_median=statistics.median(plain_ms),
+               plain_launches=plain_launches)
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"non-finite loss in {losses}")
+    if launches != expected:
+        failures.append(f"launched {launches}, expected {expected}")
+    if any(plain_launches.values()):
+        failures.append(f"the plain path launched {plain_launches}")
+    return row, failures
+
+
+def _m256_serve(torch, seed, params, Y, cfg):
+    """make_dp_imputer at M = 256: the build's launches, batches 1 and 32
+    (ms a request, finite answers), and the f32 predictive at a fixed
+    q(x*) against the plain f32 and f64 caches (printed)."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    psi.reset_launch_counts()
+    t0 = time.perf_counter()
+    impute = serving.make_dp_imputer(params, Y, cfg, num_steps=SERVE_STEPS)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(psi.LAUNCHES)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    d = Y.shape[1]
+    requests, failures = [], []
+    for b in (1, 32):
+        times = []
+        for i in range(4):                       # one warm call, then 3
+            y = torch.randn(b, d, generator=gen, device="cuda")
+            mask = torch.ones(b, d, device="cuda")
+            mask[:, d // 2:] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = impute(y, mask)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+        ok = (mean.shape == var.shape == (b, d)
+              and bool(torch.isfinite(mean).all())
+              and bool((var > 0).all()))
+        if not ok:
+            failures.append(f"bad answer at batch {b}")
+        requests.append(dict(batch=b, ms_per_request=statistics.median(times)))
+    plain = cfg._replace(use_fused=False, psi2_block=M256_PLAIN_BLOCK)
+    same_jitter = JitterPolicy(initial=JitterPolicy().initial_for(
+        torch.float32))
+    qx = params["qx_mean"].detach()
+    m_fix, s_fix = qx[:32], torch.full_like(qx[:32], 0.1)
+    with torch.no_grad():
+        fused = prediction.dp_predict_from_latent(
+            *prediction.dp_posterior(params, Y, cfg), m_fix, s_fix)
+        p32 = prediction.dp_predict_from_latent(
+            *prediction.dp_posterior(params, Y, plain), m_fix, s_fix)
+        c64, phi64 = prediction.dp_posterior(
+            {k: v.detach().double() for k, v in params.items()}, Y.double(),
+            plain, same_jitter)
+        p64 = prediction.dp_predict_from_latent(c64, phi64, m_fix.double(),
+                                                s_fix.double())
+    gaps = {ref: {k: float((g.double() - w.double()).abs().max()
+                           / w.double().abs().max())
+                  for k, g, w in zip(("mean", "var"), fused, want)}
+            for ref, want in (("plain_f32", p32), ("plain_f64", p64))}
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(suffstats_batched=1)
+    if launches != expected:
+        failures.append(f"dp_posterior launched {launches}, expected K1 "
+                        "once")
+    return dict(build_ms=build_ms, build_launches=launches,
+                requests=requests, predict_scaled_err=gaps), failures
+
+
+def _m256_gate(torch, psi, args32):
+    """sum Psi2^2 through Psi2BatchedFused (K4 forward, K2 backward) on
+    `args32` (vs, ards, mu, s, Zs; f32), value and gradient against the
+    plain path in f64, and its launches."""
+    from dp_gp_lvm_tpu_torch.ops import dispatch
+
+    def run(tensors, use_fused):
+        leaves = [x.detach().clone().requires_grad_() for x in tensors]
+        p2 = dispatch.psi2_batched(*leaves, use_fused=use_fused)
+        val = torch.sum(p2 * p2)
+        return val.detach(), torch.autograd.grad(val, leaves)
+
+    psi.reset_launch_counts()
+    val32, g32 = run(args32, "auto")
+    torch.cuda.synchronize()
+    launches = dict(psi.LAUNCHES)
+    val64, g64 = run([x.double() for x in args32], False)
+    names = ("vs", "ards", "mu", "s", "Zs")
+    return dict(shape=dict(zip("TNMQ", (*args32[4].shape[:1],
+                                        args32[2].shape[0],
+                                        *args32[4].shape[1:]))),
+                value_rel_err=float((val32.double() - val64).abs()
+                                    / val64.abs()),
+                grad_scaled_err={n: float((g.double() - w).abs().max()
+                                          / w.abs().max())
+                                 for n, g, w in zip(names, g32, g64)},
+                tol=TOL_GATE, launches=launches)
+
+
+def _m256_synthetic(torch, psi, gen):
+    """K1, K2, K4 and K5 on random inputs at M = 129, 192, 256, weighted
+    and not, against their plain versions in f64, each repeated to the
+    bit: the tiled forms at ragged and whole ranges."""
+    held = []
+    for M in M256_HELD_M:
+        shape = dict(M256_HELD, M=M)
+        f64, f32 = _inputs(torch, gen, **shape)
+        G64 = torch.randn(shape["T"], M, M, generator=gen, device="cuda",
+                          dtype=torch.float64)
+        w64 = _weights(torch, gen, shape["N"])
+        for w in (None, w64):
+            w32 = None if w is None else w.float()
+            calls = (
+                ("suffstats_batched", tuple(f32[k] for k in
+                                            ("vs", "ards", "mu", "s", "Zs",
+                                             "Y")) + (w32,),
+                 tuple(f64[k] for k in ("vs", "ards", "mu", "s", "Zs", "Y"))
+                 + (w,)),
+                ("psi2_bwd_batched", tuple(f32[k] for k in
+                                           ("vs", "ards", "mu", "s", "Zs"))
+                 + (G64.float(), w32),
+                 tuple(f64[k] for k in ("vs", "ards", "mu", "s", "Zs"))
+                 + (G64, w)),
+                ("psi2_batched", tuple(f32[k] for k in
+                                       ("vs", "ards", "mu", "s", "Zs"))
+                 + (w32,), tuple(f64[k] for k in
+                                 ("vs", "ards", "mu", "s", "Zs")) + (w,)),
+                ("psi2_single", tuple(_single(f32).values()) + (w32,),
+                 tuple(_single(f64).values()) + (w,)))
+            for name, a32, a64 in calls:
+                fn = getattr(psi, name)
+                ref = getattr(psi, RUN_KERNELS[name][0])
+                got, again, want = fn(*a32), fn(*a32), ref(*a64)
+                got, again, want = (x if isinstance(x, tuple) else (x,)
+                                    for x in (got, again, want))
+                abs_err, scaled = _errors(got, want)
+                held.append(dict(
+                    kernel=name, M=M, weighted=w is not None,
+                    max_abs_err=abs_err, scaled_err=scaled,
+                    tol=RUN_KERNELS[name][1],
+                    repeat_bitwise_equal=all(bool(torch.equal(x, y))
+                                             for x, y in zip(got, again))))
+    return held
+
+
+def _m256_timing(torch, psi, args, name):
+    """One kernel at M = 256 on `args`: device ms (5 launches in one CUDA
+    graph), the wrapper's ms, its plain version's ms, the bound, and the
+    launch geometry."""
+    shape, bound, by = _work_of(name, args)
+    fn = getattr(psi, name)
+    ref = getattr(psi, RUN_KERNELS[name][0])
+    dev = _device_ms(lambda: fn(*args), torch, launches=5, replays=3)
+    if name == "psi2_bwd_batched":
+        geometry = _k2_geometry(psi, shape)
+    else:
+        geometry = _k1_geometry(psi, dict(dict(T=1, D=0), **shape))
+    return dict(shape=shape, device_ms=dev, bound_ms=bound, bound_by=by,
+                device_over_bound=dev / bound,
+                ms=_timed(lambda: fn(*args), torch, reps=5, warmup=1),
+                plain_ms=_timed(lambda: ref(*args), torch, reps=3, warmup=1),
+                geometry=geometry)
+
+
+# a step's launches on each family's fused path at M = 256
+M256_STEP = dict(dp=dict(suffstats_batched=1, psi2_bwd_batched=1),
+                 bgplvm=dict(psi1=1, psi2_single=1, psi2_bwd_batched=1))
+
+
+def _random_cotangent(torch, seen, gen):
+    """K2's first inputs on the paths with G replaced by a standard normal
+    draw: the shapes and the mu, S and Z the paths gave K2, with a
+    cotangent f32 resolves whatever K_uu's conditioning."""
+    return {key: args[:5] + [torch.randn(args[5].shape, generator=gen,
+                                         device="cuda")] + args[6:]
+            for key, args in seen.items() if key[0] == "psi2_bwd_batched"}
+
+
+def phase_m256(torch, seed):
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like, oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(seed)
+    c4, c2 = CONFIGS["c4_dp_mocap"], CONFIGS["c2_sparse_oil"]
+    failures = {}
+    with _first_inputs(torch, psi) as seen:
+        Y, _ = mocap_like(key, n=M256["N"], d=M256["D"], dtype=torch.float32)
+        cfg = dp_gp_lvm.Config(num_latent=M256["Q"],
+                               num_inducing=M256["M"],
+                               truncation=M256["T"], alpha=c4.alpha)
+        params = dp_gp_lvm.init_params(key, Y, cfg)
+        dp, failures["dp"] = _m256_model(torch, psi, dp_gp_lvm, params, Y,
+                                         cfg, c4.lr, c4.ngd_lr,
+                                         M256_STEP["dp"])
+        serve, failures["serve_dp"] = _m256_serve(torch, seed, params, Y,
+                                                  cfg)
+        Yb, _, _ = oil_flow_like(key, n=M256_BG["N"], d=M256_BG["D"],
+                                 dtype=torch.float32)
+        cfg_b = bgplvm.Config(num_latent=M256_BG["Q"],
+                              num_inducing=M256_BG["M"])
+        params_b = bgplvm.init_params(key, Yb, cfg_b)
+        bg, failures["bgplvm"] = _m256_model(
+            torch, psi, bgplvm, params_b, Yb, cfg_b, c2.lr, c2.ngd_lr,
+            M256_STEP["bgplvm"], f32_limited_ok=True)
+        # the gate on the DP step's first K1 inputs, cut to 2048 rows
+        dp_args = next(a for k, a in seen.items()
+                       if k[0] == "suffstats_batched")
+        gate = _m256_gate(torch, psi, [x[:2048] if x.shape[0] == M256["N"]
+                                       else x for x in dp_args[:5]])
+    # the Bayesian GP-LVM where f32 resolves it: on the DP path's data
+    bg_held, failures["bgplvm_mocap"], _ = _m256_init(
+        torch, psi, bgplvm, bgplvm.init_params(key, Y, cfg_b), Y, cfg_b,
+        M256_STEP["bgplvm"])
+    # the first inputs of each kernel on the paths: the DP step's K1 and
+    # K2, the Bayesian step's K6, K5 and K2 (T = 1), the gate's K4
+    first = {}
+    for key, args in seen.items():
+        first.setdefault(key[0] + ("_t1" if key[0] == "psi2_bwd_batched"
+                                   and args[4].shape[0] == 1 else ""), args)
+    held = _hold_first_inputs(torch, psi, seen)
+    for h, (key, args) in zip(held, seen.items()):
+        # the plain version's own f32 error on the same inputs: how far f32
+        # can resolve these outputs at all
+        ref = getattr(psi, RUN_KERNELS[key[0]][0])
+        got = ref(*args)
+        want = ref(*(a.double() if torch.is_tensor(a) else a for a in args))
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        h["plain_f32_scaled_err"] = _errors(got, want)[1]
+        h["plain_f32_scaled_err_by_output"] = [
+            float((g.double() - w).abs().max() / w.abs().max().clamp_min(
+                1e-30)) for g, w in zip(got, want)]
+        # K2's G carries K_uu's conditioning (the Bayesian GP-LVM's on
+        # oil_flow_like): where the plain f32 version misses too, printed
+        h["f32_limited"] = (key[0] == "psi2_bwd_batched"
+                            and h["plain_f32_scaled_err"] > h["tol"])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    held_random_g = _hold_first_inputs(torch, psi,
+                                       _random_cotangent(torch, seen, gen))
+    synthetic = _m256_synthetic(torch, psi, gen)
+    timing = dict(
+        suffstats_batched=_m256_timing(torch, psi, dp_args,
+                                       "suffstats_batched"),
+        psi2_bwd_batched=_m256_timing(torch, psi, first["psi2_bwd_batched"],
+                                      "psi2_bwd_batched"),
+        psi2_bwd_batched_t1=_m256_timing(torch, psi,
+                                         first["psi2_bwd_batched_t1"],
+                                         "psi2_bwd_batched"),
+        psi2_batched=_m256_timing(torch, psi, tuple(dp_args[:5]) + (None,),
+                                  "psi2_batched"),
+        psi2_single=_m256_timing(torch, psi, first["psi2_single"],
+                                 "psi2_single"))
+    row = dict(phase="m256", dp=dict(config=M256, **dp),
+               bgplvm=dict(config=M256_BG, **bg),
+               bgplvm_on_dp_data=dict(config=dict(M256_BG, D=M256["D"]),
+                                      **bg_held),
+               serve_dp=serve, gate=gate, held_on_path_inputs=held,
+               held_on_path_inputs_random_g=held_random_g,
+               held_synthetic=synthetic, timing=timing,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    failures = [f"{k}: {v}" for k, vs in failures.items() for v in vs]
+    if not (gate["value_rel_err"] <= TOL_GATE
+            and max(gate["grad_scaled_err"].values()) <= TOL_GATE):
+        failures.append(f"gate: fused disagrees with plain: {gate}")
+    expected = dict.fromkeys(psi.LAUNCHES, 0)
+    expected.update(psi2_batched=1, psi2_bwd_batched=1)
+    if gate["launches"] != expected:
+        failures.append(f"gate launched {gate['launches']}")
+    if len(held_random_g) != 3:
+        failures.append(f"K2 held with a random G at {len(held_random_g)} "
+                        "shapes, expected 3 (DP step, Bayesian step, gate)")
+    for h in held + held_random_g + synthetic:
+        if not ((h.get("f32_limited") or h["scaled_err"] <= h["tol"])
+                and h["repeat_bitwise_equal"]):
+            failures.append(f"kernel off its plain version or not "
+                            f"repeatable: {h}")
+    for name, t in timing.items():
+        form = t["geometry"].get("super_tiles", t["geometry"].get("ranges"))
+        if form is None:
+            failures.append(f"{name} did not run its tiled form at M = 256")
+    if failures:
+        raise AssertionError("m256: " + "; ".join(failures))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3606,6 +4033,7 @@ def main(argv=None) -> int:
     gate = phase_gate(torch, psi, gen)
     train, dp_params, dp_Y, dp_cfg = phase_train(torch, args.seed)
     phase_scale(torch, psi, gen)
+    m256 = phase_m256(torch, args.seed)
     train2, bg_params, bg_Y, bg_cfg = phase_train_bgplvm(torch, args.seed)
     serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
@@ -3637,6 +4065,10 @@ def main(argv=None) -> int:
                  gate="one value and gradient of sum Psi2^2")
     phases = dict(train=train["launches"], train_bgplvm=train2["launches"],
                   gate=gate["launches"],
+                  m256_dp=m256["dp"]["launches"],
+                  m256_bgplvm=m256["bgplvm"]["launches"],
+                  m256_serve_dp_build=m256["serve_dp"]["build_launches"],
+                  m256_gate=m256["gate"]["launches"],
                   serve_bgplvm_build=serve2["build_launches"],
                   serve_dp_build=serve5["build_launches"],
                   cavi=cavi["launches"], linear=linear["launches"],
@@ -3731,6 +4163,34 @@ def main(argv=None) -> int:
         """A kernel's launches a step on the 1 x 1 mesh (mesh_svi phase)."""
         return {c: r["launches_per_step"][name] for c, r in mesh_svi.items()}
 
+    def at_m256(name, *timed):
+        """A kernel at M = 256 (the m256 phase, its tiled form): device ms,
+        ms, plain ms and bound on the paths' inputs, its launches on each
+        m256 path and its largest error against f64 in the held holds
+        (those not f32-limited)."""
+        t = m256["timing"][timed[0] if timed else name]
+        errs = [h["max_abs_err"] for h in m256["held_on_path_inputs"]
+                + m256["held_on_path_inputs_random_g"]
+                + m256["held_synthetic"]
+                if h["kernel"] == name and not h.get("f32_limited")]
+        out = {"m256_shape": t["shape"], "m256_device_ms": t["device_ms"],
+               "m256_ms": t["ms"], "m256_plain_ms": t["plain_ms"],
+               "m256_bound_ms": t["bound_ms"], "m256_bound_by": t["bound_by"],
+               "m256_geometry": t["geometry"],
+               "m256_max_abs_err": max(errs),
+               "m256_launches": {
+                   "dp_10_steps": m256["dp"]["launches"][name],
+                   "bgplvm_10_steps": m256["bgplvm"]["launches"][name],
+                   "serve_dp_build": m256["serve_dp"]["build_launches"][name],
+                   "gate": m256["gate"]["launches"][name]}}
+        for extra in timed[1:]:
+            e = m256["timing"][extra]
+            out.update({f"m256_{extra}_shape": e["shape"],
+                        f"m256_{extra}_device_ms": e["device_ms"],
+                        f"m256_{extra}_plain_ms": e["plain_ms"],
+                        f"m256_{extra}_bound_ms": e["bound_ms"]})
+        return out
+
     c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
     c9_full = c9["kernels_at_c9"]["suffstats_batched T=1 N=131072"]
     kernels = [
@@ -3761,7 +4221,8 @@ def main(argv=None) -> int:
              c9_full_n_bound_ms=c9_full["bound_ms"],
              c9_full_n_ms=c9_full["ms"],
              c9_full_n_plain_ms=c9_full["plain_ms"],
-             mesh_svi_launches_per_step=on_mesh("suffstats_batched")),
+             mesh_svi_launches_per_step=on_mesh("suffstats_batched"),
+             **at_m256("suffstats_batched")),
         dict(kernel_row("psi2_bwd_batched", "psi2_bwd.cu", 359, "train", k2),
              redesigned_in="fourth slice of the port",
              c2_device_ms=k2["c2"]["device_ms"],
@@ -3779,19 +4240,22 @@ def main(argv=None) -> int:
                  "psi2_bwd_batched"],
              **at_c3("psi2_bwd_batched"), **at_c7("psi2_bwd_batched"),
              **at_c8("psi2_bwd_batched"), **at_c9("psi2_bwd_batched"),
-             mesh_svi_launches_per_step=on_mesh("psi2_bwd_batched")),
+             mesh_svi_launches_per_step=on_mesh("psi2_bwd_batched"),
+             **at_m256("psi2_bwd_batched", "psi2_bwd_batched",
+                       "psi2_bwd_batched_t1")),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],
              scale_plain_ms=k4["scale"]["plain_ms"],
-             scale_bound_ms=k4["scale"]["bound_ms"]),
+             scale_bound_ms=k4["scale"]["bound_ms"],
+             **at_m256("psi2_batched")),
         dict(kernel_row("psi2_single", "psi_suffstats.cu", 66,
                         "train_bgplvm", k5),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k5["scale_device_ms"],
              scale_plain_ms=k5["scale_plain_ms"],
              scale_bound_ms=k5["scale_bound_ms"],
-             **at_c3("psi2_single", build=True)),
+             **at_c3("psi2_single", build=True), **at_m256("psi2_single")),
         dict(kernel_row("psi1", "psi1.cu", 179, "train_bgplvm", k6),
              redesigned_in="seventh slice of the port",
              scale_device_ms=k6["scale_device_ms"],

@@ -41,6 +41,11 @@
 //     the exponent sums its Q terms from shared memory, and the block walks
 //     its rows once per QC = 8 columns of the gradients, holding only those
 //     in registers. Shared memory bounds Q (at M = 128, Q <= 40).
+//   * G_t and le hold the whole M x M tile, so M <= MAX_M. Past that, or
+//     past the Q that bound allows, the tiled form at the end of this file
+//     (entry psi2_bwd_tiled_f32) gives each block R rows of the tile
+//     against every column: the same pair loop, the row scalars' shares
+//     summed over the ranges by its own second kernel.
 //   * Partials: per (chunk, atom) [gvar_m | gard | gz | S], per (atom, row)
 //     [gmu | gs | gw]. A second kernel sums the chunks (PARTS contiguous
 //     chunk ranges per element, then the ranges in order), forms V = G o S,
@@ -547,6 +552,446 @@ size_t smem_bytes(int M, int Q) {
   return (size_t)layout<V::QT, V::LC, V::CH>(M, Q).total * sizeof(float);
 }
 
+// ---------------------------------------------------------------------------
+// The tiled form: M past one block's tile (MAX_M), or a Q whose single-tile
+// block fits no SM. Block (chunk, atom, range a) owns the R rows m of range
+// a of the M x M tile against every column l: G_ml, G_ml + G_lm and le_ml
+// of its rows in shared memory (3 R M floats instead of 2 M^2), c of every
+// column staged per row as in the single-tile kernel. Thread (m, j) owns
+// row m and the TLC columns of slice j, so it still forms W_ml + W_lm from
+// its own exponent. Everything a row scalar feeds (gmu, gs, gw, gard) is
+// linear in the sums over (m, l), so each range writes its share: gvar_m,
+// gz and S of its rows, gard per (chunk, range, atom), and [gmu | gs | gw]
+// per (range, atom, row); finish_tiled sums the chunks in chunk order and
+// the ranges in range order. The pair loop is the single-tile kernel's.
+
+constexpr int TLC = 32;                // columns of a tiled thread's slice
+constexpr int TILED_MAX_THREADS = 512;
+
+// rows between two block barriers
+template <bool CH>
+__host__ __device__ constexpr int tiled_batch_rows() {
+  return CH ? 2 : 4;
+}
+
+struct TiledDims {
+  int T, N, M, Q, R, A, rows_per_chunk;
+};
+
+struct TiledLayout {
+  int QP, MP, RI, L, NW;
+  int g, gs, le, z, al, c, ri, st, ga, cb, total;
+};
+
+template <int QT, bool CH>
+__host__ __device__ TiledLayout tiled_layout(int M, int Q, int R) {
+  constexpr int B = tiled_batch_rows<CH>();
+  constexpr int NV = round32(3 * QT + 2);
+  TiledLayout s;
+  s.QP = CH ? QT * ((Q + QT - 1) / QT) : round4(QT);
+  s.MP = M | 1;
+  s.RI = round4(5 * s.QP + 2);
+  s.L = (M + TLC - 1) / TLC;
+  s.NW = round32(R * s.L) / 32;
+  s.g = 0;                           // [R][MP] G_ml of the range's rows
+  s.gs = s.g + round4(R * s.MP);     // [R][MP] G_ml + G_lm
+  s.le = s.gs + round4(R * s.MP);    // [R][MP] sum_q alpha (z_m - z_l)^2
+  s.z = s.le + round4(R * s.MP);     // [M][QP] z_t, zero-padded
+  s.al = s.z + M * s.QP;             // [QP] alpha_t
+  s.c = s.al + s.QP;                 // [B][M][QP] c of the batch's rows
+  s.ri = s.c + B * M * s.QP;         // [3][B][RI]
+  s.st = s.ri + 3 * B * s.RI;        // [B][NW][NV]
+  s.ga = s.st + B * s.NW * NV;       // [B][QT]
+  s.total = s.ga + round4(B * QT);
+  const int comb = s.L * R * (QT + 1);
+  s.cb = CH ? s.total : s.le;
+  if (s.cb + comb > s.total) s.total = s.cb + comb;
+  return s;
+}
+
+template <int QT, bool CH>
+__global__ void __launch_bounds__(TILED_MAX_THREADS, 1)
+psi2_bwd_tiled_kernel(const float* __restrict__ var,
+                      const float* __restrict__ ard,
+                      const float* __restrict__ mu,
+                      const float* __restrict__ s,
+                      const float* __restrict__ w,
+                      const float* __restrict__ z,
+                      const float* __restrict__ g, float* __restrict__ part,
+                      float* __restrict__ rowpart, TiledDims d) {
+  constexpr int B = tiled_batch_rows<CH>(), RN = rows_at_once<CH>();
+  constexpr int LC = TLC;
+  extern __shared__ __align__(16) float sm[];
+  const int T = d.T, N = d.N, M = d.M, Q = d.Q, R = d.R, A = d.A;
+  const TiledLayout lay = tiled_layout<QT, CH>(M, Q, R);
+  const int QP = lay.QP, MP = lay.MP, RI = lay.RI, NW = lay.NW;
+  constexpr int QS = round4(QT), NV = round32(3 * QT + 2);
+  float* g_sh = sm + lay.g;    // G_ml of the range; S of the block at the end
+  float* gs_sh = sm + lay.gs;  // G_ml + G_lm
+  float* le_sh = sm + lay.le;
+  float* z_sh = sm + lay.z;
+  float* al_sh = sm + lay.al;
+  float* c_sh = sm + lay.c;
+  float* ri_sh = sm + lay.ri;
+  float* st_sh = sm + lay.st;
+  float* ga_sh = sm + lay.ga;
+
+  const int chunk = blockIdx.x, t = blockIdx.y, a = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int row0 = chunk * d.rows_per_chunk;
+  const int nrows = min(d.rows_per_chunk, N - row0);
+  const int nbatch = (nrows + B - 1) / B;
+  const int mr0 = a * R, mr = min(R, M - mr0);  // the range's rows
+  const float v = var[t], v2 = v * v;
+
+  for (int i = tid; i < mr * M; i += nthreads) {
+    const int ml = i / M, l = i % M;
+    const float g1 = g[((long long)t * M + mr0 + ml) * M + l];
+    g_sh[ml * MP + l] = g1;
+    gs_sh[ml * MP + l] = g1 + g[((long long)t * M + l) * M + mr0 + ml];
+  }
+  for (int i = tid; i < M * QP; i += nthreads) {
+    const int l = i / QP, q = i % QP;
+    z_sh[i] = q < Q ? z[((long long)t * M + l) * Q + q] : 0.f;
+  }
+  for (int q = tid; q < QP; q += nthreads)
+    al_sh[q] = q < Q ? ard[(long long)t * Q + q] : 0.f;
+  __syncthreads();
+
+  for (int i = tid; i < mr * M; i += nthreads) {
+    const int ml = i / M, l = i % M, m = mr0 + ml;
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < (CH ? Q : QT); ++q) {
+      const float df = z_sh[m * QP + q] - z_sh[l * QP + q];
+      acc = fmaf(al_sh[q] * df, df, acc);
+    }
+    le_sh[ml * MP + l] = acc;
+  }
+
+  // row info of batch k into ri_sh[k % 3], as the single-tile kernel's
+  auto prep_rows = [&](int k) {
+    const int r0 = k * B, nb = min(B, nrows - r0);
+    float* ri = ri_sh + (k % 3) * B * RI;
+    for (int i = tid; i < nb * QP; i += nthreads) {
+      const int b = i / QP, q = i % QP;
+      const long long n = row0 + r0 + b;
+      const float al = al_sh[q];
+      const float sv = q < Q ? s[n * Q + q] : 0.f;
+      const float u = fmaf(2.f * al, sv, 1.f);
+      const float bq = al / u;
+      float* r = ri + b * RI;
+      r[q] = bq;
+      r[QP + q] = sqrtf(bq);
+      r[2 * QP + q] = q < Q ? mu[n * Q + q] : 0.f;
+      r[3 * QP + q] = sv;
+      r[4 * QP + q] = u;
+    }
+    for (int b = tid; b < nb; b += nthreads) {
+      const long long n = row0 + r0 + b;
+      float ln = 0.f;
+      for (int q = 0; q < Q; ++q)
+        ln -= 0.5f * logf(fmaf(2.f * al_sh[q], s[n * Q + q], 1.f));
+      ri[b * RI + 5 * QP] = ln * LOG2E;
+      ri[b * RI + 5 * QP + 1] = w[n];
+    }
+  };
+
+  // thread (ml, j): row mr0 + ml of the tile, columns [l0, l0 + lc); a
+  // thread past the range's rows (the last range of a ragged M) or past
+  // R L owns no column and adds zeros to the warp sums
+  const bool active = tid < R * lay.L;
+  const bool owns = active && tid % R < mr;
+  const int ml = owns ? tid % R : 0, m = mr0 + ml;
+  const int l0 = active ? (tid / R) * LC : 0;
+  const int lc = owns ? min(LC, M - l0) : 0;
+  const long long gq = (long long)A * T * Q;
+  const long long P = (long long)T * M + gq + (long long)T * M * Q +
+                      (long long)T * M * M;
+  const long long off_gz = (long long)T * M + gq;
+  const long long off_S = off_gz + (long long)T * M * Q;
+  float* pc = part + chunk * P;
+  float S[LC];
+#pragma unroll
+  for (int k = 0; k < LC; ++k) S[k] = 0.f;
+
+  for (int q0 = 0; q0 < (CH ? Q : 1); q0 += QT) {
+    const bool first = !CH || q0 == 0;
+    const int qn = CH ? min(QT, Q - q0) : Q;
+    float gz[QT];
+#pragma unroll
+    for (int q = 0; q < QT; ++q) gz[q] = 0.f;
+    float gvacc = 0.f, gard_acc = 0.f;
+    if (nbatch > 0) prep_rows(0);
+    __syncthreads();
+
+    for (int bt = 0; bt <= nbatch; ++bt) {
+      // (1) the last batch's row scalars -> the range's share of its rows'
+      // gmu, gs, gw and gard
+      if (bt > 0) {
+        const int pr0 = (bt - 1) * B, pnb = min(B, nrows - pr0);
+        const int per = qn + (first ? 1 : 0);
+        const float* ri = ri_sh + ((bt - 1) % 3) * B * RI;
+        for (int i = tid; i < pnb * per; i += nthreads) {
+          const int b = i / per, q = i % per;
+          const float* st = st_sh + b * NW * NV;
+          const float* r = ri + b * RI;
+          float* rp = rowpart + (((long long)a * T + t) * N + row0 + pr0 + b) *
+                                    (2 * Q + 1);
+          if (q == qn) {
+            float ps = 0.f;
+            for (int wi = 0; wi < NW; ++wi) ps += st[wi * NV + 3 * QT + 1];
+            rp[2 * Q] = v2 * ps;
+            continue;
+          }
+          float Asum = 0.f, rz = 0.f, rz2 = 0.f, U = 0.f;
+          for (int wi = 0; wi < NW; ++wi) {
+            const float* sw = st + wi * NV;
+            Asum += sw[0];
+            rz += sw[1 + q];
+            rz2 += sw[1 + QT + q];
+            U += sw[1 + 2 * QT + q];
+          }
+          const float f = v2 * r[5 * QP + 1];
+          Asum *= 0.5f * f;
+          rz *= f;
+          rz2 *= f;
+          U *= 0.5f * f;
+          const int qq = q0 + q;
+          const float bq = r[qq], mq = r[2 * QP + qq];
+          const float sq = r[3 * QP + qq], uq = r[4 * QP + qq];
+          const float gb = -mq * mq * Asum + mq * rz - 0.25f * rz2 - 0.5f * U;
+          rp[qq] = bq * (-2.f * mq * Asum + rz);
+          rp[Q + qq] = gb * (-2.f * bq * bq) - Asum * bq;
+          ga_sh[b * QT + q] = gb / (uq * uq) - Asum * sq / uq;
+        }
+      }
+      // (2) stage c of batch bt, row info of batch bt + 1
+      if (bt < nbatch) {
+        const int nb = min(B, nrows - bt * B);
+        const float* ri = ri_sh + (bt % 3) * B * RI;
+        for (int i = tid; i < nb * M; i += nthreads) {
+          const int b = i / M, l = i - b * M;
+          const float* r = ri + b * RI;
+#pragma unroll
+          for (int q = 0; q < (CH ? QP : QS); ++q)
+            c_sh[i * QP + q] = r[QP + q] * (r[2 * QP + q] - z_sh[l * QP + q]);
+        }
+        if (bt + 1 < nbatch) prep_rows(bt + 1);
+      }
+      __syncthreads();
+      if (bt > 0 && tid < qn) {
+        const int pnb = min(B, nrows - (bt - 1) * B);
+        for (int b = 0; b < pnb; ++b) gard_acc += ga_sh[b * QT + tid];
+      }
+      if (bt == nbatch) break;
+
+      // (3) the rows of batch bt; no block barrier between them
+      const int nb = min(B, nrows - bt * B);
+      const float* ri = ri_sh + (bt % 3) * B * RI;
+      for (int b = 0; b < nb; b += RN) {
+        const float* cr[RN];
+        const float* rr[RN];
+        float ln2[RN], wn[RN], cm[RN][QS];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          const int bj = min(b + j, nb - 1);
+          cr[j] = c_sh + bj * M * QP;
+          rr[j] = ri + bj * RI;
+          ln2[j] = rr[j][5 * QP];
+          wn[j] = b + j < nb ? rr[j][5 * QP + 1] : 0.f;
+          if (!CH) load_vec(cr[j] + m * QP, cm[j]);
+        }
+        float p[RN], rsum[RN], wsz[RN][QT];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          p[j] = rsum[j] = 0.f;
+#pragma unroll
+          for (int q = 0; q < QT; ++q) wsz[j][q] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < LC; ++k) {
+          if (k < lc) {
+            const int l = l0 + k;
+            float zl[QS];
+            load_vec(z_sh + l * QP + q0, zl);
+            const float le = le_sh[ml * MP + l];
+            const float g1 = g_sh[ml * MP + l];
+            const float gsum = gs_sh[ml * MP + l];
+#pragma unroll
+            for (int j = 0; j < RN; ++j) {
+              float quad = 0.f;
+              if (CH) {
+                quad = quad_sum(cr[j] + m * QP, cr[j] + l * QP, QP);
+              } else {
+                float cl[QS];
+                load_vec(cr[j] + l * QP, cl);
+#pragma unroll
+                for (int q = 0; q < QT; ++q) {
+                  const float tq = cm[j][q] + cl[q];
+                  quad = fmaf(tq, tq, quad);
+                }
+              }
+              const float ex = fmaf(-0.25f * LOG2E, le + quad, ln2[j]);
+              const float e = exp2f(fminf(ex, 0.f));
+              p[j] = fmaf(e, g1, p[j]);
+              const float em = ex < 0.f ? e : 0.f;
+              if (first) S[k] = fmaf(wn[j], em, S[k]);
+              const float ws = em * gsum;
+              rsum[j] += ws;
+#pragma unroll
+              for (int q = 0; q < QT; ++q)
+                wsz[j][q] = fmaf(ws, zl[q], wsz[j][q]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          if (b + j >= nb) break;
+          const float* r = rr[j];
+          const float f = v2 * wn[j];
+          if (first) gvacc = fmaf(wn[j], p[j], gvacc);
+          float vals[NV];
+          vals[0] = rsum[j];
+#pragma unroll
+          for (int q = 0; q < QT; ++q) {
+            const int qq = q0 + q;
+            const float zq = z_sh[m * QP + qq];
+            gz[q] = fmaf(f * r[qq], rsum[j] * (r[2 * QP + qq] - 0.5f * zq) -
+                                        0.5f * wsz[j][q], gz[q]);
+            vals[1 + q] = rsum[j] * zq;
+            vals[1 + QT + q] = rsum[j] * zq * zq;
+            vals[1 + 2 * QT + q] = wsz[j][q] * zq;
+          }
+          vals[3 * QT + 1] = p[j];
+#pragma unroll
+          for (int k = 3 * QT + 2; k < NV; ++k) vals[k] = 0.f;
+          warp_scatter_sum<NV>(vals, lane, st_sh + ((b + j) * NW + warp) * NV);
+        }
+      }
+      __syncthreads();
+    }
+
+    // slices -> the range's [gvar | gz] of the pass, in slice order
+    __syncthreads();
+    float* comb = sm + lay.cb;
+    if (active) {
+      float* cp = comb + tid * (QT + 1);
+      cp[0] = gvacc;
+#pragma unroll
+      for (int q = 0; q < QT; ++q) cp[1 + q] = gz[q];
+    }
+    __syncthreads();
+    for (int i = tid; i < mr * (qn + 1); i += nthreads) {
+      const int mm = i / (qn + 1), k = i % (qn + 1);
+      if (k == 0 && !first) continue;
+      float acc = 0.f;
+      for (int j = 0; j < lay.L; ++j) acc += comb[(j * R + mm) * (QT + 1) + k];
+      if (k == 0)
+        pc[(long long)t * M + mr0 + mm] = acc;
+      else
+        pc[off_gz + ((long long)t * M + mr0 + mm) * Q + q0 + k - 1] = acc;
+    }
+    if (tid < qn)
+      pc[(long long)T * M + ((long long)a * T + t) * Q + q0 + tid] = gard_acc;
+  }
+
+  // S into g_sh: every read of G is done
+  if (owns) {
+#pragma unroll
+    for (int k = 0; k < LC; ++k)
+      if (k < lc) g_sh[ml * MP + l0 + k] = S[k];
+  }
+  __syncthreads();
+  float* pS = pc + off_S + ((long long)t * M + mr0) * M;
+  for (int i = tid; i < mr * M; i += nthreads)
+    pS[i] = g_sh[(i / M) * MP + i % M];
+}
+
+// blocks [0, atom_blocks): output element e of [gvar_m | gard | gz | V]
+// summed over the chunks (gard also over the ranges, range order inside
+// each chunk), V = var^2 G o S; the rest: row i of [gmu | gs | gw] summed
+// over the atoms and ranges, atom by atom in range order
+__global__ void __launch_bounds__(FIN_THREADS)
+finish_tiled_kernel(const float* __restrict__ part,
+                    const float* __restrict__ rowpart,
+                    const float* __restrict__ var,
+                    const float* __restrict__ g, Outputs o, TiledDims d,
+                    int chunks, int atom_blocks) {
+  const int T = d.T, N = d.N, M = d.M, Q = d.Q, A = d.A;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if ((int)blockIdx.x < atom_blocks) {
+    __shared__ float red[PARTS][32];
+    const long long off1 = (long long)T * M, off2 = off1 + (long long)T * Q;
+    const long long off3 = off2 + (long long)T * M * Q;
+    const long long O = off3 + (long long)T * M * M;
+    const long long gq = (long long)A * T * Q;
+    const long long P = O - (long long)T * Q + gq;  // partials a chunk
+    const long long e = (long long)blockIdx.x * 32 + lane;
+    const int per = (chunks + PARTS - 1) / PARTS;
+    const int c0 = warp * per, c1 = min(chunks, c0 + per);
+    float acc = 0.f;
+    if (e < off1 || (e >= off2 && e < O)) {
+      const long long pe = e < off1 ? e : e - (long long)T * Q + gq;
+      for (int c = c0; c < c1; ++c) acc += part[c * P + pe];
+    } else if (e < off2) {
+      for (int c = c0; c < c1; ++c)
+        for (int ra = 0; ra < A; ++ra)
+          acc += part[c * P + off1 + ra * (long long)T * Q + (e - off1)];
+    }
+    red[warp][lane] = acc;
+    __syncthreads();
+    if (warp != 0 || e >= O) return;
+    float tot = 0.f;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) tot += red[p][lane];
+    if (e < off1) {
+      o.gvar_m[e] = tot;
+    } else if (e < off2) {
+      o.gard[e - off1] = tot;
+    } else if (e < off3) {
+      o.gz[e - off2] = tot;
+    } else {
+      const long long r = e - off3;
+      const float vt = var[r / ((long long)M * M)];
+      o.V[r] = vt * vt * g[r] * tot;
+    }
+    return;
+  }
+  const int R2 = 2 * Q + 1;
+  const long long i =
+      (long long)(blockIdx.x - atom_blocks) * FIN_THREADS + tid;
+  if (i >= (long long)N * R2) return;
+  float acc = 0.f;
+  for (int t = 0; t < T; ++t)
+    for (int ra = 0; ra < A; ++ra)
+      acc += rowpart[((long long)ra * T + t) * N * R2 + i];
+  const long long n = i / R2;
+  const int k = (int)(i % R2);
+  if (k < Q)
+    o.gmu[n * Q + k] = acc;
+  else if (k < 2 * Q)
+    o.gs[n * Q + k - Q] = acc;
+  else
+    o.gw[n] = acc;
+}
+
+// f(Variant) for the tiled instantiation that serves Q: one pass at
+// Q <= QF, passes of QC columns beyond
+template <class F>
+int tiled_dispatch(int Q, F&& f) {
+  if (Q < 1) return -(int)cudaErrorInvalidValue;
+  if (Q > QF) return f(Variant<QC, TLC, true>{});
+  return f(Variant<QF, TLC, false>{});
+}
+
+// threads of a tiled block of R rows, or 0 where none or too many
+int tiled_threads(int M, int R) {
+  const int threads = round32(R * ((M + TLC - 1) / TLC));
+  return R >= 1 && threads <= TILED_MAX_THREADS ? threads : 0;
+}
+
 // threads of a block, or 0 where they exceed the kernel's launch bounds
 template <class V>
 int block_threads(int M, int Q) {
@@ -622,5 +1067,78 @@ extern "C" int psi2_bwd_f32(const float* var, const float* ard,
   finish_kernel<<<(unsigned)(atom_blocks + row_blocks), FIN_THREADS, 0,
                   stream>>>(part, rowpart, var, g, o, d, chunks,
                             (int)atom_blocks);
+  return (int)cudaGetLastError();
+}
+
+// blocks of the tiled kernel that fit on one SM at (M, Q) with ranges of R
+// rows, 0 where its shared memory exceeds a block's, or minus a CUDA error
+extern "C" int psi2_bwd_tiled_blocks_per_sm(int M, int Q, int R) {
+  const int threads = tiled_threads(M, R);
+  if (M < 1 || threads == 0) return -(int)cudaErrorInvalidValue;
+  int max_smem = 0, dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -(int)e;
+  return tiled_dispatch(Q, [&](auto variant) {
+    using V = decltype(variant);
+    const auto kernel = psi2_bwd_tiled_kernel<V::QT, V::CH>;
+    const size_t smem =
+        (size_t)tiled_layout<V::QT, V::CH>(M, Q, R).total * sizeof(float);
+    if (smem > (size_t)max_smem) return 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+    return err == cudaSuccess ? blocks : -(int)err;
+  });
+}
+
+// K2 in the tiled form. part: chunks x (T M + A T Q + T M Q + T M^2)
+// floats; rowpart: A x T x N x (2Q + 1), A = ceil(M / R)
+extern "C" int psi2_bwd_tiled_f32(const float* var, const float* ard,
+                                  const float* mu, const float* s,
+                                  const float* w, const float* z,
+                                  const float* g, float* part,
+                                  float* rowpart, float* gvar_m, float* gard,
+                                  float* gz, float* V, float* gmu, float* gs,
+                                  float* gw, int T, int N, int M, int Q,
+                                  int R, int rows_per_chunk, int chunks,
+                                  cudaStream_t stream) {
+  const int threads = tiled_threads(M, R);
+  const int A = M >= 1 && R >= 1 ? (M + R - 1) / R : 0;
+  if (M < 1 || threads == 0 || A > 65535 || T < 1 || T > 65535 || N < 1 ||
+      chunks < 1 || (long long)rows_per_chunk * chunks < N)
+    return (int)cudaErrorInvalidValue;
+  TiledDims d;
+  d.T = T; d.N = N; d.M = M; d.Q = Q; d.R = R; d.A = A;
+  d.rows_per_chunk = rows_per_chunk;
+  const int err = tiled_dispatch(Q, [&](auto variant) {
+    using Var = decltype(variant);
+    const auto kernel = psi2_bwd_tiled_kernel<Var::QT, Var::CH>;
+    const size_t smem =
+        (size_t)tiled_layout<Var::QT, Var::CH>(M, Q, R).total * sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(chunks, T, A), threads, smem, stream>>>(
+        var, ard, mu, s, w, z, g, part, rowpart, d);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err < 0 ? -err : err;
+
+  Outputs o;
+  o.gvar_m = gvar_m; o.gard = gard; o.gz = gz; o.V = V;
+  o.gmu = gmu; o.gs = gs; o.gw = gw;
+  const long long O = (long long)T * (M + Q + M * Q + (long long)M * M);
+  const long long atom_blocks = (O + 31) / 32;
+  const long long row_blocks =
+      ((long long)N * (2 * Q + 1) + FIN_THREADS - 1) / FIN_THREADS;
+  finish_tiled_kernel<<<(unsigned)(atom_blocks + row_blocks), FIN_THREADS, 0,
+                        stream>>>(part, rowpart, var, g, o, d, chunks,
+                                  (int)atom_blocks);
   return (int)cudaGetLastError();
 }

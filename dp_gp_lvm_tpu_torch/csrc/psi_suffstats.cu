@@ -60,6 +60,13 @@
 //     its partial sums to part[c] and a second kernel sums the chunks in
 //     a fixed order: no atomics, the same bits on every run. No tensor
 //     cores and no TF32: every product is full f32.
+//   * A block holds the whole M x M triangle, so M <= MAX_M (a thread a
+//     4x4 tile: 528 at M = 128, 2080 at 256). Past that, or where a Q
+//     leaves no block that fits an SM, the tiled form at the end of this
+//     file (entries *_tiled_f32) puts super-tiles of TP x TP on the grid
+//     with the same pair exponent, pipeline and Psi1^T Y tiles; the TPU
+//     kernel sized its row block to VMEM instead (ops/pallas/psi.py:
+//     583-607).
 #include <cuda_runtime.h>
 
 namespace {
@@ -523,6 +530,427 @@ int launch(const float* var, const float* ard, const float* mu,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tiled form: M past one block's tile (MAX_M), or a Q whose single-tile
+// block fits no SM. Psi2's upper triangle is cut into super-tiles of TP x
+// TP, S = ceil(M / TP) ranges a side; block (chunk, atom, super-tile (a,
+// b), a <= b) stages z and the c rows of its two ranges only and owns one
+// 4x4 tile a thread: all TT4^2 of an off-diagonal super-tile, the upper
+// triangle of a diagonal one. Diagonal super-tiles also own their range's
+// TP rows of Psi1^T Y (the Psi1 rows of range a). The pair exponent, the
+// row pipeline and the Psi1^T Y tiles are the single-tile kernel's; one
+// group walks every row. Partials per (chunk, atom, super-tile) go to
+// reduce_tiled, which sums the chunks in chunk order and mirrors.
+
+constexpr int TP = 64;                      // super-tile width
+constexpr int TT4 = TP / 4;                 // 4x4 tiles along its side
+constexpr int TILED_THREADS = TT4 * TT4;    // tiles of an off-diagonal one
+constexpr int TW = 2 * TP;                  // staged columns: range a | b
+
+struct TiledDims {
+  int T, N, M, Q, D, S, RS, rows_per_chunk, chunks;
+};
+
+// shared-memory layout of the tiled block, offsets in floats
+struct TiledLayout {
+  int RI, D4;
+  int z, al, ri, y, c, p1, total;
+};
+
+__host__ __device__ TiledLayout tiled_layout(int Q, int D, int RS) {
+  TiledLayout s;
+  s.RI = round4(6 * Q + 3);
+  s.D4 = round4(D);
+  s.z = 0;                           // [Q][TW] z_t of ranges a and b
+  s.al = s.z + Q * TW;               // [Q] alpha_t
+  s.ri = s.al + round4(Q);           // [3][RS][RI] row scalars
+  s.y = s.ri + 3 * RS * s.RI;        // [3][RS][D4] Y rows
+  s.c = s.y + 3 * RS * s.D4;         // [2][RS][Q][TW] c
+  s.p1 = s.c + 2 * RS * Q * TW;      // [2][RS][TP] var w Psi1 of range a
+  s.total = s.p1 + (D > 0 ? 2 * RS * TP : 0);
+  return s;
+}
+
+// The partials: a TP x TP block per (chunk, atom, super-tile), row-major
+// (the diagonal super-tiles' lower 4x4 tiles are never written nor read),
+// then, after every chunk's, TP x D of Psi1^T Y per (chunk, atom, range).
+
+template <int QC, bool P1Y>
+__global__ void __launch_bounds__(TILED_THREADS, 2)
+suffstats_tiled_kernel(const float* __restrict__ var,
+                       const float* __restrict__ ard,
+                       const float* __restrict__ mu,
+                       const float* __restrict__ s,
+                       const float* __restrict__ w,
+                       const float* __restrict__ z,
+                       const float* __restrict__ y, float* __restrict__ part,
+                       TiledDims d) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = d.T, M = d.M, Q = QC ? QC : d.Q, D = d.D, S = d.S;
+  const int RS = d.RS;
+  const TiledLayout lay = tiled_layout(Q, D, RS);
+  const int D4 = lay.D4, RI = lay.RI;
+  float* z_sh = sm + lay.z;
+  float* al_sh = sm + lay.al;
+  float* c_sh = sm + lay.c;
+  float* p1_sh = sm + lay.p1;
+
+  const int chunk = blockIdx.x, t = blockIdx.y, tile = blockIdx.z;
+  int ra, rb;
+  upper_tile(tile, S, ra, rb);
+  const bool diag = ra == rb;
+  const bool p1y = P1Y && diag;      // this block's share of Psi1^T Y
+  const int cols = diag ? TP : TW;   // staged columns of z and c
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int row0 = chunk * d.rows_per_chunk;
+  const int nrows = min(d.rows_per_chunk, d.N - row0);
+  const int nstage = (nrows + RS - 1) / RS;
+  const float v = var[t];
+
+  // row scalars and (p1y) Y rows of stage st into buffer st % 3, as the
+  // single-tile kernel's prep
+  const int SEG = Q <= 16 ? 16 : 32, lane_q = lane % SEG;
+  const int row_slots = nwarps * (32 / SEG);
+  const int ydr = p1y ? nthreads / D4 : 0;
+  const int ydd = p1y ? nthreads % D4 : 0;
+  const int my_row = warp * (32 / SEG) + lane / SEG;
+  auto prep = [&](int st) {
+    const int r0 = st * RS, nb = min(RS, nrows - r0);
+    float* ri = sm + lay.ri + (st % 3) * RS * RI;
+    float* ys = sm + lay.y + (st % 3) * RS * D4;
+    for (int rb0 = 0; rb0 < nb; rb0 += row_slots) {  // uniform across a warp
+      const int r = rb0 + my_row;
+      const long long n = row0 + r0 + r;
+      float* rr = ri + r * RI;
+      const float wn = r < nb && lane_q == 0 && w ? w[n] : 1.f;
+      if (r < nb) {
+        for (int q = lane_q; q < Q; q += SEG) {
+          const float a = ard[(long long)t * Q + q];
+          const float sv = s[n * Q + q];
+          const float u2 = fmaf(2.f * a, sv, 1.f);
+          rr[4 * q] = sqrtf(a / u2);
+          rr[4 * q + 1] = mu[n * Q + q];
+          if constexpr (P1Y) {
+            const float u1 = fmaf(a, sv, 1.f);
+            rr[4 * q + 2] = a / u1;
+            rr[4 * Q + q] = logf(u1);
+          }
+          rr[5 * Q + q] = logf(u2);
+        }
+      }
+      __syncwarp();
+      if (r < nb && lane_q == 0) {
+        float l1 = 0.f, ln = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < Q; ++q) {
+          if constexpr (P1Y) l1 -= 0.5f * rr[4 * Q + q];
+          ln -= 0.5f * rr[5 * Q + q];
+        }
+        rr[6 * Q] = wn;
+        if constexpr (P1Y) rr[6 * Q + 1] = l1 * LOG2E;
+        rr[6 * Q + 2] = ln * LOG2E;
+      }
+    }
+    if (p1y) {
+      int yr = tid / D4, yd = tid % D4;
+      for (int i0 = tid; i0 < nb * D4; i0 += 4 * nthreads) {
+        float yv[4];
+        int r = yr, dd = yd;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          yv[k] = r < nb && dd < D
+                      ? y[(long long)(row0 + r0 + r) * D + dd] : 0.f;
+          r += ydr;
+          dd += ydd;
+          if (dd >= D4) {
+            dd -= D4;
+            ++r;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (i0 + k * nthreads < nb * D4) ys[i0 + k * nthreads] = yv[k];
+        yr = r;
+        yd = dd;
+      }
+    }
+  };
+
+  // c of the staged columns and (p1y) the Psi1 rows of range a, of stage
+  // st into buffer st % 2; one (row, column) per thread
+  const int bdr = nthreads / cols, bdm = nthreads % cols;
+  auto build = [&](int st) {
+    const int nb = min(RS, nrows - st * RS);
+    const float* ri = sm + lay.ri + (st % 3) * RS * RI;
+    float* cb = c_sh + (st % 2) * RS * Q * TW;
+    float* pb = p1_sh + (st % 2) * RS * TP;
+    for (int r = tid / cols, j = tid % cols; r < nb;) {
+      const float* rr = ri + r * RI;
+      float* cr = cb + r * Q * TW + j;
+      float quad1 = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < Q; ++q) {
+        const float4 v4 = *reinterpret_cast<const float4*>(rr + 4 * q);
+        const float df = v4.y - z_sh[q * TW + j];
+        cr[q * TW] = v4.x * df;
+        if constexpr (P1Y) quad1 = fmaf(v4.z * df, df, quad1);
+      }
+      if (p1y) {  // cols == TP: j is a column of range a
+        const float e1 = fmaf(-0.5f * LOG2E, quad1, rr[6 * Q + 1]);
+        pb[r * TP + j] = ra * TP + j < M
+                             ? v * rr[6 * Q] * exp2_ftz(fminf(e1, 0.f))
+                             : 0.f;
+      }
+      r += bdr;
+      j += bdm;
+      if (j >= cols) {
+        j -= cols;
+        ++r;
+      }
+    }
+  };
+
+  for (int i = tid; i < Q * TW; i += nthreads) {
+    const int q = i / TW, j = i % TW;
+    const int m = j < TP ? ra * TP + j : rb * TP + j - TP;
+    z_sh[i] = j < cols && m < M ? z[((long long)t * M + m) * Q + q] : 0.f;
+  }
+  for (int q = tid; q < Q; q += nthreads) al_sh[q] = ard[(long long)t * Q + q];
+  if (nstage > 0) prep(0);
+  if (nstage > 1) prep(1);
+  __syncthreads();
+
+  // this thread's 4x4 tile, in staged columns: rows m0 of range a,
+  // columns l0 of range b (of range a on the diagonal)
+  const int ntiles = diag ? TT4 * (TT4 + 1) / 2 : TT4 * TT4;
+  const bool has_tile = tid < ntiles;
+  int m0 = 0, l0 = 0;
+  if (has_tile) {
+    int tm = tid / TT4, tl = tid % TT4;
+    if (diag) upper_tile(tid, TT4, tm, tl);
+    m0 = 4 * tm;
+    l0 = 4 * tl + (diag ? 0 : TP);
+  }
+  float le[4][4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      le[i][j] = 0.f;
+      acc[i][j] = 0.f;
+    }
+  if (has_tile) {
+    for (int q = 0; q < Q; ++q) {
+      const float a = al_sh[q];
+      float zm[4], zl[4];
+      unpack(*reinterpret_cast<const float4*>(z_sh + q * TW + m0), zm);
+      unpack(*reinterpret_cast<const float4*>(z_sh + q * TW + l0), zl);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float df = zm[i] - zl[j];
+          le[i][j] = fmaf(a * df, df, le[i][j]);
+        }
+    }
+  }
+
+  const int dt4 = D4 / 4, np1 = TT4 * dt4;
+  for (int pass = 0; p1y ? pass * nthreads < np1 : pass < 1; ++pass) {
+    const int pt = tid + pass * nthreads;
+    const bool has_p1 = p1y && pt < np1;
+    const int pm0 = has_p1 ? 4 * (pt / dt4) : 0;
+    const int pd0 = has_p1 ? 4 * (pt % dt4) : 0;
+    const bool psi2_pass = pass == 0 && has_tile;
+    float py[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) py[i][j] = 0.f;
+
+    if (pass > 0) {
+      if (nstage > 0) prep(0);
+      if (nstage > 1) prep(1);
+      __syncthreads();
+    }
+    if (nstage > 0) build(0);
+    __syncthreads();
+    for (int st = 0; st < nstage; ++st) {
+      if (st + 1 < nstage) build(st + 1);
+      if (st + 2 < nstage) prep(st + 2);
+      const int nb = min(RS, nrows - st * RS);
+      const float* ri = sm + lay.ri + (st % 3) * RS * RI;
+      const float* ys = sm + lay.y + (st % 3) * RS * D4;
+      const float* cb = c_sh + (st % 2) * RS * Q * TW;
+      const float* pb = p1_sh + (st % 2) * RS * TP;
+
+      if (psi2_pass) {
+        for (int r = 0; r < nb; ++r) {
+          const float* pm = cb + r * Q * TW + m0;
+          const float* pl = cb + r * Q * TW + l0;
+          float quad[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) quad[i][j] = 0.f;
+#pragma unroll (QC ? QC : 2)
+          for (int q = 0; q < Q; ++q, pm += TW, pl += TW) {
+            float cm[4], cl[4];
+            unpack(*reinterpret_cast<const float4*>(pm), cm);
+            unpack(*reinterpret_cast<const float4*>(pl), cl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const float tq = cm[i] + cl[j];
+                quad[i][j] = fmaf(tq, tq, quad[i][j]);
+              }
+          }
+          const float ln2 = ri[r * RI + 6 * Q + 2], wr = ri[r * RI + 6 * Q];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float ex = fmaf(-0.25f * LOG2E, le[i][j] + quad[i][j], ln2);
+              acc[i][j] = fmaf(wr, exp2_ftz(fminf(ex, 0.f)), acc[i][j]);
+            }
+        }
+      }
+      if (has_p1) {
+#pragma unroll 4
+        for (int r = 0; r < nb; ++r) {
+          float pv[4], yv[4];
+          unpack(*reinterpret_cast<const float4*>(pb + r * TP + pm0), pv);
+          unpack(*reinterpret_cast<const float4*>(ys + r * D4 + pd0), yv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) py[i][j] = fmaf(pv[i], yv[j], py[i][j]);
+        }
+      }
+      __syncthreads();  // stage st's buffers free, st + 1 built
+    }
+    if (has_p1) {
+      const long long nst = (long long)S * (S + 1) / 2;
+      float* p1y_part = part + (long long)d.chunks * T * nst * TP * TP +
+                        (((long long)chunk * T + t) * S + ra) * TP * D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (pd0 + j < D) p1y_part[(pm0 + i) * D + pd0 + j] = py[i][j];
+    }
+  }
+
+  // the tile's Psi2 partial: row m0 + i, column lb + j of the super-tile
+  if (has_tile) {
+    const float v2 = v * v;
+    const long long nst = (long long)S * (S + 1) / 2;
+    float* p2 = part + (((long long)chunk * T + t) * nst + tile) * TP * TP;
+    const int lb = l0 - (diag ? 0 : TP);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(p2 + (m0 + i) * TP + lb) =
+          make_float4(v2 * acc[i][0], v2 * acc[i][1], v2 * acc[i][2],
+                      v2 * acc[i][3]);
+  }
+}
+
+// psi2 (T, M, M) and (P1Y) p1y (T, M, D): each element the chunks' partials
+// of its super-tile summed in chunk order; (m, l) below the diagonal reads
+// (l, m), so Psi2 comes out symmetric
+template <bool P1Y>
+__global__ void reduce_tiled(const float* __restrict__ part, TiledDims d,
+                             float* __restrict__ psi2,
+                             float* __restrict__ p1y) {
+  const int T = d.T, M = d.M, D = d.D, S = d.S, chunks = d.chunks;
+  const long long nst = (long long)S * (S + 1) / 2;
+  const long long P2 = (long long)T * nst * TP * TP;  // a chunk's Psi2
+  const long long PY = (long long)T * S * TP * D;     // a chunk's Psi1^T Y
+  const long long n2 = (long long)T * M * M;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n2) {
+    const int t = (int)(e / ((long long)M * M));
+    const long long r = e % ((long long)M * M);
+    int m = (int)(r / M), l = (int)(r % M);
+    if (m > l) {
+      const int k = m;
+      m = l;
+      l = k;
+    }
+    const long long a = m / TP, b = l / TP;
+    const long long tile = a * S - a * (a - 1) / 2 + (b - a);
+    const long long off =
+        ((long long)t * nst + tile) * TP * TP + (m % TP) * TP + l % TP;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < chunks; ++c) acc += part[c * P2 + off];
+    psi2[e] = acc;
+    return;
+  }
+  if constexpr (P1Y) {
+    const long long e2 = e - n2;
+    if (e2 >= (long long)T * M * D) return;
+    const int t = (int)(e2 / ((long long)M * D));
+    const int m = (int)(e2 % ((long long)M * D) / D), dd = (int)(e2 % D);
+    const long long off = chunks * P2 +
+                          ((long long)t * S + m / TP) * TP * D +
+                          (long long)(m % TP) * D + dd;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < chunks; ++c) acc += part[off + c * PY];
+    p1y[e2] = acc;
+  }
+}
+
+// f(kernel) for the tiled instantiation that serves Q (Q = 10 fixed, as
+// every configuration's) and D (D = 0: Psi2 alone)
+template <class F>
+int with_tiled_kernel(int Q, int D, F&& f) {
+  if (D > 0)
+    return Q == 10 ? f(suffstats_tiled_kernel<10, true>)
+                   : f(suffstats_tiled_kernel<0, true>);
+  return Q == 10 ? f(suffstats_tiled_kernel<10, false>)
+                 : f(suffstats_tiled_kernel<0, false>);
+}
+
+int launch_tiled(const float* var, const float* ard, const float* mu,
+                 const float* s, const float* w, const float* z,
+                 const float* y, float* part, float* psi2, float* p1y, int T,
+                 int N, int M, int Q, int D, int RS, int rows_per_chunk,
+                 int chunks, cudaStream_t stream) {
+  const int S = (M + TP - 1) / TP;
+  const long long nst = (long long)S * (S + 1) / 2;
+  if (M < 1 || Q < 1 || D < 0 || RS < 1 || T < 1 || T > 65535 || N < 1 ||
+      chunks < 1 || nst > 65535 ||
+      (long long)rows_per_chunk * (chunks - 1) >= N ||
+      (long long)rows_per_chunk * chunks < N)
+    return (int)cudaErrorInvalidValue;
+  TiledDims d;
+  d.T = T; d.N = N; d.M = M; d.Q = Q; d.D = D; d.S = S; d.RS = RS;
+  d.rows_per_chunk = rows_per_chunk; d.chunks = chunks;
+  const size_t smem = (size_t)tiled_layout(Q, D, RS).total * sizeof(float);
+  const int err = with_tiled_kernel(Q, D, [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(chunks, T, (unsigned)nst), TILED_THREADS, smem, stream>>>(
+        var, ard, mu, s, w, z, y, part, d);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
+  const long long outs = (long long)T * M * M + (long long)T * M * D;
+  const int rthreads = 256;
+  const unsigned rblocks = (unsigned)((outs + rthreads - 1) / rthreads);
+  if (D > 0)
+    reduce_tiled<true><<<rblocks, rthreads, 0, stream>>>(part, d, psi2, p1y);
+  else
+    reduce_tiled<false><<<rblocks, rthreads, 0, stream>>>(part, d, psi2,
+                                                          p1y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // blocks of the main kernel (Psi2 alone at D = 0) that fit on one SM with
@@ -574,4 +1002,54 @@ extern "C" int psi2_batched_f32(const float* var, const float* ard,
                                 cudaStream_t stream) {
   return launch(var, ard, mu, s, w, z, nullptr, part, psi2, nullptr, T, N, M,
                 Q, 0, G, RS, rows_per_chunk, chunks, stream);
+}
+
+// blocks of the tiled kernel (Psi2 alone at D = 0) that fit on one SM with
+// RS staged rows, 0 where none fits, or minus a CUDA error
+extern "C" int psi_suffstats_tiled_blocks_per_sm(int Q, int D, int RS) {
+  if (Q < 1 || D < 0 || RS < 1) return -(int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tiled_layout(Q, D, RS).total * sizeof(float);
+  int max_smem = 0, dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (smem > (size_t)max_smem) return 0;
+  return with_tiled_kernel(Q, D, [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return -(int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      TILED_THREADS, smem);
+    return e == cudaSuccess ? blocks : -(int)e;
+  });
+}
+
+// K1 in the tiled form. part: chunks x T x S(S+1)/2 x TP^2 floats of Psi2,
+// then chunks x T x S x TP x D of Psi1^T Y (S = ceil(M / TP), TP = 64)
+extern "C" int psi_suffstats_tiled_f32(const float* var, const float* ard,
+                                       const float* mu, const float* s,
+                                       const float* w, const float* z,
+                                       const float* y, float* part,
+                                       float* psi2, float* p1y, int T, int N,
+                                       int M, int Q, int D, int RS,
+                                       int rows_per_chunk, int chunks,
+                                       cudaStream_t stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  return launch_tiled(var, ard, mu, s, w, z, y, part, psi2, p1y, T, N, M, Q,
+                      D, RS, rows_per_chunk, chunks, stream);
+}
+
+// K4 and K5 in the tiled form. part: chunks x T x S(S+1)/2 x TP^2 floats
+extern "C" int psi2_batched_tiled_f32(const float* var, const float* ard,
+                                      const float* mu, const float* s,
+                                      const float* w, const float* z,
+                                      float* part, float* psi2, int T, int N,
+                                      int M, int Q, int RS,
+                                      int rows_per_chunk, int chunks,
+                                      cudaStream_t stream) {
+  return launch_tiled(var, ard, mu, s, w, z, nullptr, part, psi2, nullptr, T,
+                      N, M, Q, 0, RS, rows_per_chunk, chunks, stream);
 }

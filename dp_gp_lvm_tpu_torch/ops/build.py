@@ -29,9 +29,14 @@ I = ctypes.c_int
 SIGNATURES = {
     "psi_suffstats": {"psi_suffstats_f32": [P] * 10 + [I] * 9 + [P],
                       "psi2_batched_f32": [P] * 8 + [I] * 8 + [P],
-                      "psi_suffstats_blocks_per_sm": [I] * 5},
+                      "psi_suffstats_blocks_per_sm": [I] * 5,
+                      "psi_suffstats_tiled_f32": [P] * 10 + [I] * 8 + [P],
+                      "psi2_batched_tiled_f32": [P] * 8 + [I] * 7 + [P],
+                      "psi_suffstats_tiled_blocks_per_sm": [I] * 3},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
-                 "psi2_bwd_blocks_per_sm": [I] * 3},
+                 "psi2_bwd_blocks_per_sm": [I] * 3,
+                 "psi2_bwd_tiled_f32": [P] * 16 + [I] * 7 + [P],
+                 "psi2_bwd_tiled_blocks_per_sm": [I] * 3},
     "psi1": {"psi1_f32": [P] * 7 + [I] * 5 + [P],
              "psi1_blocks_per_sm": [I] * 2},
 }

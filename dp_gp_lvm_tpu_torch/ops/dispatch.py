@@ -5,7 +5,8 @@ Two kernels: "ard_rbf" and "linear". `use_fused` (True | False |
 "auto") takes the meaning of the reference's `use_pallas`: "auto" takes
 the fused CUDA kernels (`ops/psi.py`) where every input is a float32
 tensor on the card and every kernel of the path takes the shape
-(`psi.fused_fits`: M <= 128, blocks that fit an SM), and the non-fused
+(`psi.fused_fits`: a block of one of each kernel's forms fits an SM; past
+M = 128 K1's body and K2 run their tiled forms), and the non-fused
 plain path otherwise (float64 inputs included: the kernels take float32
 only). An explicit True launches the kernels whatever the inputs, and
 their wrappers refuse what they do not take. The reference's

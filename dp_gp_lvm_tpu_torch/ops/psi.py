@@ -17,12 +17,21 @@ r"""Fused psi-statistics kernels (counterpart of
   that any M runs; its launch geometry is `k6_geometry`. Replaces
   `_psi1_kernel`.
 
+K1's body and K2 each have two forms. The single-tile form holds an M x M
+tile in one block (M <= MAX_M) and runs wherever its block fits an SM.
+Elsewhere (M > MAX_M, or a Q too wide for that block) the tiled form puts
+tiles of M on the grid, up to M = MAX_M_TILED: `k1_tiled_geometry`
+(super-tiles of K1_TILE x K1_TILE of Psi2's upper triangle, entries
+`*_tiled_f32`) and `k2_tiled_geometry` (ranges of rows of the tile).
+`_k1_form` and `_k2_form` choose the form, `k1_plan` and `k2_plan` the
+geometry.
+
 Beside each is its plain PyTorch version (`*_reference`), blocked over N.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel (float32 only; M <= 128 for K1's body and
-K2) or raises. Each launch adds one to `LAUNCHES[<name>]`. `fused_fits`
-says, before any launch, whether every kernel of a fused path takes a
-shape.
+tensor it launches the kernel (float32 only; a shape one of its forms
+takes, see `fused_fits`) or raises. Each launch adds one to
+`LAUNCHES[<name>]`. `fused_fits` says, before any launch, whether every
+kernel of a fused path takes a shape.
 
 The differentiable ops pair them as in the reference:
 `SuffstatsBatchedFused` (K1, K2 + plain Psi1 pullback),
@@ -46,7 +55,13 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import (
 
 LAUNCHES = {"suffstats_batched": 0, "psi2_bwd_batched": 0,
             "psi2_batched": 0, "psi2_single": 0, "psi1": 0}
-MAX_M = 128          # K1's body and K2 hold an M x M tile in shared memory
+MAX_M = 128          # the single-tile forms of K1's body and K2 (M x M tile)
+MAX_M_TILED = 512    # the tiled forms: as far as the card has held them
+K1_TILE = 64         # super-tile width of K1's tiled body (TP in its source)
+K1_TILED_THREADS = 256   # threads of a tiled K1 block: (K1_TILE / 4)^2
+K2_TILE_COLS = 32        # columns of a tiled K2 thread's slice (TLC)
+K2_TILED_MAX_THREADS = 512
+K2_TILE_ROWS = (64, 32, 16, 8)   # rows of a tiled K2 range, largest first
 K2_MIN_ROWS = 4      # fewest rows a K2 block walks
 _K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
 K1_MAX_THREADS = 576  # K1's launch bounds (MAX_THREADS in its source)
@@ -335,15 +350,124 @@ def _device_index(device):
     return torch.cuda.current_device() if index is None else index
 
 
-def k1_launch_geometry(device, T, N, M, Q, D) -> K1Geometry:
+class K1TiledGeometry(NamedTuple):
+    """How `suffstats_batched` (at D = 0 `psi2_batched`, `psi2_single`)
+    launches the tiled form of csrc/psi_suffstats.cu: Psi2's upper
+    triangle in `super_tiles` = S (S + 1) / 2 super-tiles of K1_TILE x
+    K1_TILE (S = `ranges` = ceil(M / K1_TILE) a side), one block of
+    `threads` per (chunk, atom, super-tile), a thread per 4x4 tile (the
+    upper triangle's on the diagonal); `stage_rows` rows staged at once,
+    `blocks_per_sm` resident; `chunks` chunks of `rows` rows filling
+    `slot_fill` of their waves' slots; `p1y_passes` walks of the rows for
+    the diagonal super-tiles' Psi1^T Y; the floats of the partials (a
+    K1_TILE^2 block per (chunk, atom, super-tile), K1_TILE x D of Psi1^T Y
+    per (chunk, atom, range))."""
+    ranges: int
+    super_tiles: int
+    threads: int
+    stage_rows: int
+    blocks_per_sm: int
+    rows: int
+    chunks: int
+    slot_fill: float
+    p1y_passes: int
+    part_floats: int
+
+    @property
+    def lane_use(self) -> float:
+        """Share of the blocks' threads that own a Psi2 tile."""
+        t4 = K1_TILE // 4
+        owners = (self.ranges * t4 * (t4 + 1) // 2
+                  + (self.super_tiles - self.ranges) * t4 * t4)
+        return owners / (self.super_tiles * self.threads)
+
+
+def _k1_tiled_block(M, occupancy):
+    """(stage rows, blocks per SM) of the tiled K1 block, None where none
+    fits an SM. `occupancy(stage_rows)` is how many blocks fit on an SM; it
+    stages the most rows (of 16, 8, 4, 2, 1) that keep as many blocks on
+    an SM as one row does."""
+    per_sm = occupancy(1)
+    if per_sm < 1:
+        return None
+    return next(k for k in _K1_GROUP_ROWS if occupancy(k) == per_sm), per_sm
+
+
+def k1_tiled_geometry(T, N, M, Q, D, sms, occupancy):
+    """The tiled form's launch geometry on `sms` SMs (`_k1_tiled_block`,
+    then `_chunking` over T x super-tiles blocks a chunk), None where its
+    block fits no SM."""
+    block = _k1_tiled_block(M, occupancy)
+    if block is None:
+        return None
+    stage_rows, per_sm = block
+    ranges = math.ceil(M / K1_TILE)
+    tiles = ranges * (ranges + 1) // 2
+    rows, chunks, fill = _chunking(T * tiles, N, stage_rows, sms * per_sm,
+                                   0.9)
+    passes = math.ceil(K1_TILE // 4 * math.ceil(D / 4) / K1_TILED_THREADS)
+    part = chunks * T * (tiles * K1_TILE * K1_TILE + ranges * K1_TILE * D)
+    return K1TiledGeometry(ranges, tiles, K1_TILED_THREADS, stage_rows,
+                           per_sm, rows, chunks, fill, passes, part)
+
+
+def _refuse(name, M, Q, rest=""):
+    why = (f"past the tiled form's M <= {MAX_M_TILED}" if M > MAX_M_TILED
+           else "no block fits an SM")
+    raise RuntimeError(f"{name}: {why} at M={M}, Q={Q}{rest}")
+
+
+def _k1_form(M, Q, D, occupancy, tiled_occupancy):
+    """The form K1's body takes (M, Q, D) in: "single" where M <= MAX_M
+    and `_k1_block` fits an SM (`occupancy(groups, stage_rows)`), else
+    "tiled" where M <= MAX_M_TILED and `_k1_tiled_block` does
+    (`tiled_occupancy(stage_rows)`); None where neither. The queries run
+    only as far as the answer needs them."""
+    if M <= MAX_M and _k1_block(M, Q, D, occupancy) is not None:
+        return "single"
+    if M <= MAX_M_TILED and _k1_tiled_block(M, tiled_occupancy) is not None:
+        return "tiled"
+    return None
+
+
+def k1_plan(T, N, M, Q, D, sms, occupancy, tiled_occupancy):
+    """The geometry K1's body launches with in its form (`_k1_form`):
+    `k1_geometry` or `k1_tiled_geometry`; raises where it has none."""
+    form = _k1_form(M, Q, D, occupancy, tiled_occupancy)
+    if form is None:
+        _refuse("psi_suffstats", M, Q, f", D={D}")
+    if form == "single":
+        return k1_geometry(T, N, M, Q, D, sms, occupancy)
+    return k1_tiled_geometry(T, N, M, Q, D, sms, tiled_occupancy)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_tiled_blocks_per_sm(device_index, Q, D, stage_rows):
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        blocks = build.function(
+            "psi_suffstats", "psi_suffstats_tiled_blocks_per_sm")(
+                Q, D, stage_rows)
+    if blocks < 0:
+        raise RuntimeError(f"psi_suffstats: tiled occupancy query failed at "
+                           f"Q={Q}, D={D} (CUDA error {-blocks})")
+    return blocks
+
+
+def _k1_occupancies(index, M, Q, D):
+    """(single-tile, tiled) occupancy queries of K1's body on the card."""
+    return (lambda g, rs: _k1_blocks_per_sm(index, M, Q, D, g, rs),
+            lambda rs: _k1_tiled_blocks_per_sm(index, Q, D, rs))
+
+
+def k1_launch_geometry(device, T, N, M, Q, D):
     """The geometry `suffstats_batched` (or at D = 0 `psi2_batched` and
-    `psi2_single`) launches with on CUDA `device`, from its SM count and
-    the kernel's occupancy there."""
+    `psi2_single`) launches with on CUDA `device` (`k1_plan`), from its SM
+    count and the kernel's occupancy there."""
     index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return k1_geometry(
-        T, N, M, Q, D, sms,
-        lambda g, rs: _k1_blocks_per_sm(index, M, Q, D, g, rs))
+    return k1_plan(T, N, M, Q, D, sms, *_k1_occupancies(index, M, Q, D))
 
 
 def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
@@ -357,8 +481,6 @@ def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
 
     T, M, Q = Zs.shape
     N, D = Y.shape
-    if M > MAX_M:
-        raise ValueError(f"suffstats_batched: M={M} > {MAX_M} not supported")
     tensors = dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs, Y=Y)
     shapes = dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q),
                   Zs=(T, M, Q), Y=(N, D))
@@ -371,13 +493,16 @@ def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
     psi2 = torch.empty(T, M, M, **kw)
     p1y = torch.empty(T, M, D, **kw)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    err = build.function("psi_suffstats")(
-        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
-        None if weights is None else weights.data_ptr(), Zs.data_ptr(),
-        Y.data_ptr(), part.data_ptr(), psi2.data_ptr(), p1y.data_ptr(),
-        T, N, M, Q, D, geo.groups, geo.stage_rows, geo.rows, geo.chunks,
-        stream,
-    )
+    ptrs = (variances.data_ptr(), ards.data_ptr(), mu.data_ptr(),
+            s.data_ptr(), None if weights is None else weights.data_ptr(),
+            Zs.data_ptr(), Y.data_ptr(), part.data_ptr(), psi2.data_ptr(),
+            p1y.data_ptr(), T, N, M, Q, D)
+    if isinstance(geo, K1TiledGeometry):
+        err = build.function("psi_suffstats", "psi_suffstats_tiled_f32")(
+            *ptrs, geo.stage_rows, geo.rows, geo.chunks, stream)
+    else:
+        err = build.function("psi_suffstats")(
+            *ptrs, geo.groups, geo.stage_rows, geo.rows, geo.chunks, stream)
     _raise_on(err, "suffstats_batched")
     LAUNCHES["suffstats_batched"] += 1
     return psi2, p1y
@@ -437,42 +562,146 @@ def _k2_blocks_per_sm(device_index, M, Q, width):
     return blocks
 
 
-def k2_launch_geometry(device, T, N, M, Q) -> K2Geometry:
-    """The geometry `psi2_bwd_batched` launches with on CUDA `device`, from
-    its SM count and the kernel's occupancy there."""
+class K2TiledGeometry(NamedTuple):
+    """How `psi2_bwd_batched` launches the tiled form of csrc/psi2_bwd.cu:
+    the tile's rows in `ranges` ranges of `range_rows`, one block of
+    `threads` per (chunk, atom, range), a thread per (row, slice of
+    K2_TILE_COLS columns); `blocks_per_sm` resident; `chunks` chunks of
+    `rows` rows; the float counts of the per-chunk partials ([gvar_m |
+    gard per range | gz | S]) and the per-(range, atom, row) ones."""
+    range_rows: int
+    ranges: int
+    threads: int
+    blocks_per_sm: int
+    rows: int
+    chunks: int
+    part_floats: int
+    row_floats: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * (self.part_floats + self.row_floats)
+
+
+def k2_tiled_threads(M, R) -> int:
+    """Threads of a tiled K2 block of R rows: a thread per row and slice of
+    K2_TILE_COLS columns, in whole warps."""
+    return _round32(R * math.ceil(M / K2_TILE_COLS))
+
+
+def _k2_tiled_block(M, blocks_per_sm):
+    """(range rows, threads, blocks per SM) of the tiled K2 block: of the
+    K2_TILE_ROWS whose block fits K2_TILED_MAX_THREADS and an SM
+    (`blocks_per_sm(R)` >= 1), the one with the most threads resident per
+    SM, then the most rows (the fewest ranges, each of which stages every
+    row's c); None where none fits."""
+    best = None
+    for R in K2_TILE_ROWS:
+        threads = k2_tiled_threads(M, R)
+        if threads > K2_TILED_MAX_THREADS:
+            continue
+        per_sm = blocks_per_sm(R)
+        if per_sm >= 1 and (best is None or per_sm * threads > best[0]):
+            best = (per_sm * threads, R, threads, per_sm)
+    return None if best is None else best[1:]
+
+
+def k2_tiled_geometry(T, N, M, Q, sms, blocks_per_sm):
+    """The tiled form's launch geometry on `sms` SMs (`_k2_tiled_block`,
+    then `_chunking` over T x ranges blocks a chunk), None where no block
+    fits an SM."""
+    block = _k2_tiled_block(M, blocks_per_sm)
+    if block is None:
+        return None
+    R, threads, per_sm = block
+    ranges = math.ceil(M / R)
+    rows, chunks, _ = _chunking(T * ranges, N, K2_MIN_ROWS, sms * per_sm,
+                                0.95)
+    part = chunks * (T * M + ranges * T * Q + T * M * Q + T * M * M)
+    return K2TiledGeometry(R, ranges, threads, per_sm, rows, chunks, part,
+                           ranges * T * N * (2 * Q + 1))
+
+
+def _k2_form(M, blocks_per_sm, tiled_blocks_per_sm):
+    """The form K2 takes M (and the Q its queries ask about) in: "single"
+    where M <= MAX_M and its block fits an SM (`blocks_per_sm()` >= 1),
+    else "tiled" where M <= MAX_M_TILED and `_k2_tiled_block` finds a
+    block (`tiled_blocks_per_sm(R)`); None where neither."""
+    if M <= MAX_M and blocks_per_sm() >= 1:
+        return "single"
+    if (M <= MAX_M_TILED
+            and _k2_tiled_block(M, tiled_blocks_per_sm) is not None):
+        return "tiled"
+    return None
+
+
+def k2_plan(T, N, M, Q, sms, blocks_per_sm, tiled_blocks_per_sm):
+    """The geometry K2 launches with in its form (`_k2_form`):
+    `k2_geometry` or `k2_tiled_geometry`; raises where it has none."""
+    form = _k2_form(M, blocks_per_sm, tiled_blocks_per_sm)
+    if form is None:
+        _refuse("psi2_bwd_batched", M, Q)
+    if form == "single":
+        return k2_geometry(T, N, M, Q, sms, blocks_per_sm())
+    return k2_tiled_geometry(T, N, M, Q, sms, tiled_blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_tiled_blocks_per_sm(device_index, M, Q, R):
+    """The tiled K2's blocks per SM, 0 where its block's shared memory
+    exceeds the card's."""
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    with torch.cuda.device(device_index):
+        blocks = build.function("psi2_bwd", "psi2_bwd_tiled_blocks_per_sm")(
+            M, Q, R)
+    if blocks < 0:
+        raise RuntimeError(f"psi2_bwd_batched: tiled occupancy query failed "
+                           f"at M={M}, Q={Q}, R={R} (CUDA error {-blocks})")
+    return blocks
+
+
+def _k2_occupancies(index, M, Q):
+    """(single-tile, tiled) occupancy queries of K2 on the card."""
+    return (lambda: _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q)),
+            lambda R: _k2_tiled_blocks_per_sm(index, M, Q, R))
+
+
+def k2_launch_geometry(device, T, N, M, Q):
+    """The geometry `psi2_bwd_batched` launches with on CUDA `device`
+    (`k2_plan`), from its SM count and the kernel's occupancy there."""
     index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    per_sm = _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q))
-    if per_sm < 1:
-        raise RuntimeError(f"psi2_bwd_batched: no block fits an SM at "
-                           f"M={M}, Q={Q}")
-    return k2_geometry(T, N, M, Q, sms, per_sm)
+    return k2_plan(T, N, M, Q, sms, *_k2_occupancies(index, M, Q))
 
 
-def fused_fits(M, Q, D, k1_occupancy, k2_blocks_per_sm) -> bool:
+def fused_fits(M, Q, D, k1_occupancy, k1_tiled_occupancy, k2_blocks_per_sm,
+               k2_tiled_blocks_per_sm) -> bool:
     """Whether every kernel of a fused path takes (M, Q, D), by the limits
     its wrappers enforce: D > 0 is K1 with K2 as its backward, D = 0 is K4
-    or K5 (K1's body without Psi1^T Y) and K6, with K2. K1's body and K2
-    hold an M x M tile (MAX_M; K6 takes any M); K2's block must fit an SM
-    (`k2_blocks_per_sm()` >= 1); K1's body must find a block that fits
-    (`k1_geometry`, with `k1_occupancy(groups, stage_rows)`). The queries
-    run only as far as the answer needs them."""
-    return (M <= MAX_M and k2_blocks_per_sm() >= 1
-            and _k1_block(M, Q, D, k1_occupancy) is not None)
+    or K5 (K1's body without Psi1^T Y) and K6, with K2. K6 takes any M.
+    K1's body and K2 each take a shape one of their forms takes
+    (`_k1_form` with `k1_occupancy`, `k1_tiled_occupancy`; `_k2_form`
+    with `k2_blocks_per_sm`, `k2_tiled_blocks_per_sm`), the tiled forms up
+    to M = MAX_M_TILED. On an H100 the card has run K1's body at M = 512,
+    Q = 128, D = 120, and K2 at M = 512, Q = 16, at M = 384, Q = 32 and at
+    M = 256, Q = 64; K2 refuses M = 512 at Q = 64 (shared memory). Past
+    those a wrapper raises for a CUDA tensor."""
+    return (_k2_form(M, k2_blocks_per_sm, k2_tiled_blocks_per_sm) is not None
+            and _k1_form(M, Q, D, k1_occupancy,
+                         k1_tiled_occupancy) is not None)
 
 
 def fused_fits_on(device, M, Q, D) -> bool:
     """`fused_fits` on CUDA `device`, from the kernels' occupancy there
-    (building them at first use); decided once per device and shape, and
-    past MAX_M without asking the card."""
-    return M <= MAX_M and _fused_fits_at(_device_index(device), M, Q, D)
+    (building them at first use); decided once per device and shape."""
+    return _fused_fits_at(_device_index(device), M, Q, D)
 
 
 @functools.lru_cache(maxsize=None)
 def _fused_fits_at(index, M, Q, D) -> bool:
-    return fused_fits(
-        M, Q, D, lambda g, rs: _k1_blocks_per_sm(index, M, Q, D, g, rs),
-        lambda: _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q)))
+    return fused_fits(M, Q, D, *_k1_occupancies(index, M, Q, D),
+                      *_k2_occupancies(index, M, Q))
 
 
 def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
@@ -486,8 +715,6 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
 
     T, M, Q = Zs.shape
     N = mu.shape[0]
-    if M > MAX_M:
-        raise ValueError(f"psi2_bwd_batched: M={M} > {MAX_M} not supported")
     w = _ones_weights(mu, weights)
     _check_cuda(
         "psi2_bwd_batched",
@@ -507,13 +734,18 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
     gs = torch.empty(N, Q, **kw)
     gw = torch.empty(N, **kw)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    err = build.function("psi2_bwd")(
+    if isinstance(geo, K2TiledGeometry):
+        fn = build.function("psi2_bwd", "psi2_bwd_tiled_f32")
+        width = geo.range_rows
+    else:
+        fn = build.function("psi2_bwd")
+        width = geo.slice_width
+    err = fn(
         variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
         w.data_ptr(), Zs.data_ptr(), G.data_ptr(), part.data_ptr(),
         rowpart.data_ptr(), gvar_m.data_ptr(), gard.data_ptr(),
         gz.data_ptr(), V.data_ptr(), gmu.data_ptr(), gs.data_ptr(),
-        gw.data_ptr(), T, N, M, Q, geo.slice_width, geo.rows, geo.chunks,
-        stream,
+        gw.data_ptr(), T, N, M, Q, width, geo.rows, geo.chunks, stream,
     )
     _raise_on(err, "psi2_bwd_batched")
     LAUNCHES["psi2_bwd_batched"] += 1
@@ -522,13 +754,11 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
 
 def _psi2_forward(name, variances, ards, mu, s, Zs, weights):
     """Launch K1's body without Psi1^T Y (csrc/psi_suffstats.cu) at K1's
-    geometry for D = 0; inputs carry the atom dim."""
+    geometry for D = 0, in either form; inputs carry the atom dim."""
     from dp_gp_lvm_tpu_torch.ops import build
 
     T, M, Q = Zs.shape
     N = mu.shape[0]
-    if M > MAX_M:
-        raise ValueError(f"{name}: M={M} > {MAX_M} not supported")
     tensors = dict(variances=variances, ards=ards, mu=mu, s=s, Zs=Zs)
     shapes = dict(variances=(T,), ards=(T, Q), mu=(N, Q), s=(N, Q),
                   Zs=(T, M, Q))
@@ -539,12 +769,15 @@ def _psi2_forward(name, variances, ards, mu, s, Zs, weights):
     part = torch.empty(geo.part_floats, dtype=mu.dtype, device=mu.device)
     out = torch.empty(T, M, M, dtype=mu.dtype, device=mu.device)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    err = build.function("psi_suffstats", "psi2_batched_f32")(
-        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
-        None if weights is None else weights.data_ptr(), Zs.data_ptr(),
-        part.data_ptr(), out.data_ptr(), T, N, M, Q, geo.groups,
-        geo.stage_rows, geo.rows, geo.chunks, stream,
-    )
+    ptrs = (variances.data_ptr(), ards.data_ptr(), mu.data_ptr(),
+            s.data_ptr(), None if weights is None else weights.data_ptr(),
+            Zs.data_ptr(), part.data_ptr(), out.data_ptr(), T, N, M, Q)
+    if isinstance(geo, K1TiledGeometry):
+        err = build.function("psi_suffstats", "psi2_batched_tiled_f32")(
+            *ptrs, geo.stage_rows, geo.rows, geo.chunks, stream)
+    else:
+        err = build.function("psi_suffstats", "psi2_batched_f32")(
+            *ptrs, geo.groups, geo.stage_rows, geo.rows, geo.chunks, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out

@@ -248,12 +248,15 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(card):
     k2[5] = f["G"][:, :-1].contiguous()
     with pytest.raises(ValueError, match="shape"):
         psi.psi2_bwd_batched(*k2)
-    _, big = _inputs(card, False, T=1, N=4, M=129, Q=2)
-    with pytest.raises(ValueError, match="M=129"):
+    # past both forms: M = 513 is past the tiled form's MAX_M_TILED, and
+    # at Q = 256 no block fits an SM at M = 128
+    _, big = _inputs(card, False, T=1, N=4, M=513, Q=2)
+    with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
+                                           "at M=513, Q=2"):
         psi.psi2_bwd_batched(*_k2(big))
-    _, wide = _inputs(card, False, T=1, N=4, M=128, Q=48)
+    _, wide = _inputs(card, False, T=1, N=4, M=128, Q=256)
     with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
-                                           "Q=48"):
+                                           "Q=256"):
         psi.psi2_bwd_batched(*_k2(wide))
 
 
@@ -319,8 +322,11 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(card):
     k1[5] = f["Y"][:-1].contiguous()
     with pytest.raises(ValueError, match="shape"):
         psi.suffstats_batched(*k1)
-    _, big = _inputs(card, False, T=1, N=4, M=129, Q=2)
-    with pytest.raises(ValueError, match="M=129"):
+    # past both forms: Q = 256 fits neither block, at M = 129 (the tiled
+    # form's) or M = 128
+    _, big = _inputs(card, False, T=1, N=4, M=129, Q=256)
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=129, "
+                                           "Q=256"):
         psi.suffstats_batched(*_k1(big))
     _, wide = _inputs(card, False, T=1, N=4, M=128, Q=256)
     with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
@@ -435,32 +441,39 @@ def test_k1_bits_unchanged_by_the_shared_body(card, shape, geometry, digest):
     assert k1_fixed_digest(shape, geometry) == digest
 
 
-def _m129_data(card, dtype):
+def _m129_data(card, dtype, n=300):
     r = np.random.default_rng(5)
-    return torch.as_tensor(r.normal(size=(300, 12)), dtype=dtype,
+    return torch.as_tensor(r.normal(size=(n, 12)), dtype=dtype,
                            device=card)
 
 
-def _model(family, use_fused):
-    """A model at M = 129 and the c2 latent width, so that K_uu is well
-    conditioned in f32."""
+def _model(family, use_fused, m=129):
+    """A model at M inducing points (past the single-tile forms) and the c2
+    latent width, so that K_uu is well conditioned in f32."""
     from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
 
     if family == "dp":
         return dp_gp_lvm, dp_gp_lvm.Config(
-            num_latent=10, num_inducing=129, truncation=2,
+            num_latent=10, num_inducing=m, truncation=2,
             use_fused=use_fused)
-    return bgplvm, bgplvm.Config(num_latent=10, num_inducing=129,
+    return bgplvm, bgplvm.Config(num_latent=10, num_inducing=m,
                                  use_fused=use_fused)
+
+
+# a step's launches on each family's fused path: K1 forward and K2
+# backward (DP-GP-LVM), K6 and K5 forward and K2 backward (Bayesian GP-LVM)
+STEP_LAUNCHES = dict(dp=dict(suffstats_batched=1, psi2_bwd_batched=1),
+                     bgplvm=dict(psi1=1, psi2_single=1, psi2_bwd_batched=1))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["dp", "bgplvm"])
-def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
-    """At M = 129 no kernel takes the shape: "auto" runs the non-fused path
-    on the card, launches no kernel, and equals the plain path on the CPU
-    (f64 to rounding; f32 within chip_smoke.py's 1e-4 of f64 at the same
-    jitter)."""
+def test_auto_takes_the_tiled_kernels_past_m128(card, family):
+    """At M = 129 K1's body and K2 run their tiled forms: "auto" launches
+    the kernels of the family's step once each in f32 (the loss within
+    chip_smoke.py's 1e-4 of the plain f64 path at the same jitter, every
+    gradient finite), and takes the plain path in f64 (no launch; equal
+    to the CPU's plain path to rounding)."""
     from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
 
     model, cfg = _model(family, "auto")
@@ -472,7 +485,8 @@ def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
         loss = model.loss(params, Y, cfg) if dtype == torch.float32 else (
             -model.elbo(params, Y, cfg, policy))
         grads = torch.autograd.grad(loss, list(params.values()))
-        assert psi.LAUNCHES == _launched()
+        assert psi.LAUNCHES == (_launched(**STEP_LAUNCHES[family])
+                                if dtype == torch.float32 else _launched())
         assert all(bool(torch.isfinite(g).all()) for g in grads)
         p64 = {k: v.detach().cpu().double() for k, v in params.items()}
         want = -model.elbo(p64, Y.cpu().double(),
@@ -483,25 +497,195 @@ def test_auto_takes_the_plain_path_past_the_kernels_m(card, family):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["dp", "bgplvm"])
-def test_use_fused_true_raises_past_the_kernels_m(card, family):
-    model, cfg = _model(family, True)
-    Y = _m129_data(card, torch.float32)
+def test_use_fused_true_raises_past_the_tiled_forms(card, family):
+    """At M = 513 (Q = 10), past MAX_M_TILED, K1's body raises in the
+    forward; "auto" takes the plain path there instead."""
+    model, cfg = _model(family, True, m=513)
+    Y = _m129_data(card, torch.float32, n=600)
     params = model.init_params(prng.PRNGKey(0), Y, cfg)
-    with pytest.raises(ValueError, match="M=129"):
+    with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
+                                           "at M=513, Q=10"):
         model.loss(params, Y, cfg)
+    assert not psi.fused_fits_on(card, 513, 10, 12 if family == "dp" else 0)
 
 
 @pytest.mark.cuda
-def test_auto_asks_the_kernels_occupancy_queries(card):
+def test_auto_asks_both_forms_occupancy_queries(card):
     """The queries tell a block that does not fit (0 blocks per SM) from a
-    CUDA error (which raises); "auto" takes the kernels where both fit."""
+    CUDA error (which raises); "auto" takes the kernels where a form of
+    each fits: K2's single-tile block refuses Q = 48 at M = 128 and its
+    tiled form takes it; neither of K1's takes Q = 256; at M = 256 both
+    run tiled; at M = 1024 K2's tiled block fits no SM (and M is past
+    MAX_M_TILED)."""
     index = torch.cuda.current_device()
     assert psi._k2_blocks_per_sm(index, 128, 48, 32) == 0
+    assert psi._k2_tiled_blocks_per_sm(index, 128, 48, 32) >= 1
     assert psi._k1_blocks_per_sm(index, 128, 256, 5, 1, 1) == 0
-    assert not psi.fused_fits_on(card, 128, 48, 0)
+    assert psi._k1_tiled_blocks_per_sm(index, 256, 5, 1) == 0
+    assert all(psi._k2_tiled_blocks_per_sm(index, 1024, 10, r) == 0
+               for r in psi.K2_TILE_ROWS
+               if psi.k2_tiled_threads(1024, r) <= psi.K2_TILED_MAX_THREADS)
+    assert psi.fused_fits_on(card, 128, 48, 0)
     assert not psi.fused_fits_on(card, 128, 256, 5)
+    assert psi.fused_fits_on(card, 256, 10, 60)
+    assert psi.fused_fits_on(card, 256, 10, 0)
+    assert not psi.fused_fits_on(card, 1024, 10, 0)
     assert psi.fused_fits_on(card, 50, 10, 0)
     assert psi.fused_fits_on(card, 64, 10, 59)
+
+
+# the tiled forms' widths: M past one tile (129: one row of the last
+# super-tile and range; 192, 256: whole ones) at the Q of the reference's
+# scaling rows and of every configuration
+TILED_M = [129, 192, 256]
+TILED_Q = [4, 10, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("Q_", TILED_Q)
+@pytest.mark.parametrize("M_", TILED_M)
+def test_tiled_k1_k4_k5_match_plain(card, M_, Q_, weighted):
+    """K1 (D = 60), K4 and K5 in the tiled form against their plain
+    versions in f64, zero weights included; each call launches once."""
+    a, f = _inputs(card, weighted, T=3, N=200, M=M_, Q=Q_, D=60)
+    assert isinstance(psi.k1_launch_geometry(card, 3, 200, M_, Q_, 60),
+                      psi.K1TiledGeometry)
+    psi.reset_launch_counts()
+    got = psi.suffstats_batched(*_k1(f))
+    want = psi.suffstats_batched_reference(*_k1(a))
+    assert max(_k2_errors(got, want)) <= TOL_K1
+    got = psi.psi2_batched(*_k45(f))
+    want = psi.psi2_batched_reference(*_k45(a))
+    assert max(_k2_errors([got], [want])) <= TOL_K1
+    got = psi.psi2_single(*_one(f))
+    want = psi.psi2_single_reference(*_one(a))
+    assert got.shape == want.shape
+    assert max(_k2_errors([got], [want])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_batched=1,
+                                     psi2_single=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("M_,Q_", [(m, q) for m in TILED_M for q in TILED_Q]
+                         + [(128, 48), (256, 48)])
+def test_tiled_k2_matches_plain(card, M_, Q_, weighted):
+    """K2 in the tiled form against its plain version in f64, zero weights
+    included: past M = 128, and at Q = 48, which the single-tile block
+    refuses at M = 128 (passes of 8 gradient columns)."""
+    a, f = _inputs(card, weighted, T=3, N=150, M=M_, Q=Q_)
+    assert isinstance(psi.k2_launch_geometry(card, 3, 150, M_, Q_),
+                      psi.K2TiledGeometry)
+    psi.reset_launch_counts()
+    got = psi.psi2_bwd_batched(*_k2(f))
+    want = psi.psi2_bwd_batched_reference(*_k2(a))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+    assert max(_k2_errors(got, want)) <= TOL_K2
+    assert psi.LAUNCHES == _launched(psi2_bwd_batched=1)
+
+
+# the corners of what README.md says the tiled forms take; the ARD weights
+# are scaled by 10 / Q there, so that Psi2 stays far from f32's underflow
+TILED_EDGES = [("k1", 512, 128), ("k2", 512, 16), ("k2", 384, 32),
+               ("k2", 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,M_,Q_", TILED_EDGES)
+def test_tiled_forms_take_their_stated_edges(card, kernel, M_, Q_):
+    """K1 (D = 120), K4 and K5, or K2, at a corner of the stated limits
+    against their plain versions in f64, zero weights included."""
+    a, f = _inputs(card, True, T=2, N=96, M=M_, Q=Q_, D=120)
+    for t in (a, f):
+        t["ards"] = t["ards"] * min(1.0, 10.0 / Q_)
+    psi.reset_launch_counts()
+    if kernel == "k2":
+        got = psi.psi2_bwd_batched(*_k2(f))
+        assert max(_k2_errors(got, psi.psi2_bwd_batched_reference(
+            *_k2(a)))) <= TOL_K2
+        assert psi.LAUNCHES == _launched(psi2_bwd_batched=1)
+        return
+    got = psi.suffstats_batched(*_k1(f))
+    assert max(_k2_errors(got, psi.suffstats_batched_reference(
+        *_k1(a)))) <= TOL_K1
+    got = psi.psi2_batched(*_k45(f))
+    assert max(_k2_errors([got], [psi.psi2_batched_reference(
+        *_k45(a))])) <= TOL_K1
+    got = psi.psi2_single(*_one(f))
+    assert max(_k2_errors([got], [psi.psi2_single_reference(
+        *_one(a))])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_batched=1,
+                                     psi2_single=1)
+
+
+@pytest.mark.cuda
+def test_tiled_forms_refuse_past_their_edges(card):
+    """K2 refuses M = 512 at Q = 64 (shared memory); both refuse M = 513
+    (MAX_M_TILED); "auto" agrees."""
+    _, f = _inputs(card, False, T=1, N=8, M=512, Q=64)
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=512, "
+                                           "Q=64"):
+        psi.psi2_bwd_batched(*_k2(f))
+    _, f = _inputs(card, False, T=1, N=8, M=513, Q=10, D=4)
+    with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
+                                           "at M=513, Q=10, D=4"):
+        psi.suffstats_batched(*_k1(f))
+    assert psi.fused_fits_on(card, 512, 16, 60)
+    assert not psi.fused_fits_on(card, 512, 64, 0)
+    assert not psi.fused_fits_on(card, 513, 10, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(T=4, N=300, M=256, Q=10, D=60),
+                                   dict(T=2, N=90, M=129, Q=16, D=120)],
+                         ids=["m256", "m129_d120"])
+def test_tiled_launches_repeat_bit_for_bit(card, shape):
+    """Two launches of each tiled form on the same inputs give the same
+    bits (no atomics): K1 (D = 120 walks the rows twice for Psi1^T Y), K4,
+    K5 and K2."""
+    _, f = _inputs(card, True, **shape)
+    assert all(torch.equal(x, y) for x, y in zip(
+        psi.suffstats_batched(*_k1(f)), psi.suffstats_batched(*_k1(f))))
+    assert torch.equal(psi.psi2_batched(*_k45(f)), psi.psi2_batched(*_k45(f)))
+    assert torch.equal(psi.psi2_single(*_one(f)), psi.psi2_single(*_one(f)))
+    assert all(torch.equal(x, y) for x, y in zip(
+        psi.psi2_bwd_batched(*_k2(f)), psi.psi2_bwd_batched(*_k2(f))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dp", "bgplvm"])
+def test_tiled_fused_gradients_at_m256(card, family):
+    """A step's value and gradient at M = 256 through the tiled kernels
+    ("auto") against the plain path on the CPU in f64, the fused ops'
+    test (sum Psi2^2 + sum sin(Psi1^T Y), or + sum sin(Psi2)) at T = 2."""
+    a, f = _inputs(card, True, T=2, N=300, M=256, Q=10, D=12)
+
+    def run(t):
+        if family == "dp":
+            leaves = [t[k] for k in ("vs", "ards", "mu", "s", "Zs", "Y", "w")]
+            leaves = [x.detach().clone().contiguous().requires_grad_()
+                      for x in leaves]
+            p2, p1y = psi.suffstats_batched_fused(*leaves[:6], leaves[6])
+            val = torch.sum(p2 ** 2) + torch.sum(torch.sin(p1y))
+        else:
+            leaves = [x.detach().clone().contiguous().requires_grad_()
+                      for x in _one(t)]
+            p2 = psi.psi2_fused(*leaves)
+            val = torch.sum(p2 ** 2) + torch.sum(torch.sin(p2))
+        return torch.autograd.grad(val, leaves)
+
+    psi.reset_launch_counts()
+    got = run(f)
+    assert psi.LAUNCHES == _launched(
+        **({"suffstats_batched": 1} if family == "dp"
+           else {"psi2_single": 1}), psi2_bwd_batched=1)
+    want = run({k: v.cpu() for k, v in a.items()})
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu().double() - w).abs().max()) <= TOL_K2 * float(
+            w.abs().max())
 
 
 @pytest.mark.cuda

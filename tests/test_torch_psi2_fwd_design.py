@@ -7,8 +7,8 @@ compiled out, at K1's launch geometry for D = 0: no walks of the rows for
 Psi1^T Y, partials of 16 floats per upper-triangle 4x4 tile per (chunk,
 atom), mirrored by the chunk reduction. `dispatch.resolve_fused` takes the
 kernels for "auto" only where every kernel of the path takes the shape
-(`psi.fused_fits`). No JAX here: the plain versions are the port's own
-oracle.
+(`psi.fused_fits`: a single-tile or a tiled form of each). No JAX here:
+the plain versions are the port's own oracle.
 """
 import math
 
@@ -140,29 +140,49 @@ def test_psi2_only_geometry_covers_every_row_once_with_whole_warps(name, T_):
     assert geo.part_floats == geo.chunks * T_ * 16 * geo.tiles
 
 
+def _never(*_):
+    raise AssertionError("queried a form that is not needed")
+
+
 def test_fused_fits_takes_the_wrappers_limits():
+    """The single-tile forms where M <= MAX_M and their blocks fit; else
+    the tiled forms' queries decide; past MAX_M the single-tile ones are
+    never asked."""
     occ = _h100_occupancy(128, 10)
-    assert psi.fused_fits(128, 10, 0, occ, lambda: 1)
-    assert psi.fused_fits(128, 10, 60, occ, lambda: 1)
-    # K2's block does not fit (its query gives 0 blocks per SM), or K1's
-    # body finds no block
-    assert not psi.fused_fits(128, 48, 0, occ, lambda: 0)
-    assert not psi.fused_fits(128, 256, 5, lambda g, rs: 0, lambda: 1)
+    assert psi.fused_fits(128, 10, 0, occ, _never, lambda: 1, _never)
+    assert psi.fused_fits(128, 10, 60, occ, _never, lambda: 1, _never)
+    # K2's single-tile block does not fit (its query gives 0 blocks per SM)
+    # and no tiled range does either, or neither K1 body finds a block
+    assert not psi.fused_fits(128, 48, 0, occ, _never, lambda: 0,
+                              lambda R: 0)
+    assert not psi.fused_fits(128, 256, 5, lambda g, rs: 0, lambda rs: 0,
+                              lambda: 1, _never)
+    assert psi.fused_fits(psi.MAX_M + 1, 10, 0, _never, lambda rs: 1,
+                          _never, lambda R: 1)
+    assert not psi.fused_fits(psi.MAX_M + 1, 10, 0, _never, lambda rs: 1,
+                              _never, lambda R: 0)
 
-    def never(*_):
-        raise AssertionError("queried the card past MAX_M")
 
-    assert not psi.fused_fits(psi.MAX_M + 1, 10, 0, never, never)
+def test_resolve_fused_auto_decides_by_device_and_shape(monkeypatch):
+    """"auto": never on the CPU; on the card what `psi.fused_fits_on`
+    answers, past MAX_M too (the tiled forms); True and False as given."""
+    asked = []
 
+    def fits(device, M, Q, D):
+        asked.append((M, Q, D))
+        return M <= 256
 
-def test_resolve_fused_auto_decides_by_device_and_shape():
+    monkeypatch.setattr(psi, "fused_fits_on", fits)
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for D in (0, 59):
         assert not dispatch.resolve_fused("auto", "ard_rbf", cpu, 64, 10, D)
-        # past MAX_M "auto" takes the plain path before any query
-        assert not dispatch.resolve_fused("auto", "ard_rbf", cuda,
-                                          psi.MAX_M + 1, 10, D)
+        assert dispatch.resolve_fused("auto", "ard_rbf", cuda,
+                                      psi.MAX_M + 1, 10, D)
+        assert not dispatch.resolve_fused("auto", "ard_rbf", cuda, 1024, 10,
+                                          D)
         assert dispatch.resolve_fused(True, "ard_rbf", cpu, 64, 10, D)
         assert dispatch.resolve_fused(True, "ard_rbf", cuda, 129, 10, D)
         assert not dispatch.resolve_fused(False, "ard_rbf", cuda, 64, 10, D)
         assert not dispatch.resolve_fused(True, "linear", cuda, 64, 10, D)
+    assert asked == [(129, 10, 0), (1024, 10, 0), (129, 10, 59),
+                     (1024, 10, 59)]

@@ -1,0 +1,386 @@
+"""What the tiled forms of K1's body and K2 (the M > 128 halves of
+`dp_gp_lvm_tpu_torch/csrc/psi_suffstats.cu` and `csrc/psi2_bwd.cu`) rest
+on, checked on the CPU in f64, and their launch geometry.
+
+The tiled K1 body cuts Psi2's upper triangle into super-tiles of K1_TILE x
+K1_TILE: block (chunk, atom, super-tile (a, b)) sums its rows' var^2 w_n
+E_n over rows of range a and columns of range b (the upper 4x4 tiles only
+on the diagonal), diagonal super-tiles also their range's rows of Psi1^T
+Y; the reduction sums the chunks in chunk order and reads (l, m) below the
+diagonal. The tiled K2 gives block (chunk, atom, range a) the rows m of
+range a against every column; every per-row scalar is linear in the sums
+over (m, l), so each range writes its share of gmu, gs, gw and gard, which
+the finish sums in range order. Each emulation walks the geometry the
+wrappers launch and is held to the plain version's outputs at 1e-12, with
+row weights that hold zeros. No JAX here: the plain versions are the
+port's own oracle.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+from dp_gp_lvm_tpu_torch.ops import psi
+
+T, N, Q, D = 2, 30, 3, 5
+TP = psi.K1_TILE
+TOL = 1e-12
+SMS = 132
+
+
+def _r4(x):
+    return 4 * math.ceil(x / 4)
+
+
+def _r32(x):
+    return 32 * math.ceil(x / 32)
+
+
+def k1_tiled_occupancy(Q_, D_, registers=128):
+    """Blocks per SM of an H100 (64 K registers, 2048 threads, 227 KB of
+    shared memory a block) for the tiled K1 block of K1_TILED_THREADS at
+    `registers` a thread (ptxas gave 107-128 for sm_90a) and its source's
+    shared-memory layout, by staged rows."""
+    def occupancy(stage_rows):
+        rs = stage_rows
+        floats = (Q_ * 2 * TP + _r4(Q_) + 3 * rs * _r4(6 * Q_ + 3)
+                  + 3 * rs * _r4(D_) + 2 * rs * Q_ * 2 * TP
+                  + (2 * rs * TP if D_ > 0 else 0))
+        if 4 * floats > 232448:
+            return 0
+        threads = psi.K1_TILED_THREADS
+        return min(2048 // threads, 65536 // (registers * threads),
+                   233472 // (4 * floats + 1024))
+    return occupancy
+
+
+def k2_tiled_occupancy(M_, Q_, registers=128):
+    """Blocks per SM of an H100 for the tiled K2 block of R rows at
+    `registers` a thread (ptxas gave 128 for sm_90a) and its source's
+    shared-memory layout: one pass of 10 gradient columns at Q <= 10 with
+    4 rows between barriers, passes of 8 with 2 beyond."""
+    def occupancy(R):
+        chunked = Q_ > 10
+        qt, b = (8, 2) if chunked else (10, 4)
+        qp = qt * math.ceil(Q_ / qt) if chunked else _r4(qt)
+        lanes = math.ceil(M_ / psi.K2_TILE_COLS)
+        threads = psi.k2_tiled_threads(M_, R)
+        tile = _r4(R * (M_ | 1))
+        total = (3 * tile + M_ * qp + qp + b * M_ * qp
+                 + 3 * b * _r4(5 * qp + 2) + b * (threads // 32)
+                 * _r32(3 * qt + 2) + _r4(b * qt))
+        comb = lanes * R * (qt + 1)
+        total = max(total, (total if chunked else 2 * tile) + comb)
+        if 4 * total > 232448 or threads > psi.K2_TILED_MAX_THREADS:
+            return 0
+        return min(2048 // threads, 65536 // (registers * threads),
+                   233472 // (4 * total + 1024))
+    return occupancy
+
+
+def _inputs(M_, seed=17):
+    r = np.random.default_rng(seed)
+    w = (r.uniform(size=N) > 0.3) * r.uniform(0.5, 1.5, N)
+    w[:2] = 0.0
+    arrs = dict(vs=r.uniform(0.5, 1.5, T), ards=r.uniform(0.3, 2.0, (T, Q)),
+                mu=r.normal(size=(N, Q)), s=r.uniform(0.05, 0.6, (N, Q)),
+                Zs=r.normal(size=(T, M_, Q)), Y=r.normal(size=(N, D)),
+                G=r.normal(size=(T, M_, M_)), w=w)
+    return {k: torch.as_tensor(v, dtype=torch.float64)
+            for k, v in arrs.items()}
+
+
+def _pairs(a):
+    """Per (atom, row, m, l) the kernels' E = exp(min(expo, 0)) with the
+    exponent in its c-sum form, and the exponent."""
+    al, Zs, mu, s = a["ards"], a["Zs"], a["mu"], a["s"]
+    u = 2.0 * al[:, None, :] * s + 1.0                     # (T, N, Q)
+    ln = -0.5 * torch.log(u).sum(-1)
+    c = (al[:, None, :] / u).sqrt()[:, :, None, :] * (mu[None, :, None, :]
+                                                      - Zs[:, None])
+    quad = torch.zeros(c.shape[:3] + (c.shape[2],), dtype=c.dtype)
+    for q in range(c.shape[-1]):                     # in q order, as staged
+        quad += (c[..., :, None, q] + c[..., None, :, q]) ** 2
+    df = Zs[:, :, None, :] - Zs[:, None, :, :]
+    le = (al[:, None, None, :] * df * df).sum(-1)
+    expo = ln[..., None, None] - 0.25 * (le[:, None] + quad)
+    return torch.exp(torch.clamp(expo, max=0.0)), expo, u
+
+
+def _close(got, want):
+    return float((got - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+def _upper(s):
+    """(a, b) of each upper-triangle tile of an s x s grid, in the
+    kernels' order (`upper_tile`)."""
+    return [(i, j) for i in range(s) for j in range(i, s)]
+
+
+def _chunks(rows, chunks, n):
+    return [slice(c * rows, min(n, (c + 1) * rows)) for c in range(chunks)]
+
+
+def _k1_emulated(a, geo, M_):
+    """The tiled K1 body's partials over `geo` and its reduction."""
+    E, _, _ = _pairs(a)
+    wE = (a["vs"] ** 2)[:, None, None, None] * a["w"][None, :, None,
+                                                        None] * E
+    psi1 = ard_rbf.psi1(a["vs"], a["ards"], a["mu"], a["s"], a["Zs"], a["w"])
+    S = geo.ranges
+    pad = S * TP
+    wE_p = torch.zeros(T, N, pad, pad, dtype=E.dtype)
+    wE_p[:, :, :M_, :M_] = wE
+    psi1_p = torch.zeros(T, N, pad, dtype=E.dtype)
+    psi1_p[:, :, :M_] = psi1
+    tiles = _upper(S)
+    part2 = torch.full((geo.chunks, T, len(tiles), TP, TP), float("nan"),
+                       dtype=E.dtype)
+    part1 = torch.full((geo.chunks, T, S, TP, D), float("nan"),
+                       dtype=E.dtype)
+    t4 = TP // 4
+    owned = torch.zeros(TP, TP, dtype=torch.bool)    # upper 4x4 tiles
+    for tm, tl in _upper(t4):
+        owned[4 * tm:4 * tm + 4, 4 * tl:4 * tl + 4] = True
+    for c, rows in enumerate(_chunks(geo.rows, geo.chunks, N)):
+        for k, (ra, rb) in enumerate(tiles):
+            block = wE_p[:, rows, ra * TP:(ra + 1) * TP,
+                         rb * TP:(rb + 1) * TP].sum(1)
+            if ra == rb:
+                block = torch.where(owned, block, float("nan"))
+                part1[c, :, ra] = (psi1_p[:, rows, ra * TP:(ra + 1) * TP]
+                                   .mT @ a["Y"][rows])
+            part2[c, :, k] = block
+    psi2 = torch.empty(T, M_, M_, dtype=E.dtype)
+    index = {ab: k for k, ab in enumerate(tiles)}
+    for m in range(M_):
+        for l in range(M_):
+            lo, hi = min(m, l), max(m, l)
+            acc = part2[0, :, index[lo // TP, hi // TP], lo % TP, hi % TP]
+            for c in range(1, geo.chunks):
+                acc = acc + part2[c, :, index[lo // TP, hi // TP], lo % TP,
+                                  hi % TP]
+            psi2[:, m, l] = acc
+    p1y = part1[0]
+    for c in range(1, geo.chunks):
+        p1y = p1y + part1[c]
+    return psi2, p1y.reshape(T, S * TP, D)[:, :M_]
+
+
+@pytest.mark.parametrize("M_", [129, 256])
+def test_tiled_k1_partials_reduce_to_psi2_and_psi1ty(M_):
+    a = _inputs(M_)
+    geo = psi.k1_tiled_geometry(T, N, M_, Q, D, SMS, k1_tiled_occupancy(Q, D))
+    assert geo.chunks > 1                     # the chunk sum is walked
+    psi2, p1y = _k1_emulated(a, geo, M_)
+    assert not torch.isnan(psi2).any()        # every output read a partial
+    want = psi.suffstats_batched_reference(a["vs"], a["ards"], a["mu"],
+                                           a["s"], a["Zs"], a["Y"], a["w"])
+    assert _close(psi2, want[0]) and _close(p1y, want[1])
+    assert torch.equal(psi2, psi2.mT)         # mirrored, the same bits
+
+
+def _k2_emulated(a, geo, M_):
+    """The tiled K2's per-range partials over `geo` and its finish."""
+    E, expo, u = _pairs(a)
+    em = E * (expo < 0.0).to(E.dtype)
+    b = a["ards"][:, None, :] / u                        # (T, N, Q)
+    v2 = (a["vs"] ** 2)[:, None]
+    Zs, mu, s, G, w = a["Zs"], a["mu"], a["s"], a["G"], a["w"]
+    R, A = geo.range_rows, geo.ranges
+    gvar = torch.zeros(geo.chunks, T, M_, dtype=E.dtype)
+    gz = torch.zeros(geo.chunks, T, M_, Q, dtype=E.dtype)
+    Sp = torch.zeros(geo.chunks, T, M_, M_, dtype=E.dtype)
+    gard = torch.zeros(geo.chunks, A, T, Q, dtype=E.dtype)
+    rowpart = torch.zeros(A, T, N, 2 * Q + 1, dtype=E.dtype)
+    for c, rows in enumerate(_chunks(geo.rows, geo.chunks, N)):
+        for ra in range(A):
+            ms = slice(ra * R, min(M_, (ra + 1) * R))
+            gsum = G[:, ms, :] + G[:, :, ms].mT                # (T, r, M)
+            f = v2 * w[None, rows]                             # (T, n)
+            WS = f[..., None, None] * em[:, rows, ms, :] * gsum[:, None]
+            rsum = WS.sum(-1)                                  # (T, n, r)
+            wsz = WS @ Zs[:, None]                             # (T, n, r, Q)
+            p = (E[:, rows, ms, :] * G[:, None, ms, :]).sum(-1)
+            zr = Zs[:, ms]                                     # (T, r, Q)
+            Asum = 0.5 * rsum.sum(-1)[..., None]
+            rz = rsum @ zr
+            rz2 = rsum @ (zr * zr)
+            U = 0.5 * (wsz * zr[:, None]).sum(2)
+            bn, mn, sn, un = b[:, rows], mu[rows], s[rows], u[:, rows]
+            gb = -mn * mn * Asum + mn * rz - 0.25 * rz2 - 0.5 * U
+            rowpart[ra, :, rows, :Q] = bn * (-2.0 * mn * Asum + rz)
+            rowpart[ra, :, rows, Q:2 * Q] = gb * (-2.0 * bn * bn) - Asum * bn
+            rowpart[ra, :, rows, 2 * Q] = v2 * p.sum(-1)
+            gard[c, ra] = (gb / (un * un) - Asum * sn / un).sum(1)
+            gvar[c, :, ms] = torch.einsum("n,tnr->tr", w[rows], p)
+            gz[c, :, ms] = torch.einsum(
+                "tnq,tnrq->trq", bn,
+                rsum[..., None] * (mn[None, :, None, :] - 0.5 * zr[:, None])
+                - 0.5 * wsz)
+            Sp[c, :, ms] = torch.einsum("tn,tnrl->trl", f,
+                                        em[:, rows, ms, :])
+
+    def in_order(parts):
+        acc = parts[0]
+        for x in parts[1:]:
+            acc = acc + x
+        return acc
+
+    rows_sum = in_order([rowpart[ra, t] for t in range(T)
+                         for ra in range(A)])
+    gard_sum = in_order([gard[c, ra] for c in range(geo.chunks)
+                         for ra in range(A)])
+    return (in_order(gvar), gard_sum, in_order(gz), G * in_order(Sp),
+            rows_sum[:, :Q], rows_sum[:, Q:2 * Q], rows_sum[:, 2 * Q])
+
+
+@pytest.mark.parametrize("M_", [129, 256])
+def test_tiled_k2_range_shares_sum_to_the_pullback(M_):
+    a = _inputs(M_, seed=18)
+    geo = psi.k2_tiled_geometry(T, N, M_, Q, SMS, k2_tiled_occupancy(M_, Q))
+    assert geo.chunks > 1 and geo.ranges > 1
+    got = _k2_emulated(a, geo, M_)
+    want = psi.psi2_bwd_batched_reference(a["vs"], a["ards"], a["mu"],
+                                          a["s"], a["Zs"], a["G"], a["w"])
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        assert _close(g, w_)
+
+
+GEOMETRY_M = [129, 192, 256, 512]
+
+
+def _covered_once(geo, n):
+    starts = range(0, geo.chunks * geo.rows, geo.rows)
+    covered = [r for c in starts for r in range(c, min(n, c + geo.rows))]
+    return covered == list(range(n)) and all(c < n for c in starts)
+
+
+@pytest.mark.parametrize("M_", GEOMETRY_M)
+def test_tiled_k1_geometry_writes_every_output_once(M_):
+    """Every (m, l) reads one super-tile entry some thread wrote, no two
+    threads write one entry, each Psi1^T Y entry of a range is one
+    thread's, and the chunks walk every row once; at the m256 phase's DP
+    shape (T = 20, N = 8192, D = 60)."""
+    geo = psi.k1_tiled_geometry(20, 8192, M_, 10, 60, SMS,
+                                k1_tiled_occupancy(10, 60))
+    S = math.ceil(M_ / TP)
+    t4 = TP // 4
+    assert (geo.ranges, geo.super_tiles) == (S, S * (S + 1) // 2)
+    assert geo.threads == psi.K1_TILED_THREADS == t4 * t4
+    assert _covered_once(geo, 8192) and geo.slot_fill >= 0.9
+    written = {}
+    for k, (ra, rb) in enumerate(_upper(S)):
+        owners = (_upper(t4) if ra == rb
+                  else [(i, j) for i in range(t4) for j in range(t4)])
+        assert len(owners) <= geo.threads
+        for tid, (tm, tl) in enumerate(owners):
+            for i in range(4):
+                for j in range(4):
+                    pos = (k, 4 * tm + i, 4 * tl + j)
+                    assert pos not in written
+                    written[pos] = tid
+    index = {ab: k for k, ab in enumerate(_upper(S))}
+    read = set()
+    for m in range(M_):
+        for l in range(m, M_):
+            pos = (index[m // TP, l // TP], m % TP, l % TP)
+            assert pos in written and pos not in read
+            read.add(pos)
+    dt4 = math.ceil(60 / 4)
+    cells = [(4 * (pt // dt4) + i, 4 * (pt % dt4) + j)
+             for pt in range(geo.p1y_passes * geo.threads)
+             if pt < t4 * dt4 for i in range(4) for j in range(4)]
+    assert sorted(cells) == [(m, d) for m in range(TP) for d in range(60)]
+    assert geo.part_floats == geo.chunks * 20 * (
+        geo.super_tiles * TP * TP + S * TP * 60)
+
+
+@pytest.mark.parametrize("M_", GEOMETRY_M)
+def test_tiled_k2_geometry_walks_every_pair_once(M_):
+    """Thread (row of the range, column slice) pairs cover the M x M tile
+    once over the ranges, within the block's threads, and the chunks walk
+    every row once; at the m256 phase's DP shape."""
+    geo = psi.k2_tiled_geometry(20, 8192, M_, 10, SMS,
+                                k2_tiled_occupancy(M_, 10))
+    R, A = geo.range_rows, geo.ranges
+    assert A == math.ceil(M_ / R) and geo.threads <= 512
+    assert geo.threads == _r32(R * math.ceil(M_ / psi.K2_TILE_COLS))
+    assert _covered_once(geo, 8192)
+    seen = np.zeros((M_, M_), dtype=int)
+    for ra in range(A):
+        mr = min(R, M_ - ra * R)
+        for tid in range(geo.threads):
+            if tid >= R * math.ceil(M_ / 32) or tid % R >= mr:
+                continue
+            m, l0 = ra * R + tid % R, (tid // R) * 32
+            seen[m, l0:min(M_, l0 + 32)] += 1
+    assert (seen == 1).all()
+    assert geo.row_floats == A * 20 * 8192 * 21
+    assert geo.part_floats == geo.chunks * (20 * M_ + A * 20 * 10
+                                            + 20 * M_ * 10
+                                            + 20 * M_ * M_)
+
+
+def test_k2_tiled_block_takes_the_most_resident_threads():
+    """At M = 256, Q = 10 the H100 holds one block of 32 rows (256
+    threads): 64 rows exceed shared memory, 16 and 8 hold fewer threads."""
+    occ = k2_tiled_occupancy(256, 10)
+    assert [occ(r) for r in psi.K2_TILE_ROWS] == [0, 1, 1, 2]
+    assert psi._k2_tiled_block(256, occ) == (32, 256, 1)
+
+
+def _never(*_):
+    raise AssertionError("queried a form that is not needed")
+
+
+def test_fused_fits_takes_a_form_of_each_kernel():
+    """The single-tile forms where they fit; the tiled forms past M = 128
+    or a Q the single-tile block refuses; neither past the tiled ones."""
+    single = lambda g, rs: 1          # noqa: E731
+    assert psi.fused_fits(128, 10, 60, single, _never, lambda: 1, _never)
+    # K2's single-tile block refuses Q = 48 at M = 128 (0 blocks per SM):
+    # its tiled form takes it
+    assert psi.fused_fits(128, 48, 0, single, _never, lambda: 0,
+                          k2_tiled_occupancy(128, 48))
+    # neither of K1's forms takes Q = 256
+    assert not psi.fused_fits(128, 256, 5, lambda g, rs: 0,
+                              k1_tiled_occupancy(256, 5), lambda: 1, _never)
+    for M_, Q_, fits in ((256, 10, True), (256, 64, True), (512, 16, True),
+                         (512, 64, False)):
+        for D_ in (0, 60):
+            assert psi.fused_fits(M_, Q_, D_, _never,
+                                  k1_tiled_occupancy(Q_, D_), _never,
+                                  k2_tiled_occupancy(M_, Q_)) is fits
+    # past MAX_M_TILED without a query
+    assert not psi.fused_fits(psi.MAX_M_TILED + 1, 10, 0, _never, _never,
+                              _never, _never)
+
+
+def test_plans_choose_the_form_and_raise_past_both():
+    assert isinstance(psi.k1_plan(20, 8192, 128, 10, 60, SMS,
+                                  lambda g, rs: 1, _never), psi.K1Geometry)
+    assert isinstance(psi.k1_plan(20, 8192, 256, 10, 60, SMS, _never,
+                                  k1_tiled_occupancy(10, 60)),
+                      psi.K1TiledGeometry)
+    assert isinstance(psi.k2_plan(20, 8192, 128, 10, SMS, lambda: 1,
+                                  _never), psi.K2Geometry)
+    assert isinstance(psi.k2_plan(20, 8192, 256, 10, SMS, _never,
+                                  k2_tiled_occupancy(256, 10)),
+                      psi.K2TiledGeometry)
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
+                                           "Q=256"):
+        psi.k1_plan(1, 4, 128, 256, 5, SMS, lambda g, rs: 0,
+                    k1_tiled_occupancy(256, 5))
+    with pytest.raises(RuntimeError, match="no block fits an SM at M=512, "
+                                           "Q=64"):
+        psi.k2_plan(1, 4, 512, 64, SMS, _never, k2_tiled_occupancy(512, 64))
+    with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
+                                           "at M=513, Q=10, D=60"):
+        psi.k1_plan(1, 4, 513, 10, 60, SMS, _never, _never)
+    with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
+                                           "at M=513, Q=10"):
+        psi.k2_plan(1, 4, 513, 10, SMS, _never, _never)
