@@ -47,9 +47,12 @@ imputation servers built on them. Phases, each printing one JSON line:
          and K2) against f64 on the DP path's first 2048 rows; every
          kernel held against f64 on the first inputs the paths gave it and
          on synthetic inputs at M = 129, 192, 256, weighted and not, each
-         repeated to the bit; K1, K2, K4 and K5 timed at M = 256 on the
-         paths' inputs (device ms, bound, plain ms), with their launch
-         geometry
+         repeated to the bit, K2 also on the paths' mu, S and Z with a
+         random G (within 2e-6 scaled); K1, K2 (T = 20 and 1), K4 and K5
+         timed at M = 256 on the paths' inputs (device ms, bound, plain
+         ms), with their launch geometry (for K2: range rows, panel width,
+         blocks per SM, waves) and, for K2, the registers and local
+         memory (spills) of its tiled kernels
   train_bgplvm  oil_flow_like -> bgplvm.init_params -> gp_optimizer; the
          same checks; each step must launch K6, K5 and K2 once
   serve_bgplvm  make_bgplvm_imputer on those parameters answers requests
@@ -235,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -3580,6 +3584,10 @@ M256_HELD = dict(T=4, N=2048, Q=10, D=60)           # synthetic holds
 M256_HELD_M = (129, 192, 256)
 M256_PLAIN_BLOCK = 512    # rows a block of the plain path's Psi2
 M256_PLAIN_STEPS = 3
+# K2 on the paths' own mu, S and Z with a standard normal G: f32 resolves
+# it whatever K_uu's conditioning, and the tiled form has held there at
+# 6.8e-07 to 1.36e-06 scaled (NVIDIA H100 80GB HBM3, 700 W)
+TOL_K2_RANDOM_G = 2e-6
 # The Bayesian GP-LVM on oil_flow_like at M = 256 is f32-limited: its 256
 # inducing points lie in a 2-dim latent, K_uu's condition number is ~1e10
 # (1.5e10 at N = 1024 on a CPU), and the plain f32 path itself misses f64
@@ -3838,23 +3846,47 @@ def _m256_synthetic(torch, psi, gen):
     return held
 
 
+def _k2_tiled_attributes():
+    """Registers and local memory bytes a thread (the stack frame, spills
+    included) of each tiled K2 instantiation, as the loaded module reports
+    them (cudaFuncGetAttributes, so whether or not this run built it): the
+    one-pass kernel (Q <= 10) and the one of passes of 8 columns."""
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    query = build.function("psi2_bwd", "psi2_bwd_tiled_attributes")
+    out = {}
+    for Q in (10, 64):
+        got = (ctypes.c_int * 4)()
+        err = query(Q, ctypes.addressof(got))
+        if err:
+            raise RuntimeError(f"psi2_bwd_tiled_attributes failed at Q={Q} "
+                               f"(CUDA error {err})")
+        qt, ch, registers, local = got
+        out[f"psi2_bwd_tiled_kernel<{qt}, {ch}>"] = dict(
+            registers=registers, local_bytes=local)
+    return out
+
+
 def _m256_timing(torch, psi, args, name):
     """One kernel at M = 256 on `args`: device ms (5 launches in one CUDA
     graph), the wrapper's ms, its plain version's ms, the bound, and the
-    launch geometry."""
+    launch geometry; for K2 also the tiled kernels' registers and local
+    memory."""
     shape, bound, by = _work_of(name, args)
     fn = getattr(psi, name)
     ref = getattr(psi, RUN_KERNELS[name][0])
     dev = _device_ms(lambda: fn(*args), torch, launches=5, replays=3)
+    extra = {}
     if name == "psi2_bwd_batched":
         geometry = _k2_geometry(psi, shape)
+        extra["attributes"] = _k2_tiled_attributes()
     else:
         geometry = _k1_geometry(psi, dict(dict(T=1, D=0), **shape))
     return dict(shape=shape, device_ms=dev, bound_ms=bound, bound_by=by,
                 device_over_bound=dev / bound,
                 ms=_timed(lambda: fn(*args), torch, reps=5, warmup=1),
                 plain_ms=_timed(lambda: ref(*args), torch, reps=3, warmup=1),
-                geometry=geometry)
+                geometry=geometry, **extra)
 
 
 # a step's launches on each family's fused path at M = 256
@@ -3968,6 +4000,10 @@ def phase_m256(torch, seed):
     if len(held_random_g) != 3:
         failures.append(f"K2 held with a random G at {len(held_random_g)} "
                         "shapes, expected 3 (DP step, Bayesian step, gate)")
+    for h in held_random_g:
+        if not h["scaled_err"] <= TOL_K2_RANDOM_G:
+            failures.append(f"K2 with a random G past {TOL_K2_RANDOM_G}: "
+                            f"{h}")
     for h in held + held_random_g + synthetic:
         if not ((h.get("f32_limited") or h["scaled_err"] <= h["tol"])
                 and h["repeat_bitwise_equal"]):
@@ -3977,6 +4013,10 @@ def phase_m256(torch, seed):
         form = t["geometry"].get("super_tiles", t["geometry"].get("ranges"))
         if form is None:
             failures.append(f"{name} did not run its tiled form at M = 256")
+    for kernel, a in timing["psi2_bwd_batched"]["attributes"].items():
+        if not 0 < a["registers"] <= 128:
+            failures.append(f"{kernel} takes {a['registers']} registers a "
+                            "thread, past two 256-thread blocks an SM")
     if failures:
         raise AssertionError("m256: " + "; ".join(failures))
     return row
@@ -4242,7 +4282,10 @@ def main(argv=None) -> int:
              **at_c8("psi2_bwd_batched"), **at_c9("psi2_bwd_batched"),
              mesh_svi_launches_per_step=on_mesh("psi2_bwd_batched"),
              **at_m256("psi2_bwd_batched", "psi2_bwd_batched",
-                       "psi2_bwd_batched_t1")),
+                       "psi2_bwd_batched_t1"),
+             m256_redesigned_in="nineteenth slice of the port",
+             m256_attributes=m256["timing"]["psi2_bwd_batched"][
+                 "attributes"]),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],

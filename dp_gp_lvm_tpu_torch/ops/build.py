@@ -35,8 +35,9 @@ SIGNATURES = {
                       "psi_suffstats_tiled_blocks_per_sm": [I] * 3},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
                  "psi2_bwd_blocks_per_sm": [I] * 3,
-                 "psi2_bwd_tiled_f32": [P] * 16 + [I] * 7 + [P],
-                 "psi2_bwd_tiled_blocks_per_sm": [I] * 3},
+                 "psi2_bwd_tiled_f32": [P] * 16 + [I] * 6 + [P],
+                 "psi2_bwd_tiled_blocks_per_sm": [I],
+                 "psi2_bwd_tiled_attributes": [I, P]},
     "psi1": {"psi1_f32": [P] * 7 + [I] * 5 + [P],
              "psi1_blocks_per_sm": [I] * 2},
 }

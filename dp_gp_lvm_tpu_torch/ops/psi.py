@@ -22,7 +22,8 @@ tile in one block (M <= MAX_M) and runs wherever its block fits an SM.
 Elsewhere (M > MAX_M, or a Q too wide for that block) the tiled form puts
 tiles of M on the grid, up to M = MAX_M_TILED: `k1_tiled_geometry`
 (super-tiles of K1_TILE x K1_TILE of Psi2's upper triangle, entries
-`*_tiled_f32`) and `k2_tiled_geometry` (ranges of rows of the tile).
+`*_tiled_f32`) and `k2_tiled_geometry` (ranges of rows of the tile, the
+columns walked in panels).
 `_k1_form` and `_k2_form` choose the form, `k1_plan` and `k2_plan` the
 geometry.
 
@@ -59,9 +60,11 @@ MAX_M = 128          # the single-tile forms of K1's body and K2 (M x M tile)
 MAX_M_TILED = 512    # the tiled forms: as far as the card has held them
 K1_TILE = 64         # super-tile width of K1's tiled body (TP in its source)
 K1_TILED_THREADS = 256   # threads of a tiled K1 block: (K1_TILE / 4)^2
+K2_TILE_ROWS = 32        # rows of a tiled K2 range, a lane each (TR)
 K2_TILE_COLS = 32        # columns of a tiled K2 thread's slice (TLC)
-K2_TILED_MAX_THREADS = 512
-K2_TILE_ROWS = (64, 32, 16, 8)   # rows of a tiled K2 range, largest first
+K2_TILE_PANEL = 64       # columns of a tiled K2 panel (TILED_PANEL)
+K2_TILED_THREADS = 256   # threads of a tiled K2 block: 8 warps
+K2_TILED_MAX_WAVES = 16  # most waves `k2_tiled_geometry` looks through
 K2_MIN_ROWS = 4      # fewest rows a K2 block walks
 _K2_ONE_PASS_Q = 10  # largest Q of K2's one-pass instantiations (QF)
 K1_MAX_THREADS = 576  # K1's launch bounds (MAX_THREADS in its source)
@@ -269,13 +272,14 @@ def _round32(x):
     return 32 * math.ceil(x / 32)
 
 
-def _chunking(T, N, min_rows, slots, target):
-    """(rows, chunks, fill): the fewest waves (up to 4) of `slots` block
-    slots whose T x chunks blocks fill at least `target` of them (else the
-    best fill), each chunk walking at least `min_rows` rows (or all N)."""
+def _chunking(T, N, min_rows, slots, target, max_waves=4):
+    """(rows, chunks, fill): the fewest waves (up to `max_waves`) of
+    `slots` block slots whose T x chunks blocks fill at least `target` of
+    them (else the best fill), each chunk walking at least `min_rows` rows
+    (or all N)."""
     cap = max(1, math.ceil(N / min_rows))
     best = None
-    for waves in range(1, 5):
+    for waves in range(1, max_waves + 1):
         chunks = max(1, min(cap, waves * slots // T))
         rows = math.ceil(N / chunks)
         chunks = math.ceil(N / rows)
@@ -564,17 +568,23 @@ def _k2_blocks_per_sm(device_index, M, Q, width):
 
 class K2TiledGeometry(NamedTuple):
     """How `psi2_bwd_batched` launches the tiled form of csrc/psi2_bwd.cu:
-    the tile's rows in `ranges` ranges of `range_rows`, one block of
-    `threads` per (chunk, atom, range), a thread per (row, slice of
-    K2_TILE_COLS columns); `blocks_per_sm` resident; `chunks` chunks of
-    `rows` rows; the float counts of the per-chunk partials ([gvar_m |
-    gard per range | gz | S]) and the per-(range, atom, row) ones."""
+    the tile's rows in `ranges` ranges of `range_rows` (K2_TILE_ROWS, a
+    lane each), one block of `threads` per (chunk, atom, range) walking the
+    columns in `panels` panels of `panel_width`; `blocks_per_sm` resident;
+    `chunks` chunks of `rows` rows, `waves` waves of the card's block slots
+    whose last is `slot_fill` full on average; the float counts of the
+    per-chunk partials ([gvar_m | gard per range | gz | S]) and the
+    per-(range, atom, row) ones."""
     range_rows: int
     ranges: int
+    panel_width: int
+    panels: int
     threads: int
     blocks_per_sm: int
     rows: int
     chunks: int
+    waves: float
+    slot_fill: float
     part_floats: int
     row_floats: int
 
@@ -582,55 +592,43 @@ class K2TiledGeometry(NamedTuple):
     def scratch_bytes(self) -> int:
         return 4 * (self.part_floats + self.row_floats)
 
-
-def k2_tiled_threads(M, R) -> int:
-    """Threads of a tiled K2 block of R rows: a thread per row and slice of
-    K2_TILE_COLS columns, in whole warps."""
-    return _round32(R * math.ceil(M / K2_TILE_COLS))
-
-
-def _k2_tiled_block(M, blocks_per_sm):
-    """(range rows, threads, blocks per SM) of the tiled K2 block: of the
-    K2_TILE_ROWS whose block fits K2_TILED_MAX_THREADS and an SM
-    (`blocks_per_sm(R)` >= 1), the one with the most threads resident per
-    SM, then the most rows (the fewest ranges, each of which stages every
-    row's c); None where none fits."""
-    best = None
-    for R in K2_TILE_ROWS:
-        threads = k2_tiled_threads(M, R)
-        if threads > K2_TILED_MAX_THREADS:
-            continue
-        per_sm = blocks_per_sm(R)
-        if per_sm >= 1 and (best is None or per_sm * threads > best[0]):
-            best = (per_sm * threads, R, threads, per_sm)
-    return None if best is None else best[1:]
+    @property
+    def row_slots(self) -> int:
+        """Threads of a block that share each pair of the panel, each
+        walking its own rows of every batch."""
+        return self.threads // (self.range_rows
+                                * (self.panel_width // K2_TILE_COLS))
 
 
 def k2_tiled_geometry(T, N, M, Q, sms, blocks_per_sm):
-    """The tiled form's launch geometry on `sms` SMs (`_k2_tiled_block`,
-    then `_chunking` over T x ranges blocks a chunk), None where no block
-    fits an SM."""
-    block = _k2_tiled_block(M, blocks_per_sm)
-    if block is None:
+    """The tiled form's launch geometry on `sms` SMs that hold
+    `blocks_per_sm()` of its blocks (its shared memory depends on Q, not
+    on M), None where none fits. The chunks fill whole waves: the fewest
+    waves, up to K2_TILED_MAX_WAVES, whose T x ranges x chunks blocks fill
+    at least 95% of their slots (`_chunking`)."""
+    per_sm = blocks_per_sm()
+    if per_sm < 1:
         return None
-    R, threads, per_sm = block
-    ranges = math.ceil(M / R)
-    rows, chunks, _ = _chunking(T * ranges, N, K2_MIN_ROWS, sms * per_sm,
-                                0.95)
+    P = K2_TILE_PANEL
+    ranges = math.ceil(M / K2_TILE_ROWS)
+    slots = sms * per_sm
+    rows, chunks, fill = _chunking(T * ranges, N, K2_MIN_ROWS, slots, 0.95,
+                                   K2_TILED_MAX_WAVES)
     part = chunks * (T * M + ranges * T * Q + T * M * Q + T * M * M)
-    return K2TiledGeometry(R, ranges, threads, per_sm, rows, chunks, part,
+    return K2TiledGeometry(K2_TILE_ROWS, ranges, P, math.ceil(M / P),
+                           K2_TILED_THREADS, per_sm, rows, chunks,
+                           chunks * T * ranges / slots, fill, part,
                            ranges * T * N * (2 * Q + 1))
 
 
 def _k2_form(M, blocks_per_sm, tiled_blocks_per_sm):
     """The form K2 takes M (and the Q its queries ask about) in: "single"
     where M <= MAX_M and its block fits an SM (`blocks_per_sm()` >= 1),
-    else "tiled" where M <= MAX_M_TILED and `_k2_tiled_block` finds a
-    block (`tiled_blocks_per_sm(R)`); None where neither."""
+    else "tiled" where M <= MAX_M_TILED and its tiled block fits
+    (`tiled_blocks_per_sm()` >= 1); None where neither."""
     if M <= MAX_M and blocks_per_sm() >= 1:
         return "single"
-    if (M <= MAX_M_TILED
-            and _k2_tiled_block(M, tiled_blocks_per_sm) is not None):
+    if M <= MAX_M_TILED and tiled_blocks_per_sm() >= 1:
         return "tiled"
     return None
 
@@ -647,24 +645,24 @@ def k2_plan(T, N, M, Q, sms, blocks_per_sm, tiled_blocks_per_sm):
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_tiled_blocks_per_sm(device_index, M, Q, R):
-    """The tiled K2's blocks per SM, 0 where its block's shared memory
-    exceeds the card's."""
+def _k2_tiled_blocks_per_sm(device_index, Q):
+    """The tiled K2's blocks per SM at Q (any M), 0 where its block's
+    shared memory exceeds the card's."""
     from dp_gp_lvm_tpu_torch.ops import build
 
     with torch.cuda.device(device_index):
-        blocks = build.function("psi2_bwd", "psi2_bwd_tiled_blocks_per_sm")(
-            M, Q, R)
+        blocks = build.function("psi2_bwd",
+                                "psi2_bwd_tiled_blocks_per_sm")(Q)
     if blocks < 0:
         raise RuntimeError(f"psi2_bwd_batched: tiled occupancy query failed "
-                           f"at M={M}, Q={Q}, R={R} (CUDA error {-blocks})")
+                           f"at Q={Q} (CUDA error {-blocks})")
     return blocks
 
 
 def _k2_occupancies(index, M, Q):
     """(single-tile, tiled) occupancy queries of K2 on the card."""
     return (lambda: _k2_blocks_per_sm(index, M, Q, k2_slice_width(M, Q)),
-            lambda R: _k2_tiled_blocks_per_sm(index, M, Q, R))
+            lambda: _k2_tiled_blocks_per_sm(index, Q))
 
 
 def k2_launch_geometry(device, T, N, M, Q):
@@ -684,9 +682,11 @@ def fused_fits(M, Q, D, k1_occupancy, k1_tiled_occupancy, k2_blocks_per_sm,
     (`_k1_form` with `k1_occupancy`, `k1_tiled_occupancy`; `_k2_form`
     with `k2_blocks_per_sm`, `k2_tiled_blocks_per_sm`), the tiled forms up
     to M = MAX_M_TILED. On an H100 the card has run K1's body at M = 512,
-    Q = 128, D = 120, and K2 at M = 512, Q = 16, at M = 384, Q = 32 and at
-    M = 256, Q = 64; K2 refuses M = 512 at Q = 64 (shared memory). Past
-    those a wrapper raises for a CUDA tensor."""
+    Q = 128, D = 120, and K2's tiled form at M = 512 with Q = 16 and 64,
+    at M = 384, Q = 32 and at M = 256, Q = 64: it walks the columns in
+    panels, so its shared memory does not grow with M, only with Q (its
+    c rows of a batch); it refuses Q = 128. Past those a wrapper raises for
+    a CUDA tensor."""
     return (_k2_form(M, k2_blocks_per_sm, k2_tiled_blocks_per_sm) is not None
             and _k1_form(M, Q, D, k1_occupancy,
                          k1_tiled_occupancy) is not None)
@@ -734,19 +734,17 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
     gs = torch.empty(N, Q, **kw)
     gw = torch.empty(N, **kw)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
+    ptrs = (variances.data_ptr(), ards.data_ptr(), mu.data_ptr(),
+            s.data_ptr(), w.data_ptr(), Zs.data_ptr(), G.data_ptr(),
+            part.data_ptr(), rowpart.data_ptr(), gvar_m.data_ptr(),
+            gard.data_ptr(), gz.data_ptr(), V.data_ptr(), gmu.data_ptr(),
+            gs.data_ptr(), gw.data_ptr(), T, N, M, Q)
     if isinstance(geo, K2TiledGeometry):
-        fn = build.function("psi2_bwd", "psi2_bwd_tiled_f32")
-        width = geo.range_rows
+        err = build.function("psi2_bwd", "psi2_bwd_tiled_f32")(
+            *ptrs, geo.rows, geo.chunks, stream)
     else:
-        fn = build.function("psi2_bwd")
-        width = geo.slice_width
-    err = fn(
-        variances.data_ptr(), ards.data_ptr(), mu.data_ptr(), s.data_ptr(),
-        w.data_ptr(), Zs.data_ptr(), G.data_ptr(), part.data_ptr(),
-        rowpart.data_ptr(), gvar_m.data_ptr(), gard.data_ptr(),
-        gz.data_ptr(), V.data_ptr(), gmu.data_ptr(), gs.data_ptr(),
-        gw.data_ptr(), T, N, M, Q, width, geo.rows, geo.chunks, stream,
-    )
+        err = build.function("psi2_bwd")(
+            *ptrs, geo.slice_width, geo.rows, geo.chunks, stream)
     _raise_on(err, "psi2_bwd_batched")
     LAUNCHES["psi2_bwd_batched"] += 1
     return gvar_m, gard, gz, V, gmu, gs, gw

@@ -515,16 +515,15 @@ def test_auto_asks_both_forms_occupancy_queries(card):
     CUDA error (which raises); "auto" takes the kernels where a form of
     each fits: K2's single-tile block refuses Q = 48 at M = 128 and its
     tiled form takes it; neither of K1's takes Q = 256; at M = 256 both
-    run tiled; at M = 1024 K2's tiled block fits no SM (and M is past
-    MAX_M_TILED)."""
+    run tiled; K2's tiled block (whose shared memory does not grow with
+    M: its query takes Q only) fits twice an SM at Q = 10, and M = 1024 is
+    refused only as past MAX_M_TILED."""
     index = torch.cuda.current_device()
     assert psi._k2_blocks_per_sm(index, 128, 48, 32) == 0
-    assert psi._k2_tiled_blocks_per_sm(index, 128, 48, 32) >= 1
+    assert psi._k2_tiled_blocks_per_sm(index, 48) >= 1
     assert psi._k1_blocks_per_sm(index, 128, 256, 5, 1, 1) == 0
     assert psi._k1_tiled_blocks_per_sm(index, 256, 5, 1) == 0
-    assert all(psi._k2_tiled_blocks_per_sm(index, 1024, 10, r) == 0
-               for r in psi.K2_TILE_ROWS
-               if psi.k2_tiled_threads(1024, r) <= psi.K2_TILED_MAX_THREADS)
+    assert psi._k2_tiled_blocks_per_sm(index, 10) == 2
     assert psi.fused_fits_on(card, 128, 48, 0)
     assert not psi.fused_fits_on(card, 128, 256, 5)
     assert psi.fused_fits_on(card, 256, 10, 60)
@@ -568,15 +567,20 @@ def test_tiled_k1_k4_k5_match_plain(card, M_, Q_, weighted):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("M_,Q_", [(m, q) for m in TILED_M for q in TILED_Q]
-                         + [(128, 48), (256, 48)])
-def test_tiled_k2_matches_plain(card, M_, Q_, weighted):
+@pytest.mark.parametrize(
+    "T_,N_,M_,Q_", [(3, 150, m, q) for m in TILED_M for q in TILED_Q]
+    + [(3, 150, 128, 48), (3, 150, 256, 48), (4, 2048, 256, 10)])
+def test_tiled_k2_matches_plain(card, T_, N_, M_, Q_, weighted):
     """K2 in the tiled form against its plain version in f64, zero weights
-    included: past M = 128, and at Q = 48, which the single-tile block
-    refuses at M = 128 (passes of 8 gradient columns)."""
-    a, f = _inputs(card, weighted, T=3, N=150, M=M_, Q=Q_)
-    assert isinstance(psi.k2_launch_geometry(card, 3, 150, M_, Q_),
-                      psi.K2TiledGeometry)
+    included: past M = 128, at Q = 48, which the single-tile block refuses
+    at M = 128 (passes of 8 gradient columns), and at N = 2048, where a
+    chunk walks many batches of rows (the rows' fetch two batches ahead
+    and the panels' read-modify-write of their row scalars)."""
+    a, f = _inputs(card, weighted, T=T_, N=N_, M=M_, Q=Q_)
+    geo = psi.k2_launch_geometry(card, T_, N_, M_, Q_)
+    assert isinstance(geo, psi.K2TiledGeometry)
+    if N_ == 2048:
+        assert geo.rows >= 4 * 16  # four batches of 16 rows a chunk
     psi.reset_launch_counts()
     got = psi.psi2_bwd_batched(*_k2(f))
     want = psi.psi2_bwd_batched_reference(*_k2(a))
@@ -589,7 +593,7 @@ def test_tiled_k2_matches_plain(card, M_, Q_, weighted):
 # the corners of what README.md says the tiled forms take; the ARD weights
 # are scaled by 10 / Q there, so that Psi2 stays far from f32's underflow
 TILED_EDGES = [("k1", 512, 128), ("k2", 512, 16), ("k2", 384, 32),
-               ("k2", 256, 64)]
+               ("k2", 256, 64), ("k2", 512, 64)]
 
 
 @pytest.mark.cuda
@@ -622,18 +626,20 @@ def test_tiled_forms_take_their_stated_edges(card, kernel, M_, Q_):
 
 @pytest.mark.cuda
 def test_tiled_forms_refuse_past_their_edges(card):
-    """K2 refuses M = 512 at Q = 64 (shared memory); both refuse M = 513
-    (MAX_M_TILED); "auto" agrees."""
-    _, f = _inputs(card, False, T=1, N=8, M=512, Q=64)
+    """K2 refuses Q = 128 (its c rows of a batch exceed shared memory, at
+    any M); both refuse M = 513 (MAX_M_TILED); "auto" agrees, and takes
+    M = 512 at Q = 64."""
+    _, f = _inputs(card, False, T=1, N=8, M=512, Q=128)
     with pytest.raises(RuntimeError, match="no block fits an SM at M=512, "
-                                           "Q=64"):
+                                           "Q=128"):
         psi.psi2_bwd_batched(*_k2(f))
     _, f = _inputs(card, False, T=1, N=8, M=513, Q=10, D=4)
     with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
                                            "at M=513, Q=10, D=4"):
         psi.suffstats_batched(*_k1(f))
     assert psi.fused_fits_on(card, 512, 16, 60)
-    assert not psi.fused_fits_on(card, 512, 64, 0)
+    assert psi.fused_fits_on(card, 512, 64, 0)
+    assert not psi.fused_fits_on(card, 512, 128, 0)
     assert not psi.fused_fits_on(card, 513, 10, 0)
 
 
@@ -652,6 +658,20 @@ def test_tiled_launches_repeat_bit_for_bit(card, shape):
     assert torch.equal(psi.psi2_single(*_one(f)), psi.psi2_single(*_one(f)))
     assert all(torch.equal(x, y) for x, y in zip(
         psi.psi2_bwd_batched(*_k2(f)), psi.psi2_bwd_batched(*_k2(f))))
+
+
+@pytest.mark.cuda
+def test_tiled_k2_repeats_its_bits_five_times(card):
+    """Five launches of the tiled K2 at M = 256, T = 20, N = 2048 give the
+    same bits: no atomics, every sum in a fixed order, with two blocks an
+    SM and many chunks in flight."""
+    _, f = _inputs(card, True, T=20, N=2048, M=256, Q=10)
+    geo = psi.k2_launch_geometry(card, 20, 2048, 256, 10)
+    assert isinstance(geo, psi.K2TiledGeometry) and geo.chunks > 1
+    first = psi.psi2_bwd_batched(*_k2(f))
+    for _ in range(4):
+        again = psi.psi2_bwd_batched(*_k2(f))
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.cuda

@@ -152,15 +152,15 @@ def test_fused_fits_takes_the_wrappers_limits():
     assert psi.fused_fits(128, 10, 0, occ, _never, lambda: 1, _never)
     assert psi.fused_fits(128, 10, 60, occ, _never, lambda: 1, _never)
     # K2's single-tile block does not fit (its query gives 0 blocks per SM)
-    # and no tiled range does either, or neither K1 body finds a block
+    # and its tiled block does not either, or neither K1 body finds a block
     assert not psi.fused_fits(128, 48, 0, occ, _never, lambda: 0,
-                              lambda R: 0)
+                              lambda: 0)
     assert not psi.fused_fits(128, 256, 5, lambda g, rs: 0, lambda rs: 0,
                               lambda: 1, _never)
     assert psi.fused_fits(psi.MAX_M + 1, 10, 0, _never, lambda rs: 1,
-                          _never, lambda R: 1)
+                          _never, lambda: 1)
     assert not psi.fused_fits(psi.MAX_M + 1, 10, 0, _never, lambda rs: 1,
-                              _never, lambda R: 0)
+                              _never, lambda: 0)
 
 
 def test_resolve_fused_auto_decides_by_device_and_shape(monkeypatch):

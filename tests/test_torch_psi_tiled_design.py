@@ -7,13 +7,17 @@ K1_TILE: block (chunk, atom, super-tile (a, b)) sums its rows' var^2 w_n
 E_n over rows of range a and columns of range b (the upper 4x4 tiles only
 on the diagonal), diagonal super-tiles also their range's rows of Psi1^T
 Y; the reduction sums the chunks in chunk order and reads (l, m) below the
-diagonal. The tiled K2 gives block (chunk, atom, range a) the rows m of
-range a against every column; every per-row scalar is linear in the sums
-over (m, l), so each range writes its share of gmu, gs, gw and gard, which
-the finish sums in range order. Each emulation walks the geometry the
-wrappers launch and is held to the plain version's outputs at 1e-12, with
-row weights that hold zeros. No JAX here: the plain versions are the
-port's own oracle.
+diagonal. The tiled K2 gives block (chunk, atom, range a) the 32 rows m of
+range a and walks the columns in panels of P: thread (m, slice j, row slot
+rs) takes the slice's columns of each panel for the rows rs, rs + RS, ...
+of every batch of B. When a panel ends, S is summed over the row slots;
+gvar and gz add up over the panels in each thread and over the threads in
+(slot, slice) order when the pass ends; every per-row scalar is linear in
+the sums over (m, l), so each panel adds its share of gmu, gs and gw to
+the range's rows in panel order, and the finish sums the ranges in range
+order. Each emulation walks the geometry the wrappers launch and is held
+to the plain version's outputs at 1e-12, with row weights that hold zeros.
+No JAX here: the plain versions are the port's own oracle.
 """
 import math
 
@@ -56,26 +60,28 @@ def k1_tiled_occupancy(Q_, D_, registers=128):
     return occupancy
 
 
-def k2_tiled_occupancy(M_, Q_, registers=128):
-    """Blocks per SM of an H100 for the tiled K2 block of R rows at
-    `registers` a thread (ptxas gave 128 for sm_90a) and its source's
-    shared-memory layout: one pass of 10 gradient columns at Q <= 10 with
-    4 rows between barriers, passes of 8 with 2 beyond."""
-    def occupancy(R):
+def k2_tiled_occupancy(Q_, registers=128):
+    """Blocks per SM of an H100 for the tiled K2 block (256 threads at
+    `registers` a thread; ptxas gave 128 for sm_90a) with panels of
+    K2_TILE_PANEL columns, by its source's shared-memory layout
+    (`tiled_layout`): one pass of 10 gradient columns at Q <= 10, 16 rows
+    between barriers; passes of 8 columns beyond, 4 rows. None of it
+    depends on M."""
+    def occupancy():
         chunked = Q_ > 10
-        qt, b = (8, 2) if chunked else (10, 4)
+        P = psi.K2_TILE_PANEL
+        qt, b = (8, 4) if chunked else (10, 16)
         qp = qt * math.ceil(Q_ / qt) if chunked else _r4(qt)
-        lanes = math.ceil(M_ / psi.K2_TILE_COLS)
-        threads = psi.k2_tiled_threads(M_, R)
-        tile = _r4(R * (M_ | 1))
-        total = (3 * tile + M_ * qp + qp + b * M_ * qp
-                 + 3 * b * _r4(5 * qp + 2) + b * (threads // 32)
-                 * _r32(3 * qt + 2) + _r4(b * qt))
-        comb = lanes * R * (qt + 1)
-        total = max(total, (total if chunked else 2 * tile) + comb)
-        if 4 * total > 232448 or threads > psi.K2_TILED_MAX_THREADS:
+        slices, pp = P // 32, P | 1
+        slots = 8 // slices
+        c = b * ((32 + P) if chunked else P) * qp
+        total = (3 * _r4(32 * pp) + 32 * qp + P * qp + qp
+                 + _r4(max(c, (slots - 1) * 32 * pp)) + (qt + 1) * 256
+                 + 3 * b * _r4(5 * qp + 2) + b * slices * _r32(3 * qt + 2)
+                 + _r4(b * qt) + 2 * _r4(b * (2 * Q_ + 1)))
+        if 4 * total > 232448:
             return 0
-        return min(2048 // threads, 65536 // (registers * threads),
+        return min(2048 // 256, 65536 // (registers * 256),
                    233472 // (4 * total + 1024))
     return occupancy
 
@@ -183,45 +189,74 @@ def test_tiled_k1_partials_reduce_to_psi2_and_psi1ty(M_):
 
 
 def _k2_emulated(a, geo, M_):
-    """The tiled K2's per-range partials over `geo` and its finish."""
-    E, expo, u = _pairs(a)
-    em = E * (expo < 0.0).to(E.dtype)
-    b = a["ards"][:, None, :] / u                        # (T, N, Q)
-    v2 = (a["vs"] ** 2)[:, None]
+    """The tiled K2's partials over `geo` (ranges, panels, row slots, slice
+    threads) and its finish."""
     Zs, mu, s, G, w = a["Zs"], a["mu"], a["s"], a["G"], a["w"]
-    R, A = geo.range_rows, geo.ranges
-    gvar = torch.zeros(geo.chunks, T, M_, dtype=E.dtype)
-    gz = torch.zeros(geo.chunks, T, M_, Q, dtype=E.dtype)
-    Sp = torch.zeros(geo.chunks, T, M_, M_, dtype=E.dtype)
-    gard = torch.zeros(geo.chunks, A, T, Q, dtype=E.dtype)
-    rowpart = torch.zeros(A, T, N, 2 * Q + 1, dtype=E.dtype)
+    TR, P = geo.range_rows, geo.panel_width
+    A, slots, B = geo.ranges, geo.row_slots, 16
+    slices = P // psi.K2_TILE_COLS
+    v2 = (a["vs"] ** 2)[:, None]
+    gvar = torch.zeros(geo.chunks, T, M_, dtype=torch.float64)
+    gz = torch.zeros(geo.chunks, T, M_, Q, dtype=torch.float64)
+    Sp = torch.zeros(geo.chunks, T, M_, M_, dtype=torch.float64)
+    gard = torch.zeros(geo.chunks, A, T, Q, dtype=torch.float64)
+    rowpart = torch.zeros(A, T, N, 2 * Q + 1, dtype=torch.float64)
     for c, rows in enumerate(_chunks(geo.rows, geo.chunks, N)):
+        sub = {k: a[k][rows] for k in ("mu", "s", "w")}
+        E, expo, u = _pairs(dict(a, **sub))               # the chunk's rows
+        em = E * (expo < 0.0).to(E.dtype)
+        b = a["ards"][:, None, :] / u                     # (T, n, Q)
+        n = E.shape[1]
+        # row slot of each row: its place in its batch of B, modulo slots
+        slot = (torch.arange(n) % B) % slots
+        f = v2 * w[None, rows]                            # (T, n)
+        bn, mn, sn, un = b, mu[rows], s[rows], u
         for ra in range(A):
-            ms = slice(ra * R, min(M_, (ra + 1) * R))
-            gsum = G[:, ms, :] + G[:, :, ms].mT                # (T, r, M)
-            f = v2 * w[None, rows]                             # (T, n)
-            WS = f[..., None, None] * em[:, rows, ms, :] * gsum[:, None]
-            rsum = WS.sum(-1)                                  # (T, n, r)
-            wsz = WS @ Zs[:, None]                             # (T, n, r, Q)
-            p = (E[:, rows, ms, :] * G[:, None, ms, :]).sum(-1)
-            zr = Zs[:, ms]                                     # (T, r, Q)
-            Asum = 0.5 * rsum.sum(-1)[..., None]
-            rz = rsum @ zr
-            rz2 = rsum @ (zr * zr)
-            U = 0.5 * (wsz * zr[:, None]).sum(2)
-            bn, mn, sn, un = b[:, rows], mu[rows], s[rows], u[:, rows]
-            gb = -mn * mn * Asum + mn * rz - 0.25 * rz2 - 0.5 * U
-            rowpart[ra, :, rows, :Q] = bn * (-2.0 * mn * Asum + rz)
-            rowpart[ra, :, rows, Q:2 * Q] = gb * (-2.0 * bn * bn) - Asum * bn
-            rowpart[ra, :, rows, 2 * Q] = v2 * p.sum(-1)
-            gard[c, ra] = (gb / (un * un) - Asum * sn / un).sum(1)
-            gvar[c, :, ms] = torch.einsum("n,tnr->tr", w[rows], p)
-            gz[c, :, ms] = torch.einsum(
-                "tnq,tnrq->trq", bn,
-                rsum[..., None] * (mn[None, :, None, :] - 0.5 * zr[:, None])
-                - 0.5 * wsz)
-            Sp[c, :, ms] = torch.einsum("tn,tnrl->trl", f,
-                                        em[:, rows, ms, :])
+            ms = slice(ra * TR, min(M_, (ra + 1) * TR))
+            zr = Zs[:, ms]                                # (T, r, Q)
+            for pan in range(geo.panels):
+                ls = slice(pan * P, min(M_, (pan + 1) * P))
+                gsum = G[:, ms, ls] + G[:, ls, ms].mT
+                WS = f[..., None, None] * em[:, :, ms, ls] * gsum[:, None]
+                rsum = WS.sum(-1)                         # (T, n, r)
+                wsz = WS @ Zs[:, None, ls]                # (T, n, r, Q)
+                pp = (E[:, :, ms, ls] * G[:, None, ms, ls]).sum(-1)
+                # the panel's share of each row scalar
+                Asum = 0.5 * rsum.sum(-1)[..., None]
+                rz = rsum @ zr
+                rz2 = rsum @ (zr * zr)
+                U = 0.5 * (wsz * zr[:, None]).sum(2)
+                gb = -mn * mn * Asum + mn * rz - 0.25 * rz2 - 0.5 * U
+                share = torch.cat([bn * (-2.0 * mn * Asum + rz),
+                                   gb * (-2.0 * bn * bn) - Asum * bn,
+                                   v2[..., None] * pp.sum(-1, keepdim=True)],
+                                  dim=-1)
+                rowpart[ra, :, rows] = rowpart[ra, :, rows] + share
+                gard[c, ra] += (gb / (un * un) - Asum * sn / un).sum(1)
+                # each thread (slot, slice) adds its rows' and columns'
+                # share of gvar and gz; the slots' S summed in slot order
+                S = torch.zeros(T, ms.stop - ms.start, ls.stop - ls.start,
+                                dtype=torch.float64)
+                for r_ in range(slots):
+                    mine = slot == r_
+                    S = S + torch.einsum("tn,tnrl->trl", f[:, mine],
+                                         em[:, mine][:, :, ms, ls])
+                    for j in range(slices):
+                        cs = slice(j * 32, (j + 1) * 32)
+                        WSj = WS[:, mine][..., cs]
+                        rj = WSj.sum(-1)
+                        wj = WSj @ Zs[:, None, ls][:, :, cs]
+                        pj = (E[:, mine][:, :, ms, ls][..., cs]
+                              * G[:, None, ms, ls][..., cs]).sum(-1)
+                        bj, mj = bn[:, mine], mn[mine]
+                        gvar[c, :, ms] += torch.einsum(
+                            "n,tnr->tr", w[rows][mine], pj)
+                        gz[c, :, ms] += torch.einsum(
+                            "tnq,tnrq->trq", bj,
+                            rj[..., None] * (mj[None, :, None, :]
+                                             - 0.5 * zr[:, None])
+                            - 0.5 * wj)
+                Sp[c, :, ms, ls] = S
 
     def in_order(parts):
         acc = parts[0]
@@ -237,11 +272,13 @@ def _k2_emulated(a, geo, M_):
             rows_sum[:, :Q], rows_sum[:, Q:2 * Q], rows_sum[:, 2 * Q])
 
 
-@pytest.mark.parametrize("M_", [129, 256])
+@pytest.mark.parametrize("M_", [129, 256, 512])
 def test_tiled_k2_range_shares_sum_to_the_pullback(M_):
+    """The panels' shares, summed in panel order, and the row slots' and
+    slices' partials reduce to the plain pullback, zero weights included."""
     a = _inputs(M_, seed=18)
-    geo = psi.k2_tiled_geometry(T, N, M_, Q, SMS, k2_tiled_occupancy(M_, Q))
-    assert geo.chunks > 1 and geo.ranges > 1
+    geo = psi.k2_tiled_geometry(T, N, M_, Q, SMS, k2_tiled_occupancy(Q))
+    assert geo.chunks > 1 and geo.ranges > 1 and geo.panels > 1
     got = _k2_emulated(a, geo, M_)
     want = psi.psi2_bwd_batched_reference(a["vs"], a["ards"], a["mu"],
                                           a["s"], a["Zs"], a["G"], a["w"])
@@ -301,24 +338,30 @@ def test_tiled_k1_geometry_writes_every_output_once(M_):
 
 @pytest.mark.parametrize("M_", GEOMETRY_M)
 def test_tiled_k2_geometry_walks_every_pair_once(M_):
-    """Thread (row of the range, column slice) pairs cover the M x M tile
-    once over the ranges, within the block's threads, and the chunks walk
-    every row once; at the m256 phase's DP shape."""
-    geo = psi.k2_tiled_geometry(20, 8192, M_, 10, SMS,
-                                k2_tiled_occupancy(M_, 10))
-    R, A = geo.range_rows, geo.ranges
-    assert A == math.ceil(M_ / R) and geo.threads <= 512
-    assert geo.threads == _r32(R * math.ceil(M_ / psi.K2_TILE_COLS))
+    """Thread (lane, slice, slot) of each range's block covers every pair
+    (m, l) of the tile once over the panels, each row of a batch is one
+    slot's, within the block's threads, and the chunks walk every row
+    once; at the m256 phase's DP shape."""
+    geo = psi.k2_tiled_geometry(20, 8192, M_, 10, SMS, k2_tiled_occupancy(10))
+    TR, P, A = geo.range_rows, geo.panel_width, geo.ranges
+    slices, slots = P // psi.K2_TILE_COLS, geo.row_slots
+    assert (A, geo.panels) == (math.ceil(M_ / TR), math.ceil(M_ / P))
+    assert TR * slices * slots == geo.threads == psi.K2_TILED_THREADS
     assert _covered_once(geo, 8192)
     seen = np.zeros((M_, M_), dtype=int)
     for ra in range(A):
-        mr = min(R, M_ - ra * R)
-        for tid in range(geo.threads):
-            if tid >= R * math.ceil(M_ / 32) or tid % R >= mr:
-                continue
-            m, l0 = ra * R + tid % R, (tid // R) * 32
-            seen[m, l0:min(M_, l0 + 32)] += 1
+        for pan in range(geo.panels):
+            for tid in range(geo.threads):
+                lane, warp = tid % 32, tid // 32
+                m = ra * TR + lane
+                l0 = pan * P + (warp % slices) * 32
+                if warp // slices == 0 and m < M_:   # one row slot's pairs
+                    seen[m, l0:min(M_, l0 + 32)] += 1
     assert (seen == 1).all()
+    B = 16
+    walked = sorted(rs + slots * i for rs in range(slots)
+                    for i in range(B // slots))
+    assert walked == list(range(B))
     assert geo.row_floats == A * 20 * 8192 * 21
     assert geo.part_floats == geo.chunks * (20 * M_ + A * 20 * 10
                                             + 20 * M_ * 10
@@ -326,11 +369,32 @@ def test_tiled_k2_geometry_walks_every_pair_once(M_):
 
 
 def test_k2_tiled_block_takes_the_most_resident_threads():
-    """At M = 256, Q = 10 the H100 holds one block of 32 rows (256
-    threads): 64 rows exceed shared memory, 16 and 8 hold fewer threads."""
-    occ = k2_tiled_occupancy(256, 10)
-    assert [occ(r) for r in psi.K2_TILE_ROWS] == [0, 1, 1, 2]
-    assert psi._k2_tiled_block(256, occ) == (32, 256, 1)
+    """At M = 256, Q = 10 the H100 holds two 256-thread blocks (16 warps)
+    with panels of 64 columns, within 128 registers a thread and its 110 KB
+    of shared memory; past Q = 10 one block; at Q = 128 none; past 128
+    registers a thread one."""
+    def block(occ):
+        geo = psi.k2_tiled_geometry(20, 8192, 256, 10, SMS, occ)
+        return None if geo is None else (geo.panel_width, geo.blocks_per_sm)
+
+    assert block(k2_tiled_occupancy(10)) == (64, 2)
+    assert block(k2_tiled_occupancy(64)) == (64, 1)
+    assert block(k2_tiled_occupancy(128)) is None
+    assert block(k2_tiled_occupancy(10, registers=255)) == (64, 1)
+
+
+@pytest.mark.parametrize("T_,N_,M_", [(20, 8192, 256), (1, 8192, 256),
+                                      (20, 8192, 512), (4, 2048, 129)])
+def test_tiled_k2_grid_fills_its_last_wave(T_, N_, M_):
+    """The chunks give whole waves of the card's block slots: at least 95%
+    of the last wave's slots are filled (a grid of at most four waves
+    filled 91% at T = 20, M = 256 with one block an SM)."""
+    geo = psi.k2_tiled_geometry(T_, N_, M_, 10, SMS, k2_tiled_occupancy(10))
+    blocks = geo.chunks * T_ * geo.ranges
+    slots = SMS * geo.blocks_per_sm
+    assert geo.waves == blocks / slots
+    assert geo.slot_fill == blocks / (math.ceil(blocks / slots) * slots)
+    assert geo.slot_fill >= 0.95 and _covered_once(geo, N_)
 
 
 def _never(*_):
@@ -345,16 +409,16 @@ def test_fused_fits_takes_a_form_of_each_kernel():
     # K2's single-tile block refuses Q = 48 at M = 128 (0 blocks per SM):
     # its tiled form takes it
     assert psi.fused_fits(128, 48, 0, single, _never, lambda: 0,
-                          k2_tiled_occupancy(128, 48))
+                          k2_tiled_occupancy(48))
     # neither of K1's forms takes Q = 256
     assert not psi.fused_fits(128, 256, 5, lambda g, rs: 0,
                               k1_tiled_occupancy(256, 5), lambda: 1, _never)
     for M_, Q_, fits in ((256, 10, True), (256, 64, True), (512, 16, True),
-                         (512, 64, False)):
+                         (512, 64, True), (512, 128, False)):
         for D_ in (0, 60):
             assert psi.fused_fits(M_, Q_, D_, _never,
                                   k1_tiled_occupancy(Q_, D_), _never,
-                                  k2_tiled_occupancy(M_, Q_)) is fits
+                                  k2_tiled_occupancy(Q_)) is fits
     # past MAX_M_TILED without a query
     assert not psi.fused_fits(psi.MAX_M_TILED + 1, 10, 0, _never, _never,
                               _never, _never)
@@ -369,15 +433,15 @@ def test_plans_choose_the_form_and_raise_past_both():
     assert isinstance(psi.k2_plan(20, 8192, 128, 10, SMS, lambda: 1,
                                   _never), psi.K2Geometry)
     assert isinstance(psi.k2_plan(20, 8192, 256, 10, SMS, _never,
-                                  k2_tiled_occupancy(256, 10)),
+                                  k2_tiled_occupancy(10)),
                       psi.K2TiledGeometry)
     with pytest.raises(RuntimeError, match="no block fits an SM at M=128, "
                                            "Q=256"):
         psi.k1_plan(1, 4, 128, 256, 5, SMS, lambda g, rs: 0,
                     k1_tiled_occupancy(256, 5))
     with pytest.raises(RuntimeError, match="no block fits an SM at M=512, "
-                                           "Q=64"):
-        psi.k2_plan(1, 4, 512, 64, SMS, _never, k2_tiled_occupancy(512, 64))
+                                           "Q=128"):
+        psi.k2_plan(1, 4, 512, 128, SMS, _never, k2_tiled_occupancy(128))
     with pytest.raises(RuntimeError, match="past the tiled form's M <= 512 "
                                            "at M=513, Q=10, D=60"):
         psi.k1_plan(1, 4, 513, 10, 60, SMS, _never, _never)

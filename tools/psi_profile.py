@@ -11,7 +11,8 @@ Imports `dp_gp_lvm_tpu_torch` from DIR (default: the checkout holding this
 script), so that an older checkout unpacked beside this one is timed by
 the same script, and builds that checkout's kernels. K1 at the c4 (T=20,
 N=1024, M=64, D=59) and scale (T=20, N=8192, M=128, D=60) shapes, K2 at
-c4, c2 (T=1, N=1000, M=50) and scale, K4 at c4 and scale, K5 and K6 at
+c4, c2 (T=1, N=1000, M=50), scale and, in its tiled form, m256 (T=20 and
+T=1, N=8192, M=256), K4 at c4 and scale, K5 and K6 at
 c2 and scale (N=8192, M=128), all Q=10: one JSON line per kernel and shape
 with the device ms per call of each CUDA kernel the wrapper launches (the
 main kernel and any chunk reduction), from `torch.profiler`'s `key_averages()`
@@ -33,7 +34,9 @@ K1_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10, D=59),
                  scale=dict(T=20, N=8192, M=128, Q=10, D=60))
 K2_SHAPES = dict(c4=dict(T=20, N=1024, M=64, Q=10),
                  c2=dict(T=1, N=1000, M=50, Q=10),
-                 scale=dict(T=20, N=8192, M=128, Q=10))
+                 scale=dict(T=20, N=8192, M=128, Q=10),
+                 m256=dict(T=20, N=8192, M=256, Q=10),
+                 m256_t1=dict(T=1, N=8192, M=256, Q=10))
 K4_SHAPES = dict(c4=K2_SHAPES["c4"], scale=K2_SHAPES["scale"])
 K5_SHAPES = K6_SHAPES = dict(c2=K2_SHAPES["c2"],
                              scale=dict(T=1, N=8192, M=128, Q=10))
