@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--parent DIR]
 
 Needs one CUDA card and nvcc. Drives the port (`dp_gp_lvm_tpu_torch`,
 never JAX) through its main paths at full width: the DP-GP-LVM training
@@ -51,8 +51,13 @@ imputation servers built on them. Phases, each printing one JSON line:
          random G (within 2e-6 scaled); K1, K2 (T = 20 and 1), K4 and K5
          timed at M = 256 on the paths' inputs (device ms, bound, plain
          ms), with their launch geometry (for K2: range rows, panel width,
-         blocks per SM, waves) and, for K2, the registers and local
-         memory (spills) of its tiled kernels
+         blocks per SM, waves; for K1, K4, K5: blocks a chunk and atom,
+         their pair balance, waves) and the registers and local memory
+         (spills) of the tiled kernels; K1, K4 and K5 also with their
+         FP32-issue floor and, with `--parent DIR` (an older checkout of
+         this repository), the device ms of DIR's kernels on the same
+         inputs, timed alike in a child process of this script that
+         imports DIR's package
   train_bgplvm  oil_flow_like -> bgplvm.init_params -> gp_optimizer; the
          same checks; each step must launch K6, K5 and K2 once
   serve_bgplvm  make_bgplvm_imputer on those parameters answers requests
@@ -345,6 +350,13 @@ def k1_fp32_issue_ms(T, N, M, Q, D):
     return 1e3 * instr / (PEAKS["f32_flops"] / 2)
 
 
+def psi2_fp32_issue_ms(T, N, M, Q):
+    """`k1_fp32_issue_ms` for K4 and K5 (K1's body without the Psi1 rows
+    and Psi1^T Y): 2Q + 4 instructions a pair."""
+    pairs = M * (M + 1) // 2
+    return 1e3 * T * N * pairs * (2 * Q + 4) / (PEAKS["f32_flops"] / 2)
+
+
 def k2_work(T, N, M, Q):
     """K2: the symmetric pair exponent (as K1), then per full pair the
     masked W element and its W_sym Z contraction (2Q+8 flops)."""
@@ -437,6 +449,8 @@ def phase_k1(torch, psi, gen):
 def _k1_geometry(psi, shape):
     """How the K1 wrapper launches at `shape` on this card."""
     geo = psi.k1_launch_geometry("cuda", *(shape[k] for k in "TNMQD"))
+    if isinstance(geo, psi.K1TiledGeometry):
+        return geo._asdict()
     return dict(geo._asdict(), lane_use=geo.lane_use)
 
 
@@ -3867,21 +3881,81 @@ def _k2_tiled_attributes():
     return out
 
 
+def _k1_tiled_attributes():
+    """Registers and local memory bytes a thread (the stack frame, spills
+    included) of the tiled K1 body's Q = 10 instantiations, the pair body
+    (K1, K4, K5) and K1's Psi1^T Y kernel, as the loaded module reports
+    them (cudaFuncGetAttributes, so whether or not this run built it)."""
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    query = build.function("psi_suffstats", "psi_suffstats_tiled_attributes")
+    got = (ctypes.c_int * 5)()
+    err = query(10, ctypes.addressof(got))
+    if err:
+        raise RuntimeError(f"psi_suffstats_tiled_attributes failed (CUDA "
+                           f"error {err})")
+    qc, body_regs, body_local, p1y_regs, p1y_local = got
+    return {f"suffstats_tiled_kernel<{qc}>": dict(registers=body_regs,
+                                                 local_bytes=body_local),
+            f"p1y_tiled_kernel<{qc}>": dict(registers=p1y_regs,
+                                           local_bytes=p1y_local)}
+
+
+M256_LAUNCHES, M256_REPLAYS = 5, 3   # the m256 timings' CUDA graphs
+
+
+def _parent_device_ms(torch, parent, calls):
+    """Device ms of the parent checkout `parent`'s wrappers on the same
+    inputs, timed as `_m256_timing` times this checkout's, in a child
+    process of this script that imports the parent's package
+    (`--time-inputs`): {name: ms}."""
+    path = ROOT / "build" / "m256_inputs.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(calls, path)
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parent",
+         str(parent), "--time-inputs", str(path)],
+        capture_output=True, text=True, check=True, timeout=900).stdout
+    return json.loads(out.splitlines()[-1])
+
+
+def _time_inputs(torch, parent, path) -> int:
+    """`--time-inputs`: time the wrappers of the package in `parent` on the
+    arguments saved at `path` ({wrapper name: arguments}) and print
+    {name: device ms} as the last line."""
+    sys.path.insert(0, str(parent.resolve()))
+    from dp_gp_lvm_tpu_torch.core.types import pin_full_f32
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    pin_full_f32()
+    calls = torch.load(path)
+    emit({name: _device_ms(lambda fn=getattr(psi, name), a=args: fn(*a),
+                           torch, launches=M256_LAUNCHES,
+                           replays=M256_REPLAYS)
+          for name, args in calls.items()})
+    return 0
+
+
 def _m256_timing(torch, psi, args, name):
     """One kernel at M = 256 on `args`: device ms (5 launches in one CUDA
     graph), the wrapper's ms, its plain version's ms, the bound, and the
-    launch geometry; for K2 also the tiled kernels' registers and local
-    memory."""
+    launch geometry and the tiled kernels' registers and local memory;
+    for K1, K4 and K5 also the FP32-issue floor."""
     shape, bound, by = _work_of(name, args)
     fn = getattr(psi, name)
     ref = getattr(psi, RUN_KERNELS[name][0])
-    dev = _device_ms(lambda: fn(*args), torch, launches=5, replays=3)
+    dev = _device_ms(lambda: fn(*args), torch, launches=M256_LAUNCHES,
+                     replays=M256_REPLAYS)
     extra = {}
     if name == "psi2_bwd_batched":
         geometry = _k2_geometry(psi, shape)
         extra["attributes"] = _k2_tiled_attributes()
     else:
         geometry = _k1_geometry(psi, dict(dict(T=1, D=0), **shape))
+        extra["attributes"] = _k1_tiled_attributes()
+        extra["fp32_issue_ms"] = (
+            k1_fp32_issue_ms(**shape) if "D" in shape
+            else psi2_fp32_issue_ms(**dict(dict(T=1), **shape)))
     return dict(shape=shape, device_ms=dev, bound_ms=bound, bound_by=by,
                 device_over_bound=dev / bound,
                 ms=_timed(lambda: fn(*args), torch, reps=5, warmup=1),
@@ -3903,7 +3977,7 @@ def _random_cotangent(torch, seen, gen):
             for key, args in seen.items() if key[0] == "psi2_bwd_batched"}
 
 
-def phase_m256(torch, seed):
+def phase_m256(torch, seed, parent=None):
     from dp_gp_lvm_tpu_torch.core import prng
     from dp_gp_lvm_tpu_torch.core.config import CONFIGS
     from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like, oil_flow_like
@@ -3980,6 +4054,15 @@ def phase_m256(torch, seed):
                                   "psi2_batched"),
         psi2_single=_m256_timing(torch, psi, first["psi2_single"],
                                  "psi2_single"))
+    # K1's body on the same inputs in the parent checkout, when given
+    calls = dict(suffstats_batched=list(dp_args),
+                 psi2_batched=list(dp_args[:5]) + [None],
+                 psi2_single=list(first["psi2_single"]))
+    parent_ms = (_parent_device_ms(torch, parent, calls) if parent
+                 else dict.fromkeys(calls))
+    for name, ms in parent_ms.items():
+        timing[name].update(parent=None if parent is None else str(parent),
+                            parent_device_ms=ms)
     row = dict(phase="m256", dp=dict(config=M256, **dp),
                bgplvm=dict(config=M256_BG, **bg),
                bgplvm_on_dp_data=dict(config=dict(M256_BG, D=M256["D"]),
@@ -4017,6 +4100,15 @@ def phase_m256(torch, seed):
         if not 0 < a["registers"] <= 128:
             failures.append(f"{kernel} takes {a['registers']} registers a "
                             "thread, past two 256-thread blocks an SM")
+    # the pair body at two 256-thread blocks an SM, the Psi1^T Y kernel at
+    # four: registers within that cap, and no local memory (no spill)
+    caps = dict(suffstats=128, p1y=64)
+    for kernel, a in timing["suffstats_batched"]["attributes"].items():
+        cap = caps[kernel.split("_")[0]]
+        if not (0 < a["registers"] <= cap and a["local_bytes"] == 0):
+            failures.append(f"{kernel} takes {a['registers']} registers "
+                            f"and {a['local_bytes']} bytes of local memory "
+                            f"a thread: past its cap of {cap}, or a spill")
     if failures:
         raise AssertionError("m256: " + "; ".join(failures))
     return row
@@ -4025,6 +4117,11 @@ def phase_m256(torch, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=pathlib.Path, default=None,
+                    help="an older checkout whose K1, K4 and K5 the m256 "
+                         "phase also times on its inputs")
+    ap.add_argument("--time-inputs", type=pathlib.Path, default=None,
+                    help=argparse.SUPPRESS)   # the --parent child's mode
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4033,6 +4130,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.time_inputs:
+        return _time_inputs(torch, args.parent, args.time_inputs)
     if not (ROOT / "dp_gp_lvm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the dp_gp_lvm_tpu_torch package is missing",
               file=sys.stderr)
@@ -4073,7 +4172,7 @@ def main(argv=None) -> int:
     gate = phase_gate(torch, psi, gen)
     train, dp_params, dp_Y, dp_cfg = phase_train(torch, args.seed)
     phase_scale(torch, psi, gen)
-    m256 = phase_m256(torch, args.seed)
+    m256 = phase_m256(torch, args.seed, args.parent)
     train2, bg_params, bg_Y, bg_cfg = phase_train_bgplvm(torch, args.seed)
     serve2 = phase_serve_bgplvm(torch, args.seed, bg_params, bg_Y, bg_cfg)
     serve5 = phase_serve_dp(torch, args.seed, dp_params, dp_Y, dp_cfg)
@@ -4207,7 +4306,9 @@ def main(argv=None) -> int:
         """A kernel at M = 256 (the m256 phase, its tiled form): device ms,
         ms, plain ms and bound on the paths' inputs, its launches on each
         m256 path and its largest error against f64 in the held holds
-        (those not f32-limited)."""
+        (those not f32-limited). The geometry keeps its launch
+        configuration (integers); the m256 phase's row has the rest (waves,
+        fill, balance, FP32-issue floor), worked out from the shapes."""
         t = m256["timing"][timed[0] if timed else name]
         errs = [h["max_abs_err"] for h in m256["held_on_path_inputs"]
                 + m256["held_on_path_inputs_random_g"]
@@ -4216,7 +4317,9 @@ def main(argv=None) -> int:
         out = {"m256_shape": t["shape"], "m256_device_ms": t["device_ms"],
                "m256_ms": t["ms"], "m256_plain_ms": t["plain_ms"],
                "m256_bound_ms": t["bound_ms"], "m256_bound_by": t["bound_by"],
-               "m256_geometry": t["geometry"],
+               "m256_geometry": {k: v for k, v in t["geometry"].items()
+                                 if isinstance(v, int)},
+               "m256_attributes": t["attributes"],
                "m256_max_abs_err": max(errs),
                "m256_launches": {
                    "dp_10_steps": m256["dp"]["launches"][name],
@@ -4229,6 +4332,9 @@ def main(argv=None) -> int:
                         f"m256_{extra}_device_ms": e["device_ms"],
                         f"m256_{extra}_plain_ms": e["plain_ms"],
                         f"m256_{extra}_bound_ms": e["bound_ms"]})
+        if "parent_device_ms" in t:
+            out.update(m256_parent_device_ms=t["parent_device_ms"],
+                       m256_redesigned_in="twentieth slice of the port")
         return out
 
     c7_full = dp["kernels_at_c7"]["suffstats_batched T=8 N=131072"]
@@ -4283,9 +4389,7 @@ def main(argv=None) -> int:
              mesh_svi_launches_per_step=on_mesh("psi2_bwd_batched"),
              **at_m256("psi2_bwd_batched", "psi2_bwd_batched",
                        "psi2_bwd_batched_t1"),
-             m256_redesigned_in="nineteenth slice of the port",
-             m256_attributes=m256["timing"]["psi2_bwd_batched"][
-                 "attributes"]),
+             m256_redesigned_in="nineteenth slice of the port"),
         dict(kernel_row("psi2_batched", "psi_suffstats.cu", 244, "gate", k4),
              redesigned_in="sixth slice of the port",
              scale_device_ms=k4["scale"]["device_ms"],

@@ -32,7 +32,8 @@ SIGNATURES = {
                       "psi_suffstats_blocks_per_sm": [I] * 5,
                       "psi_suffstats_tiled_f32": [P] * 10 + [I] * 8 + [P],
                       "psi2_batched_tiled_f32": [P] * 8 + [I] * 7 + [P],
-                      "psi_suffstats_tiled_blocks_per_sm": [I] * 3},
+                      "psi_suffstats_tiled_blocks_per_sm": [I] * 3,
+                      "psi_suffstats_tiled_attributes": [I, P]},
     "psi2_bwd": {"psi2_bwd_f32": [P] * 16 + [I] * 7 + [P],
                  "psi2_bwd_blocks_per_sm": [I] * 3,
                  "psi2_bwd_tiled_f32": [P] * 16 + [I] * 6 + [P],

@@ -566,6 +566,72 @@ def test_tiled_k1_k4_k5_match_plain(card, M_, Q_, weighted):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T_,N_,M_", [(3, 200, 512), (20, 2048, 256)],
+                         ids=["m512", "t20_n2048_m256"])
+def test_tiled_k1_k4_k5_match_plain_at_scale(card, T_, N_, M_):
+    """K1 (D = 60), K4 and K5 in the tiled form against their plain
+    versions in f64, weighted: at M = 512 (32 blocks a chunk and atom, 28
+    off-diagonal, 4 diagonal pairs) and at T = 20, N = 2048, M = 256,
+    where each chunk walks many stages of rows."""
+    a, f = _inputs(card, True, T=T_, N=N_, M=M_, Q=10, D=60)
+    geo = psi.k1_launch_geometry(card, T_, N_, M_, 10, 60)
+    assert isinstance(geo, psi.K1TiledGeometry) and geo.balance >= 0.95
+    psi.reset_launch_counts()
+    got = psi.suffstats_batched(*_k1(f))
+    assert max(_k2_errors(got, psi.suffstats_batched_reference(
+        *_k1(a)))) <= TOL_K1
+    got = psi.psi2_batched(*_k45(f))
+    assert max(_k2_errors([got], [psi.psi2_batched_reference(
+        *_k45(a))])) <= TOL_K1
+    got = psi.psi2_single(*_one(f))
+    assert max(_k2_errors([got], [psi.psi2_single_reference(
+        *_one(a))])) <= TOL_K1
+    assert psi.LAUNCHES == _launched(suffstats_batched=1, psi2_batched=1,
+                                     psi2_single=1)
+
+
+@pytest.mark.cuda
+def test_tiled_k1_attributes_are_read_at_run_time(card):
+    """The loaded module reports the registers and local memory of the
+    tiled K1 body's kernels through cudaFuncGetAttributes: the pair body
+    within the 128 registers of two 256-thread blocks an SM, the Psi1^T Y
+    kernel within the 64 of four, both with no local memory (no spill) at
+    Q = 10."""
+    import ctypes
+
+    from dp_gp_lvm_tpu_torch.ops import build
+
+    query = build.function("psi_suffstats", "psi_suffstats_tiled_attributes")
+    got = (ctypes.c_int * 5)()
+    for Q_ in (10, 16):
+        assert query(Q_, ctypes.addressof(got)) == 0
+        qc, body_regs, body_local, p1y_regs, p1y_local = got
+        assert qc == (10 if Q_ == 10 else 0)
+        assert 0 < body_regs <= 128 and 0 < p1y_regs <= 64
+        if Q_ == 10:
+            assert body_local == 0 and p1y_local == 0
+    assert query(0, ctypes.addressof(got)) != 0
+
+
+@pytest.mark.cuda
+def test_tiled_k1_repeats_its_bits_five_times(card):
+    """Five launches of the tiled K1, K4 and K5 at M = 256 (T = 20, N =
+    2048) give the same bits: no atomics, every sum in a fixed order, two
+    blocks an SM and many chunks in flight."""
+    _, f = _inputs(card, True, T=20, N=2048, M=256, Q=10, D=60)
+    geo = psi.k1_launch_geometry(card, 20, 2048, 256, 10, 60)
+    assert isinstance(geo, psi.K1TiledGeometry) and geo.chunks > 1
+    first = (psi.suffstats_batched(*_k1(f)), psi.psi2_batched(*_k45(f)),
+             psi.psi2_single(*_one(f)))
+    for _ in range(4):
+        again = (psi.suffstats_batched(*_k1(f)), psi.psi2_batched(*_k45(f)),
+                 psi.psi2_single(*_one(f)))
+        assert all(torch.equal(x, y) for x, y in zip(first[0], again[0]))
+        assert torch.equal(first[1], again[1])
+        assert torch.equal(first[2], again[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize(
     "T_,N_,M_,Q_", [(3, 150, m, q) for m in TILED_M for q in TILED_Q]

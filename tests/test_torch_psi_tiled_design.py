@@ -3,11 +3,14 @@
 on, checked on the CPU in f64, and their launch geometry.
 
 The tiled K1 body cuts Psi2's upper triangle into super-tiles of K1_TILE x
-K1_TILE: block (chunk, atom, super-tile (a, b)) sums its rows' var^2 w_n
-E_n over rows of range a and columns of range b (the upper 4x4 tiles only
-on the diagonal), diagonal super-tiles also their range's rows of Psi1^T
-Y; the reduction sums the chunks in chunk order and reads (l, m) below the
-diagonal. The tiled K2 gives block (chunk, atom, range a) the 32 rows m of
+K1_TILE: block (chunk, atom, k) stages two ranges (a, b) and sums its rows'
+var^2 w_n E_n over the pairs of an off-diagonal super-tile (a, b), a 4x4
+tile a thread, or of the upper triangles of the diagonal super-tiles (a,
+a) and (b, b), whose last warp takes the 32 diagonal 4x4 tiles (pairs m
+<= l) and the halves of 16 strictly upper ones; K1's Psi1^T Y runs a
+block per (chunk, atom, range a), a 4 x 4 tile of (m, d) a thread over
+walks of 64 columns of Y. The reduction sums the chunks in chunk order
+and reads (l, m) below the diagonal. The tiled K2 gives block (chunk, atom, range a) the 32 rows m of
 range a and walks the columns in panels of P: thread (m, slice j, row slot
 rs) takes the slice's columns of each panel for the rows rs, rs + RS, ...
 of every batch of B. When a panel ends, S is summed over the row slots;
@@ -19,6 +22,7 @@ order. Each emulation walks the geometry the wrappers launch and is held
 to the plain version's outputs at 1e-12, with row weights that hold zeros.
 No JAX here: the plain versions are the port's own oracle.
 """
+import contextlib
 import math
 
 import numpy as np
@@ -44,15 +48,18 @@ def _r32(x):
 
 def k1_tiled_occupancy(Q_, D_, registers=128):
     """Blocks per SM of an H100 (64 K registers, 2048 threads, 227 KB of
-    shared memory a block) for the tiled K1 block of K1_TILED_THREADS at
-    `registers` a thread (ptxas gave 107-128 for sm_90a) and its source's
-    shared-memory layout, by staged rows."""
+    shared memory a block) for the tiled K1 pair body of K1_TILED_THREADS
+    at `registers` a thread (its launch bounds cap them at 128) and its
+    source's shared-memory layout (`tiled_layout`: two ranges of staged
+    columns, three stages of row scalars, two of c), by staged rows; none
+    where, at D > 0, the Psi1^T Y kernel's block (`p1y_smem_floats`) fits
+    no SM."""
     def occupancy(stage_rows):
-        rs = stage_rows
-        floats = (Q_ * 2 * TP + _r4(Q_) + 3 * rs * _r4(6 * Q_ + 3)
-                  + 3 * rs * _r4(D_) + 2 * rs * Q_ * 2 * TP
-                  + (2 * rs * TP if D_ > 0 else 0))
-        if 4 * floats > 232448:
+        rs, tw = stage_rows, 2 * TP
+        floats = (Q_ * tw + _r4(Q_) + 3 * rs * _r4(4 * Q_ + 3)
+                  + 2 * rs * Q_ * tw)
+        p1y = Q_ * TP + 32 * _r4(3 * Q_ + 2) + 32 * TP + 32 * 64
+        if 4 * floats > 232448 or (D_ > 0 and 4 * p1y > 232448):
             return 0
         threads = psi.K1_TILED_THREADS
         return min(2048 // threads, 65536 // (registers * threads),
@@ -115,6 +122,19 @@ def _pairs(a):
     return torch.exp(torch.clamp(expo, max=0.0)), expo, u
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """One intra-op thread while an emulation runs its thousands of small
+    ops: with a test worker's threads on every core beside other workers,
+    they wait on each other (the K2 emulation at M = 512 took minutes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _close(got, want):
     return float((got - want).abs().max()) <= TOL * float(want.abs().max())
 
@@ -129,8 +149,65 @@ def _chunks(rows, chunks, n):
     return [slice(c * rows, min(n, (c + 1) * rows)) for c in range(chunks)]
 
 
+T4 = TP // 4
+EDGE0 = psi.K1_TILED_THREADS - 32     # the last warp of a block
+STRICT = [(i, j) for i in range(T4) for j in range(i + 1, T4)]
+
+
+def _thread_pairs(diagonal, tid):
+    """Thread `tid`'s pairs (jm, jl) in a block's staged columns (range a
+    below K1_TILE, range b from it), as its source assigns them."""
+    if not diagonal:
+        m0, l0 = 4 * (tid // T4), TP + 4 * (tid % T4)
+        return [(m0 + i, l0 + j) for i in range(4) for j in range(4)]
+    k = tid if tid < EDGE0 else EDGE0 + (tid - EDGE0) // 2
+    base = k // len(STRICT) * TP
+    tm, tl = STRICT[k % len(STRICT)]
+    m0, l0 = base + 4 * tm, base + 4 * tl
+    if tid < EDGE0:
+        return [(m0 + i, l0 + j) for i in range(4) for j in range(4)]
+    lane = tid - EDGE0
+    h0 = m0 + 2 * (lane % 2)
+    d0 = lane // T4 * TP + 4 * (lane % T4)
+    return ([(d0 + i, d0 + j) for i in range(4) for j in range(i, 4)]
+            + [(h0 + i, l0 + j) for i in range(2) for j in range(4)])
+
+
+def _k1_owners(S):
+    """Per pair some thread of some block writes: (block, thread, super-
+    tile, row and column in it, m, l), the kernel's ownership at S ranges;
+    a range past the last (b = S) is not written."""
+    tile = {ab: k for k, ab in enumerate(_upper(S))}
+    out = []
+    for k, (ra, rb, diag) in enumerate(psi.k1_tiled_blocks(S)):
+        for tid in range(psi.K1_TILED_THREADS):
+            for jm, jl in _thread_pairs(diag, tid):
+                am, al = (ra, rb)[jm // TP], (ra, rb)[jl // TP]
+                if al < S:
+                    out.append((k, tid, tile[am, al], jm % TP, jl % TP,
+                                am * TP + jm % TP, al * TP + jl % TP))
+    return np.array(out)
+
+
+def _k1_p1y_owners(S, D_):
+    """Per Psi1^T Y entry (m, d) of the padded ranges the (block, thread)
+    that sums it: block (range a) over walks of 64 columns of Y, thread
+    tid a 4 x 4 tile at row 4 (tid % 16) of the range, column 4 (tid // 16)
+    of the walk; columns past D are not written."""
+    out = []
+    for ra in range(S):
+        for dw in range(0, D_, 64):
+            for tid in range(psi.K1_TILED_THREADS):
+                m0, d0 = 4 * (tid % T4), dw + 4 * (tid // T4)
+                out += [(ra, tid, ra * TP + m0 + i, d0 + j)
+                        for i in range(4) for j in range(4) if d0 + j < D_]
+    return np.array(out)
+
+
 def _k1_emulated(a, geo, M_):
-    """The tiled K1 body's partials over `geo` and its reduction."""
+    """The tiled K1 body's partials over `geo`, written by the blocks'
+    threads as they own the pairs and the Psi1^T Y slices, and its
+    reduction in chunk order."""
     E, _, _ = _pairs(a)
     wE = (a["vs"] ** 2)[:, None, None, None] * a["w"][None, :, None,
                                                         None] * E
@@ -141,34 +218,26 @@ def _k1_emulated(a, geo, M_):
     wE_p[:, :, :M_, :M_] = wE
     psi1_p = torch.zeros(T, N, pad, dtype=E.dtype)
     psi1_p[:, :, :M_] = psi1
-    tiles = _upper(S)
-    part2 = torch.full((geo.chunks, T, len(tiles), TP, TP), float("nan"),
-                       dtype=E.dtype)
+    own = torch.as_tensor(_k1_owners(S))
+    tile, lm, ll, m, l = own[:, 2], own[:, 3], own[:, 4], own[:, 5], own[:, 6]
+    p1y_own = torch.as_tensor(_k1_p1y_owners(S, D))
+    pr, pm, pd = p1y_own[:, 0], p1y_own[:, 2], p1y_own[:, 3]
+    part2 = torch.full((geo.chunks, T, S * (S + 1) // 2, TP, TP),
+                       float("nan"), dtype=E.dtype)
     part1 = torch.full((geo.chunks, T, S, TP, D), float("nan"),
                        dtype=E.dtype)
-    t4 = TP // 4
-    owned = torch.zeros(TP, TP, dtype=torch.bool)    # upper 4x4 tiles
-    for tm, tl in _upper(t4):
-        owned[4 * tm:4 * tm + 4, 4 * tl:4 * tl + 4] = True
     for c, rows in enumerate(_chunks(geo.rows, geo.chunks, N)):
-        for k, (ra, rb) in enumerate(tiles):
-            block = wE_p[:, rows, ra * TP:(ra + 1) * TP,
-                         rb * TP:(rb + 1) * TP].sum(1)
-            if ra == rb:
-                block = torch.where(owned, block, float("nan"))
-                part1[c, :, ra] = (psi1_p[:, rows, ra * TP:(ra + 1) * TP]
-                                   .mT @ a["Y"][rows])
-            part2[c, :, k] = block
-    psi2 = torch.empty(T, M_, M_, dtype=E.dtype)
-    index = {ab: k for k, ab in enumerate(tiles)}
-    for m in range(M_):
-        for l in range(M_):
-            lo, hi = min(m, l), max(m, l)
-            acc = part2[0, :, index[lo // TP, hi // TP], lo % TP, hi % TP]
-            for c in range(1, geo.chunks):
-                acc = acc + part2[c, :, index[lo // TP, hi // TP], lo % TP,
-                                  hi % TP]
-            psi2[:, m, l] = acc
+        part2[c][:, tile, lm, ll] = wE_p[:, rows].sum(1)[:, m, l]
+        p1y = psi1_p[:, rows].mT @ a["Y"][rows]          # (T, pad, D)
+        part1[c][:, pr, pm % TP, pd] = p1y[:, pm, pd]
+    mm, ml = torch.meshgrid(torch.arange(M_), torch.arange(M_),
+                            indexing="ij")
+    lo, hi = torch.minimum(mm, ml), torch.maximum(mm, ml)
+    ra, rb = lo // TP, hi // TP                 # the reduction's tile
+    tiles = ra * S - ra * (ra - 1) // 2 + rb - ra
+    psi2 = part2[0][:, tiles, lo % TP, hi % TP]
+    for c in range(1, geo.chunks):
+        psi2 = psi2 + part2[c][:, tiles, lo % TP, hi % TP]
     p1y = part1[0]
     for c in range(1, geo.chunks):
         p1y = p1y + part1[c]
@@ -178,10 +247,13 @@ def _k1_emulated(a, geo, M_):
 @pytest.mark.parametrize("M_", [129, 256])
 def test_tiled_k1_partials_reduce_to_psi2_and_psi1ty(M_):
     a = _inputs(M_)
-    geo = psi.k1_tiled_geometry(T, N, M_, Q, D, SMS, k1_tiled_occupancy(Q, D))
+    geo = psi.k1_tiled_geometry(T, N, M_, Q, D, SMS,
+                                k1_tiled_occupancy(Q, D))
     assert geo.chunks > 1                     # the chunk sum is walked
-    psi2, p1y = _k1_emulated(a, geo, M_)
+    with _one_thread():
+        psi2, p1y = _k1_emulated(a, geo, M_)
     assert not torch.isnan(psi2).any()        # every output read a partial
+    assert not torch.isnan(p1y).any()
     want = psi.suffstats_batched_reference(a["vs"], a["ards"], a["mu"],
                                            a["s"], a["Zs"], a["Y"], a["w"])
     assert _close(psi2, want[0]) and _close(p1y, want[1])
@@ -201,10 +273,10 @@ def _k2_emulated(a, geo, M_):
     Sp = torch.zeros(geo.chunks, T, M_, M_, dtype=torch.float64)
     gard = torch.zeros(geo.chunks, A, T, Q, dtype=torch.float64)
     rowpart = torch.zeros(A, T, N, 2 * Q + 1, dtype=torch.float64)
+    E_all, expo_all, u_all = _pairs(a)                    # every row's
+    em_all = E_all * (expo_all < 0.0).to(E_all.dtype)
     for c, rows in enumerate(_chunks(geo.rows, geo.chunks, N)):
-        sub = {k: a[k][rows] for k in ("mu", "s", "w")}
-        E, expo, u = _pairs(dict(a, **sub))               # the chunk's rows
-        em = E * (expo < 0.0).to(E.dtype)
+        E, em, u = E_all[:, rows], em_all[:, rows], u_all[:, rows]
         b = a["ards"][:, None, :] / u                     # (T, n, Q)
         n = E.shape[1]
         # row slot of each row: its place in its batch of B, modulo slots
@@ -237,16 +309,19 @@ def _k2_emulated(a, geo, M_):
                 # share of gvar and gz; the slots' S summed in slot order
                 S = torch.zeros(T, ms.stop - ms.start, ls.stop - ls.start,
                                 dtype=torch.float64)
+                # the range's rows and the panel's columns cut first,
+                # then each slot's rows taken from the cut
+                em_p, E_p = em[:, :, ms, ls], E[:, :, ms, ls]
                 for r_ in range(slots):
                     mine = slot == r_
                     S = S + torch.einsum("tn,tnrl->trl", f[:, mine],
-                                         em[:, mine][:, :, ms, ls])
+                                         em_p[:, mine])
                     for j in range(slices):
                         cs = slice(j * 32, (j + 1) * 32)
                         WSj = WS[:, mine][..., cs]
                         rj = WSj.sum(-1)
                         wj = WSj @ Zs[:, None, ls][:, :, cs]
-                        pj = (E[:, mine][:, :, ms, ls][..., cs]
+                        pj = (E_p[:, mine][..., cs]
                               * G[:, None, ms, ls][..., cs]).sum(-1)
                         bj, mj = bn[:, mine], mn[mine]
                         gvar[c, :, ms] += torch.einsum(
@@ -279,7 +354,8 @@ def test_tiled_k2_range_shares_sum_to_the_pullback(M_):
     a = _inputs(M_, seed=18)
     geo = psi.k2_tiled_geometry(T, N, M_, Q, SMS, k2_tiled_occupancy(Q))
     assert geo.chunks > 1 and geo.ranges > 1 and geo.panels > 1
-    got = _k2_emulated(a, geo, M_)
+    with _one_thread():
+        got = _k2_emulated(a, geo, M_)
     want = psi.psi2_bwd_batched_reference(a["vs"], a["ards"], a["mu"],
                                           a["s"], a["Zs"], a["G"], a["w"])
     for g, w_ in zip(got, want):
@@ -298,42 +374,59 @@ def _covered_once(geo, n):
 
 @pytest.mark.parametrize("M_", GEOMETRY_M)
 def test_tiled_k1_geometry_writes_every_output_once(M_):
-    """Every (m, l) reads one super-tile entry some thread wrote, no two
-    threads write one entry, each Psi1^T Y entry of a range is one
-    thread's, and the chunks walk every row once; at the m256 phase's DP
+    """Every thread of every pair block owns 16 or 18 pairs; every (m <= l)
+    is one thread's, read from the super-tile entry it wrote, and no two
+    threads write one entry; every Psi1^T Y entry of every range is one
+    thread's; the chunks walk every row once; at the m256 phase's DP
     shape (T = 20, N = 8192, D = 60)."""
     geo = psi.k1_tiled_geometry(20, 8192, M_, 10, 60, SMS,
                                 k1_tiled_occupancy(10, 60))
     S = math.ceil(M_ / TP)
-    t4 = TP // 4
+    blocks = psi.k1_tiled_blocks(S)
     assert (geo.ranges, geo.super_tiles) == (S, S * (S + 1) // 2)
-    assert geo.threads == psi.K1_TILED_THREADS == t4 * t4
-    assert _covered_once(geo, 8192) and geo.slot_fill >= 0.9
-    written = {}
-    for k, (ra, rb) in enumerate(_upper(S)):
-        owners = (_upper(t4) if ra == rb
-                  else [(i, j) for i in range(t4) for j in range(t4)])
-        assert len(owners) <= geo.threads
-        for tid, (tm, tl) in enumerate(owners):
-            for i in range(4):
-                for j in range(4):
-                    pos = (k, 4 * tm + i, 4 * tl + j)
-                    assert pos not in written
-                    written[pos] = tid
+    assert geo.blocks == len(blocks) == S * (S - 1) // 2 + (S + 1) // 2
+    assert geo.threads == psi.K1_TILED_THREADS == T4 * T4
+    assert _covered_once(geo, 8192) and geo.slot_fill >= 0.95
+    for _, _, diag in blocks[-1:] + blocks[:1]:
+        counts = [len(_thread_pairs(diag, tid)) for tid in range(geo.threads)]
+        assert set(counts) == ({16, 18} if diag else {16})
+    own = _k1_owners(S)
+    entries = {tuple(e) for e in own[:, 2:5]}
+    assert len(entries) == len(own)               # one writer an entry
+    pairs = own[:, 5:7]
+    assert (pairs[:, 0] <= pairs[:, 1]).all()
+    real = pairs[(pairs < M_).all(1)]
+    assert len({tuple(p) for p in real}) == len(real) == M_ * (M_ + 1) // 2
     index = {ab: k for k, ab in enumerate(_upper(S))}
-    read = set()
     for m in range(M_):
         for l in range(m, M_):
-            pos = (index[m // TP, l // TP], m % TP, l % TP)
-            assert pos in written and pos not in read
-            read.add(pos)
-    dt4 = math.ceil(60 / 4)
-    cells = [(4 * (pt // dt4) + i, 4 * (pt % dt4) + j)
-             for pt in range(geo.p1y_passes * geo.threads)
-             if pt < t4 * dt4 for i in range(4) for j in range(4)]
-    assert sorted(cells) == [(m, d) for m in range(TP) for d in range(60)]
+            assert (index[m // TP, l // TP], m % TP, l % TP) in entries
+    cells = sorted(map(tuple, _k1_p1y_owners(S, 60)[:, 2:]))
+    assert cells == [(m, d) for m in range(S * TP) for d in range(60)]
     assert geo.part_floats == geo.chunks * 20 * (
         geo.super_tiles * TP * TP + S * TP * 60)
+
+
+@pytest.mark.parametrize("M_", [256, 512])
+def test_tiled_k1_blocks_carry_the_same_pair_work(M_):
+    """At M = 256 and 512 every pair block owns the same useful pairs to 5%
+    (4096 an off-diagonal super-tile, 4160 a diagonal pair), and every
+    Psi1^T Y block a range's K1_TILE x D entries; the geometry's balance
+    is that ratio, and its waves count blocks, each a unit of work."""
+    geo = psi.k1_tiled_geometry(20, 8192, M_, 10, 60, SMS,
+                                k1_tiled_occupancy(10, 60))
+    own = _k1_owners(geo.ranges)
+    useful = (own[:, 5:7] < M_).all(1)
+    pairs = np.bincount(own[useful, 0], minlength=geo.blocks)
+    assert pairs.sum() == M_ * (M_ + 1) // 2
+    assert geo.balance == pairs.min() / pairs.max() >= 0.95
+    assert sorted(set(pairs)) == [TP * TP, TP * (TP + 1)]
+    cells = np.bincount(_k1_p1y_owners(geo.ranges, 60)[:, 0])
+    assert (cells == TP * 60).all() and len(cells) == geo.ranges
+    slots = SMS * geo.blocks_per_sm
+    blocks = geo.chunks * 20 * geo.blocks
+    assert geo.waves == blocks / slots
+    assert geo.slot_fill == blocks / (math.ceil(blocks / slots) * slots)
 
 
 @pytest.mark.parametrize("M_", GEOMETRY_M)
