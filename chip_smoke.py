@@ -10,6 +10,17 @@ training step (c2_sparse_oil: N=1000, D=12, Q=10, M=50) and the two
 imputation servers built on them. Phases, each printing one JSON line:
 
   build  nvcc-builds the CUDA kernels from csrc/ (in parallel)
+  steps  the step of every chunked loop of the runner (c4 full batch, c6
+         resident and streamed, c7 stage 2c, c8, c9 phase B) at its
+         config's widths on a 4096-row draw (c4: its 1024 rows): the
+         host syncs of an eager step (PyTorch's sync debug mode; held at
+         0), ms a step and rows/s eager and replayed from a CUDA graph
+         (a chunk of 100 after one that captures; held: 100 replays,
+         finite losses) and, with `--parent DIR`, DIR's eager numbers
+         measured first in a child process in the same call; the svi,
+         stream, dp_svi, amortized, mrd_svi, runs and trace phases
+         print them (`step_*`) beside the graphs their runs captured and
+         replayed (held: every runner phase replayed its chunks)
   k1     K1 (fused Psi2 + Psi1^T Y) against its plain version in f64, at
          the c4 shape and at the N=8192, M=128 scale shape, with the launch
          geometry; two launches on the same inputs must give the same bits
@@ -221,8 +232,9 @@ imputation servers built on them. Phases, each printing one JSON line:
          predictive at toy widths (N=200, M=10), f32 on the card against
          f64 on the CPU at the same jitter; also reported, not held, at
          N=500, M=30, where K_uu's condition number is near 4e4
-  trace  the first torch.profiler trace of a step: one c4_dp_mocap
-         training step and one streamed c6 chunk of 100 steps; CUDA and
+  trace  torch.profiler traces: one eager c4_dp_mocap training step, a
+         chunk of 100 of them replayed from a CUDA graph and one
+         streamed c6 chunk of 100 replayed steps; CUDA and
          CPU time of the DP loss's scopes (psi_stats, kuu_gram,
          collapsed_bound), device time by kernel, wall time and the
          card's idle share (numbers only, nothing held)
@@ -287,33 +299,38 @@ def emit(obj) -> None:
 
 
 def _timed(fn, torch, reps=20, warmup=3) -> float:
-    """Median ms of `fn` over `reps` CUDA-event-timed calls after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    """Median ms of `fn` over `reps` CUDA-event-timed calls after warm-up
+    (no launch counted on the card)."""
+    with _uncounted():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
 def _device_ms(fn, torch, launches=20, replays=5) -> float:
     """ms of one call of `fn` on the card with the host's share taken out:
     `launches` calls captured in one CUDA graph, the graph replayed, the
-    median replay divided by `launches`."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    return _timed(graph.replay, torch, reps=replays, warmup=2) / launches
+    median replay divided by `launches` (no launch counted on the
+    card)."""
+    with _uncounted():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        return _timed(graph.replay, torch, reps=replays,
+                      warmup=2) / launches
 
 
 def _bound_ms(bytes_moved, flops, exps):
@@ -1404,16 +1421,21 @@ def _first_inputs(torch, psi, worth=lambda name, args: True):
     accepts. The wrappers are module attributes looked up at call time,
     so the fused autograd ops and every model reach the recording
     copies."""
-    seen = {}
+    seen, pending = {}, {}
     originals = {name: getattr(psi, name) for name in RUN_KERNELS}
 
     def recording(name, fn):
         def wrapper(*args):
             key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
                                   for a in args)
-            if key not in seen and worth(name, args):
-                seen[key] = [a.detach().clone() if torch.is_tensor(a) else a
-                             for a in args]
+            if key in seen or key in pending:
+                pass
+            elif torch.cuda.is_current_stream_capturing():
+                # a captured step: the copies fill at each replay and
+                # `worth` reads them after the block, off the graph
+                pending[key] = _copied(torch, args)
+            elif worth(name, args):
+                seen[key] = _copied(torch, args)
             return fn(*args)
         return wrapper
 
@@ -1424,6 +1446,14 @@ def _first_inputs(torch, psi, worth=lambda name, args: True):
     finally:
         for name, fn in originals.items():
             setattr(psi, name, fn)
+        torch.cuda.synchronize()
+        for key, args in pending.items():
+            if key not in seen and worth(key[0], args):
+                seen[key] = args
+
+
+def _copied(torch, args):
+    return [a.detach().clone() if torch.is_tensor(a) else a for a in args]
 
 
 def _hold_first_inputs(torch, psi, seen):
@@ -1525,6 +1555,7 @@ def phase_runs(torch, seed):
         cfg = dataclasses.replace(config.get(name), seed=seed)
         psi.reset_launch_counts()
         loop.reset_step_count()
+        graphs0 = dict(loop.GRAPHS)
         with _first_inputs(torch, psi) as seen:
             result = runner.run(cfg, steps=RUN_STEPS, device="cuda",
                                 out=str(RUN_OUT / name))
@@ -1535,6 +1566,8 @@ def phase_runs(torch, seed):
         finiteness = config.evaluate_checks("", result)   # no gates
         failures = config.evaluate_checks(name, result)
         row = dict(phase="runs", config=name, steps=RUN_STEPS,
+                   **_graphs_since(loop, graphs0),
+                   **(_step_fields("c4") if name == "c4_dp_mocap" else {}),
                    decay_steps=RUN_STEPS, steps_taken=steps,
                    ms_per_step=result["ms_per_step"],
                    seconds=result["seconds"], elbo=result["elbo"],
@@ -1562,6 +1595,7 @@ def phase_runs(torch, seed):
             row["kernels_at_c3"] = _timed_on_inputs(torch, psi, seen,
                                                     plain=True)
         emit(row)
+        _held_replayed(row)
         if row["nonfinite"] or row["missing"]:
             raise AssertionError(f"runs: {name} gave a broken result: {row}")
         if launches != expected:
@@ -1970,15 +2004,19 @@ def phase_lbfgs(torch, seed):
 
 def phase_mfu(torch, train):
     """The c4 step's model-flops utilization and roofline share at the
-    train phase's ms a step (printed, not held: the step is host-bound)."""
+    train phase's ms a step (eager) and at the steps phase's replayed ms
+    a step (`replayed`); printed, not held."""
     from dp_gp_lvm_tpu_torch.perf import H100_PEAKS, dp_step_costs, mfu
 
     costs = dp_step_costs(n=C4["N"], d=C4["D"], q=C4["Q"], m=C4["M"],
                           t=C4["T"])
     ms = train["ms_per_step_median"]
+    replayed = STEP_TIMES.get("c4", {}).get("ms_replayed")
     row = dict(phase="mfu", config="c4_dp_mocap", shape=C4, ms_per_step=ms,
                costs=costs._asdict(), peaks=H100_PEAKS,
-               **mfu(ms / 1e3, costs))
+               **mfu(ms / 1e3, costs),
+               replayed=None if replayed is None else dict(
+                   ms_per_step=replayed, **mfu(replayed / 1e3, costs)))
     emit(row)
     if not all(math.isfinite(v) for v in row.values()
                if isinstance(v, float)):
@@ -2002,6 +2040,7 @@ def phase_svi(torch, seed):
     from dp_gp_lvm_tpu_torch.train import loop
     from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
 
+    graphs0 = dict(loop.GRAPHS)
     cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
     out = ROOT / "build" / "smoke_svi"
     shutil.rmtree(out, ignore_errors=True)
@@ -2046,7 +2085,8 @@ def phase_svi(torch, seed):
 
     finiteness = config.evaluate_checks("", straight)
     failures = config.evaluate_checks(cfg.name, straight)
-    row = dict(phase="svi", config=cfg.name, n=cfg.n, batch=straight["batch"],
+    row = dict(phase="svi", **_graphs_since(loop, graphs0),
+               **_step_fields("c6"), config=cfg.name, n=cfg.n, batch=straight["batch"],
                steps=C6_STEPS, steps_taken=steps,
                ms_per_step=straight["ms_per_step"],
                rows_per_sec=straight["rows_per_sec"],
@@ -2071,6 +2111,7 @@ def phase_svi(torch, seed):
                gates_not_held_at_these_steps=[
                    f for f in failures if f not in finiteness])
     emit(row)
+    _held_replayed(row)
     if row["nonfinite"] or row["missing"]:
         raise AssertionError(f"svi: broken result: {row}")
     if launches != expected or steps != C6_STEPS:
@@ -2122,6 +2163,362 @@ def _c6_indices(torch, n, count, batch=1024):
 
     return prng.randint(prng.fold_in(prng.PRNGKey(1), torch.arange(count)),
                         (batch,), 0, n).long().cuda()
+
+
+STEP_CASES = ("c4", "c6", "c6_stream", "c7", "c8", "c9", "m256_dp",
+              "m256_bgplvm")
+STEP_CONFIGS = dict(c4="c4_dp_mocap", c6="c6_svi_bigN",
+                    c6_stream="c6_svi_bigN", c7="c7_dp_svi",
+                    c8="c8_amortized_svi", c9="c9_mrd_svi_bigN")
+STEP_ROWS = 4096     # the draw the minibatch steps are timed on
+STEP_WARM = 3        # eager warm-up steps
+STEP_SYNC = 5        # eager steps whose host syncs are read
+STEP_EAGER = 20      # eager steps timed
+STEP_CHUNK = 100     # replayed steps timed, after a chunk that captures
+STEP_CHUNKS = dict(m256_dp=20, m256_bgplvm=20)   # cases with fewer
+STEP_TIMES = {}      # phase_steps' rows by case, which later phases print
+
+
+def _step_case(torch, name, seed, n=STEP_ROWS):
+    """(step(t) -> loss, chunk(t0, steps) -> losses or None, rows a step)
+    of the step the runner takes for `name` at the config's widths (c7:
+    stage 2c at T = 8; c9: phase B; c4: the full-batch DP-GP-LVM on its
+    1024 rows; m256_dp and m256_bgplvm: the m256 phase's full-batch
+    models, `_m256_step_case`), on an n-row draw with random minibatches.
+    `step` is one eager step (t a host int); `chunk` runs that many steps
+    as the runner does, replayed from a CUDA graph (None where the
+    imported package has no graphs: an older checkout). Only parts of the
+    package that older checkouts have too are used, so `--time-steps`
+    runs this on a parent's package."""
+    from dp_gp_lvm_tpu_torch.core import config as config_lib
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm, dp_svi, mrd_svi
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train import loop, mrd_recipe
+
+    if name.startswith("m256"):
+        return _m256_step_case(torch, name, seed)
+    cfg = dataclasses.replace(config_lib.get(STEP_CONFIGS[name]), seed=seed)
+    key = prng.PRNGKey(cfg.seed)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    mcfg = runner._model_config(cfg, None)
+    graphs = hasattr(loop, "MinibatchChunks")
+    if name == "c4":
+        Y, _ = synthetic.mocap_like(key, n=cfg.n, d=cfg.d, **f32)
+        params = dp_gp_lvm.init_params(key, Y, mcfg)
+        opt = loop.gp_optimizer(params, lr=cfg.lr, ard_lr=cfg.ard_lr,
+                                decay_steps=cfg.steps, ngd_lr=cfg.ngd_lr)
+        return _full_batch_case(
+            loop, lambda y: dp_gp_lvm.loss(params, y, mcfg), opt, Y,
+            STEP_CHUNK)
+    if name == "c7":
+        Y, _, _ = synthetic.grouped_dims_big(
+            key, n=n, dims_per_group=runner.grouped_dims_per_group(cfg.d),
+            q=cfg.q, **f32)
+        params = dp_svi.init_params(key, Y, mcfg)
+        opt = loop.gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                                decay_steps=cfg.steps)
+        step = dp_svi.make_dp_svi_step(mcfg, n, opt, rho=0.3,
+                                       phi_update="frozen")
+    elif name == "c9":
+        Y = synthetic.two_view_big(key, n=n, d1=cfg.views[0],
+                                   d2=cfg.views[1], **f32)[:2]
+        params = mrd_recipe._as_parameters(mrd_recipe.recalibrated(
+            mrd_svi.init_params(key, Y, mcfg), 0.4, 0.25))
+        opt = loop.gp_optimizer(params, lr=cfg.lr, decay_steps=cfg.steps,
+                                freeze=mrd_recipe.FROZEN_STRUCTURE)
+        step = runner._svi_step(cfg, mcfg, n, opt, False)
+    else:
+        Y, _ = synthetic.mocap_like(key, n=n, d=cfg.d, **f32)
+        params = svi_gplvm.init_params(key, Y, mcfg)
+        opt = loop.gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                                decay_steps=cfg.steps,
+                                slow=frozenset({"z"}) if cfg.amortized
+                                else frozenset())
+        step = runner._svi_step(cfg, mcfg, n, opt, name == "c6_stream")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total = STEP_WARM + STEP_SYNC + STEP_EAGER + 2 * STEP_CHUNK
+    idx = torch.randint(0, n, (total, mcfg.batch), generator=gen,
+                        device="cuda")
+    streamed = name == "c6_stream"
+    rows = Y[idx] if streamed else None
+
+    def eager(t):
+        if streamed:
+            return step(t, (idx[t], rows[t]))
+        return step(t, idx[t], Y)
+
+    if not graphs:
+        return eager, None, mcfg.batch
+    chunks = loop.MinibatchChunks(step, None if streamed else Y,
+                                  streaming=streamed)
+
+    def chunk(t0, k):
+        return chunks(t0, idx[t0:t0 + k], rows[t0:t0 + k] if streamed
+                      else None)
+
+    return eager, chunk, mcfg.batch
+
+
+def _full_batch_case(loop, loss, opt, Y, chunk):
+    """`_step_case`'s triple for a full-batch step of `loss(Y)`: one eager
+    step, and `chunk` steps through `make_multi_step_fn` replayed from a
+    CUDA graph (None where the package has no graphs)."""
+    import inspect
+
+    def multi(steps, eager):
+        kw = ({"eager": eager} if "eager" in inspect.signature(
+            loop.make_multi_step_fn).parameters else {})
+        fn = loop.make_multi_step_fn(lambda _, y: loss(y), opt, steps, **kw)
+        return lambda: fn(Y)
+
+    one = multi(1, True)
+    replay = multi(chunk, False) if hasattr(loop, "StepGraph") else None
+    return ((lambda t: one()),
+            None if replay is None else (lambda t0, k: replay()),
+            Y.shape[0])
+
+
+def _m256_step_case(torch, name, seed):
+    """`_step_case` for the m256 phase's models at M = 256 (the tiled
+    kernels): the DP-GP-LVM on mocap_like at M256, the Bayesian GP-LVM on
+    oil_flow_like at M256_BG, from the seed's init, at c4's and c2's
+    rates; full batch, as `_step_case`'s c4."""
+    from dp_gp_lvm_tpu_torch.core import prng
+    from dp_gp_lvm_tpu_torch.core.config import CONFIGS
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like, oil_flow_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm, dp_gp_lvm
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    key = prng.PRNGKey(seed)
+    if name == "m256_dp":
+        rates = CONFIGS["c4_dp_mocap"]
+        Y, _ = mocap_like(key, n=M256["N"], d=M256["D"], dtype=torch.float32)
+        cfg = dp_gp_lvm.Config(num_latent=M256["Q"],
+                               num_inducing=M256["M"],
+                               truncation=M256["T"], alpha=rates.alpha)
+        model = dp_gp_lvm
+    else:
+        rates = CONFIGS["c2_sparse_oil"]
+        Y, _, _ = oil_flow_like(key, n=M256_BG["N"], d=M256_BG["D"],
+                                dtype=torch.float32)
+        cfg = bgplvm.Config(num_latent=M256_BG["Q"],
+                            num_inducing=M256_BG["M"])
+        model = bgplvm
+    params = model.init_params(key, Y, cfg)
+    opt = loop.gp_optimizer(params, lr=rates.lr, ngd_lr=rates.ngd_lr)
+    return _full_batch_case(loop, lambda y: model.loss(params, y, cfg), opt,
+                            Y, STEP_CHUNKS[name])
+
+
+def _steps_of_package(torch, seed):
+    """phase_steps' numbers for the package on sys.path: for each case the
+    host syncs of an eager step (sync debug mode), the ms of an eager
+    step and, where the package has them, of a replayed step (after a
+    chunk that captures), and rows/s of each."""
+    rows = {}
+    for name in STEP_CASES:
+        eager, chunk, batch = _step_case(torch, name, seed)
+        t = 0
+        for t in range(STEP_WARM):
+            eager(t)
+        syncs, sites = _syncs_per_step(torch, lambda t: eager(t), [
+            (t,) for t in range(STEP_WARM, STEP_WARM + STEP_SYNC)])
+        t = STEP_WARM + STEP_SYNC
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STEP_EAGER):
+            eager(t + i)
+        torch.cuda.synchronize()
+        ms_eager = 1e3 * (time.perf_counter() - t0) / STEP_EAGER
+        row = dict(rows_a_step=batch, host_syncs_per_step=syncs,
+                   host_sync_sites=sites, ms_eager=ms_eager,
+                   rows_per_sec_eager=batch / ms_eager * 1e3)
+        if chunk is not None:
+            from dp_gp_lvm_tpu_torch.train import loop
+
+            t += STEP_EAGER
+            k = STEP_CHUNKS.get(name, STEP_CHUNK)
+            chunk(t, k).cpu()                   # captures
+            before = dict(loop.GRAPHS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = chunk(t + k, k).cpu()
+            ms = 1e3 * (time.perf_counter() - t0) / k
+            row.update(ms_replayed=ms, rows_per_sec_replayed=batch / ms * 1e3,
+                       graph_replays=loop.GRAPHS["replays"]
+                       - before["replays"],
+                       graph_captures=loop.GRAPHS["captures"]
+                       - before["captures"],
+                       replayed_losses_finite=bool(
+                           torch.isfinite(losses).all()))
+        rows[name] = row
+    return rows
+
+
+def _ladder_cost(torch):
+    """Device ms (`_device_ms`) of the safe Cholesky with the jitter
+    ladder on the device against one `cholesky_ex`, f32: on K_uu stacks
+    at c6's M = 64 (T = 1) and c7's (T = 8) per member
+    (`safe_cholesky_members`), and at the m256 DP-GP-LVM's M = 256,
+    T = 20 with one jitter for the stack (`safe_cholesky_spec`, which
+    its collapsed bound calls twice a step)."""
+    from dp_gp_lvm_tpu_torch.linalg import chol
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for T, M, fn in ((1, 64, chol.safe_cholesky_members),
+                     (8, 64, chol.safe_cholesky_members),
+                     (20, 256, chol.safe_cholesky_spec)):
+        x = torch.randn(T, M, M + 16, generator=gen, device="cuda")
+        kuu = x @ x.mT / (M + 16.0)
+        rows[f"T{T}" if M == 64 else f"T{T}_M{M}"] = dict(
+            ladder_ms=_device_ms(lambda: fn(kuu), torch),
+            one_factorization_ms=_device_ms(
+                lambda: torch.linalg.cholesky_ex(kuu), torch))
+    return rows
+
+
+def _time_steps_child(torch, parent, seed) -> int:
+    """`--time-steps`: `_steps_of_package` on the package in `parent`,
+    printed as the last line."""
+    sys.path.insert(0, str(parent.resolve()))
+    from dp_gp_lvm_tpu_torch.core.types import pin_full_f32
+
+    pin_full_f32()
+    emit(_steps_of_package(torch, seed))
+    return 0
+
+
+def phase_steps(torch, seed, parent, card):
+    """ms a step and rows/s of every chunked loop's step (c4 full batch,
+    c6 resident and streamed, c7 stage 2c, c8, c9 phase B, and the m256
+    phase's DP-GP-LVM and Bayesian GP-LVM full batch at M = 256), eager
+    and replayed from a CUDA graph, with the host syncs of an eager step;
+    with `--parent DIR` the same eager numbers of DIR's package, measured
+    first in a child process of this script in the same call. Held: no
+    host sync in a step, one capture and STEP_CHUNK (STEP_CHUNKS) replays
+    a timed chunk, finite losses. `cholesky_ladder_device_ms` is the
+    safe Cholesky's cost (`_ladder_cost`)."""
+    parent_rows = {}
+    if parent is not None:
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--parent",
+             str(parent), "--time-steps", "--seed", str(seed)],
+            capture_output=True, text=True, check=True, timeout=900).stdout
+        parent_rows = json.loads(out.splitlines()[-1])
+    mine = _steps_of_package(torch, seed)
+    for name, row in mine.items():
+        theirs = parent_rows.get(name, {})
+        row.update(parent_ms_eager=theirs.get("ms_eager"),
+                   parent_rows_per_sec=theirs.get("rows_per_sec_eager"),
+                   parent_host_syncs_per_step=theirs.get(
+                       "host_syncs_per_step"),
+                   parent_host_sync_sites=theirs.get("host_sync_sites"))
+        STEP_TIMES[name] = row
+    emit(dict(phase="steps", card=card, rows=STEP_ROWS,
+              chunk=STEP_CHUNK, chunks=STEP_CHUNKS, cases=mine,
+              cholesky_ladder_device_ms=_ladder_cost(torch)))
+    for name, row in mine.items():
+        if row["host_syncs_per_step"] != 0:
+            raise AssertionError(f"steps: {name} syncs with the host: "
+                                 f"{row['host_sync_sites']}")
+        k = STEP_CHUNKS.get(name, STEP_CHUNK)
+        if (row["graph_captures"], row["graph_replays"]) != (0, k) \
+                or not row["replayed_losses_finite"]:
+            raise AssertionError(f"steps: {name}'s chunk did not replay "
+                                 f"{k} finite steps: {row}")
+    return mine
+
+
+def _graphs_since(loop, before):
+    """Graphs captured and steps replayed since `before` (a copy of
+    `train.loop.GRAPHS`), and the kernel launches since the last reset as
+    the host counts them (`launches_counted`: each eager launch, and the
+    capture's launches once per replay, which `StepGraph` adds) and as
+    the card counted them (`launches_on_card`: `ops.psi.count_on_card`'s
+    counters, which each replay bumps itself; the smoke starts both at 0
+    and `_uncounted` keeps its timings' launches in step)."""
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    return dict(graph_captures=loop.GRAPHS["captures"] - before["captures"],
+                graph_replays=loop.GRAPHS["replays"] - before["replays"],
+                launches_counted=dict(psi.LAUNCHES),
+                launches_on_card=psi.card_counts(),
+                launch_count_checks=COUNT_CHECKS["checks"])
+
+
+# the smoke's comparisons of the host's launch counts with the card's
+# (`_checked_resets`), and those that disagreed
+COUNT_CHECKS = {"checks": 0, "mismatches": []}
+
+
+def _checked_resets(psi):
+    """From here each `psi.reset_launch_counts()` first holds the host's
+    counts against the card's, so every launch between two resets is
+    compared, whatever a phase reads before its next reset."""
+    reset = psi.reset_launch_counts
+
+    def checked():
+        host, card = dict(psi.LAUNCHES), psi.card_counts()
+        COUNT_CHECKS["checks"] += 1
+        if host != card:
+            COUNT_CHECKS["mismatches"].append(dict(host=host, card=card))
+        reset()
+
+    psi.reset_launch_counts = checked
+
+
+def _held_replayed(row):
+    """A phase whose runner ran chunks on the card must have replayed
+    them from a CUDA graph, the launches the card counted must be those
+    the host counts (so every replay launched what its capture did), and
+    its eager step must not sync."""
+    if row["graph_replays"] <= 0:
+        raise AssertionError(f"{row['phase']}: no step was replayed from a "
+                             f"CUDA graph: {row}")
+    if row["launches_on_card"] != row["launches_counted"] or \
+            COUNT_CHECKS["mismatches"]:
+        raise AssertionError(f"{row['phase']}: the card counted "
+                             f"{row['launches_on_card']} launches, the host "
+                             f"{row['launches_counted']}; earlier: "
+                             f"{COUNT_CHECKS['mismatches']}")
+    if row.get("host_syncs_per_step", 0) != 0:
+        raise AssertionError(f"{row['phase']}: the step syncs with the "
+                             f"host: {row.get('host_sync_sites')}")
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """No launch counted on the card inside the block (the timings: a
+    counter's add would be timed with the kernel); at its end the card's
+    counters take the launches the host counted in it, so that host and
+    card disagree only where the host infers (`StepGraph`'s replays). A
+    package without card counters (an older checkout) is left alone."""
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    counters = getattr(psi, "CARD_COUNTS", None)
+    if counters is None:
+        yield
+        return
+    saved, before = dict(counters), dict(psi.LAUNCHES)
+    counters.clear()
+    try:
+        yield
+    finally:
+        counters.clear()
+        counters.update(saved)
+        for k, counter in saved.items():
+            if psi.LAUNCHES[k] != before[k]:
+                counter.add_(psi.LAUNCHES[k] - before[k])
+
+
+def _step_fields(name):
+    """phase_steps' numbers of one case, for a phase's row."""
+    return {"step_" + k: v for k, v in STEP_TIMES.get(name, {}).items()
+            if k != "host_sync_sites"}
 
 
 def _syncs_per_step(torch, step, args):
@@ -2197,6 +2594,7 @@ def phase_stream(torch, seed, svi):
     if not stream.native_available():
         raise AssertionError("stream: the native loader did not build from "
                              f"{stream.SOURCE}")
+    graphs0 = dict(loop.GRAPHS)
     cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
     out = ROOT / "build" / "smoke_stream"
     shutil.rmtree(out, ignore_errors=True)
@@ -2236,7 +2634,8 @@ def phase_stream(torch, seed, svi):
     chunk_ms = straight["ms_per_step"] * chunk
     finiteness = config.evaluate_checks("", straight)
     failures = config.evaluate_checks(cfg.name, straight)
-    row = dict(phase="stream", config=cfg.name, n=cfg.n,
+    row = dict(phase="stream", **_graphs_since(loop, graphs0),
+               **_step_fields("c6_stream"), config=cfg.name, n=cfg.n,
                batch=straight["batch"], chunk=chunk, steps=C6_STEPS,
                steps_taken=steps, native_loader=straight["native_loader"],
                loader_source=str(stream.SOURCE.relative_to(ROOT)),
@@ -2268,6 +2667,7 @@ def phase_stream(torch, seed, svi):
                gates_not_held_at_these_steps=[
                    f for f in failures if f not in finiteness])
     emit(row)
+    _held_replayed(row)
     if row["nonfinite"] or row["missing"] or not straight["streamed"]:
         raise AssertionError(f"stream: broken result: {row}")
     if not (row["native_loader"] and stream.library_path().exists()
@@ -2391,6 +2791,7 @@ def phase_dp_svi(torch, seed):
     from dp_gp_lvm_tpu_torch.train import loop
     from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
 
+    graphs0 = dict(loop.GRAPHS)
     cfg = dataclasses.replace(config.get("c7_dp_svi"), seed=seed)
     out = ROOT / "build" / "smoke_dp_svi"
     shutil.rmtree(out, ignore_errors=True)
@@ -2470,7 +2871,8 @@ def phase_dp_svi(torch, seed):
 
     finiteness = config.evaluate_checks("", result)
     failures = config.evaluate_checks(cfg.name, result)
-    row = dict(phase="dp_svi", config=cfg.name, n=cfg.n,
+    row = dict(phase="dp_svi", **_graphs_since(loop, graphs0),
+               **_step_fields("c7"), config=cfg.name, n=cfg.n,
                batch=result["batch"], steps=C7_STEPS, steps_taken=steps,
                stage_steps=dict(stage1=result["stage1_steps"],
                                 stage2=result["stage2_steps"]),
@@ -2496,6 +2898,7 @@ def phase_dp_svi(torch, seed):
                gates_not_held_at_these_steps=[
                    f for f in failures if f not in finiteness])
     emit(row)
+    _held_replayed(row)
     if row["nonfinite"] or row["missing"]:
         raise AssertionError(f"dp_svi: broken result: {row}")
     if launches != expected:
@@ -2627,6 +3030,7 @@ def phase_amortized(torch, seed):
     if not stream.native_available():
         raise AssertionError("amortized: the native loader did not build "
                              f"from {stream.SOURCE}")
+    graphs0 = dict(loop.GRAPHS)
     cfg = dataclasses.replace(config.get("c8_amortized_svi"), seed=seed)
     mcfg = runner._model_config(cfg, None)
     out = ROOT / "build" / "smoke_amortized"
@@ -2687,7 +3091,8 @@ def phase_amortized(torch, seed):
 
     finiteness = config.evaluate_checks("", straight)
     failures = config.evaluate_checks(cfg.name, straight)
-    row = dict(phase="amortized", config=cfg.name, n=cfg.n,
+    row = dict(phase="amortized", **_graphs_since(loop, graphs0),
+               **_step_fields("c8"), config=cfg.name, n=cfg.n,
                batch=straight["batch"], steps=C6_STEPS, steps_taken=steps,
                ms_per_step=straight["ms_per_step"],
                ms_per_step_streamed=streamed["ms_per_step"],
@@ -2726,6 +3131,7 @@ def phase_amortized(torch, seed):
                gates_not_held_at_these_steps=[
                    f for f in failures if f not in finiteness])
     emit(row)
+    _held_replayed(row)
     if row["nonfinite"] or row["missing"] or not streamed["streamed"]:
         raise AssertionError(f"amortized: broken result: {row}")
     if not row["native_loader"]:
@@ -2863,6 +3269,7 @@ def phase_mrd_svi(torch, seed):
     from dp_gp_lvm_tpu_torch.train import loop, mrd_recipe
     from dp_gp_lvm_tpu_torch.train.checkpoint import load_npz
 
+    graphs0 = dict(loop.GRAPHS)
     cfg = dataclasses.replace(config.get("c9_mrd_svi_bigN"), seed=seed)
     mcfg = runner._model_config(cfg, None)
     out = ROOT / "build" / "smoke_mrd_svi"
@@ -2955,7 +3362,8 @@ def phase_mrd_svi(torch, seed):
 
     finiteness = config.evaluate_checks("", straight)
     failures = config.evaluate_checks(cfg.name, straight)
-    row = dict(phase="mrd_svi", config=cfg.name, n=cfg.n,
+    row = dict(phase="mrd_svi", **_graphs_since(loop, graphs0),
+               **_step_fields("c9"), config=cfg.name, n=cfg.n,
                batch=straight["batch"], steps=C9_STEPS, steps_taken=steps,
                phase_steps=dict(a=straight["phase_a_steps"],
                                 b=straight["phase_b_steps"]),
@@ -2986,6 +3394,7 @@ def phase_mrd_svi(torch, seed):
                gates_not_held_at_these_steps=[
                    f for f in failures if f not in finiteness])
     emit(row)
+    _held_replayed(row)
     if row["nonfinite"] or row["missing"]:
         raise AssertionError(f"mrd_svi: broken result: {row}")
     if launches != expected or steps != C9_STEPS:
@@ -3508,9 +3917,10 @@ TRACE_CHUNK = 100
 
 
 def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
-    """The first profiler trace of a step: one c4_dp_mocap training step
-    and one streamed c6_svi_bigN chunk (the stream phase's rows file).
-    Numbers only; nothing is held."""
+    """Profiler traces: one eager c4_dp_mocap training step, a chunk of
+    TRACE_CHUNK of them replayed from a CUDA graph, and one streamed
+    c6_svi_bigN chunk replayed (the stream phase's rows file). Numbers
+    only; nothing is held."""
     import numpy as np
 
     from dp_gp_lvm_tpu_torch.core import config, prng
@@ -3519,6 +3929,7 @@ def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
     from dp_gp_lvm_tpu_torch.train.loop import (
         TrainState,
         gp_optimizer,
+        make_multi_step_fn,
         make_step_fn,
         make_streaming_scan_fn,
     )
@@ -3534,6 +3945,16 @@ def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
     torch.cuda.synchronize()
     c4_row = dict(unprofiled_wall_ms=1e3 * (time.perf_counter() - t0),
                   **_profiled(torch, lambda: step(dp_Y)))
+    multi = make_multi_step_fn(lambda p, y: dp_gp_lvm.loss(p, y, dp_cfg),
+                               opt, TRACE_CHUNK)
+    multi(dp_Y).cpu()                     # the chunk that captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi(dp_Y).cpu()
+    c4_chunk = dict(steps=TRACE_CHUNK, unprofiled_wall_ms_per_step=1e3 * (
+        time.perf_counter() - t0) / TRACE_CHUNK,
+        **_profiled(torch, lambda: multi(dp_Y).cpu()))
+    c4_chunk["wall_ms_per_step"] = c4_chunk["wall_ms"] / TRACE_CHUNK
 
     cfg = dataclasses.replace(config.get("c6_svi_bigN"), seed=seed)
     path = ROOT / "build" / "smoke_stream" / "straight" / "y_stream.f32"
@@ -3557,7 +3978,8 @@ def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
         one_chunk()                       # warm-up chunk
         c6_row = _profiled(torch, one_chunk)
     c6_row["wall_ms_per_step"] = c6_row["wall_ms"] / TRACE_CHUNK
-    row = dict(phase="trace", c4_step=c4_row,
+    row = dict(phase="trace", c4_step=c4_row, c4_replayed_chunk=c4_chunk,
+               **_step_fields("c4"),
                c6_streamed_chunk=dict(steps=TRACE_CHUNK, **c6_row))
     emit(row)
     return row
@@ -4122,6 +4544,8 @@ def main(argv=None) -> int:
                          "phase also times on its inputs")
     ap.add_argument("--time-inputs", type=pathlib.Path, default=None,
                     help=argparse.SUPPRESS)   # the --parent child's mode
+    ap.add_argument("--time-steps", action="store_true",
+                    help=argparse.SUPPRESS)   # the --parent child's mode
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4132,6 +4556,8 @@ def main(argv=None) -> int:
         return 2
     if args.time_inputs:
         return _time_inputs(torch, args.parent, args.time_inputs)
+    if args.time_steps:
+        return _time_steps_child(torch, args.parent, args.seed)
     if not (ROOT / "dp_gp_lvm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the dp_gp_lvm_tpu_torch package is missing",
               file=sys.stderr)
@@ -4163,6 +4589,12 @@ def main(argv=None) -> int:
              for n, log in build.ptxas_log.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas))
 
+    phase_steps(torch, args.seed, args.parent, card.splitlines()[0])
+    # from here every launch is counted on the card as well, so that the
+    # replayed steps' host counts are held against the card's
+    psi.count_on_card("cuda")
+    psi.reset_launch_counts()
+    _checked_resets(psi)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k1 = phase_k1(torch, psi, gen)
     k2 = phase_k2(torch, psi, gen)
@@ -4412,7 +4844,13 @@ def main(argv=None) -> int:
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {kernels}")
-    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
+    psi.reset_launch_counts()                   # the last comparison
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start,
+              launch_count_checks=COUNT_CHECKS["checks"],
+              launch_count_mismatches=COUNT_CHECKS["mismatches"]))
+    if COUNT_CHECKS["mismatches"]:
+        raise AssertionError(f"the card counted other launches than the "
+                             f"host: {COUNT_CHECKS['mismatches']}")
     print(card.splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -88,12 +88,13 @@ from dp_gp_lvm_tpu_torch.train import dp_recipe, mrd_recipe
 from dp_gp_lvm_tpu_torch.train.checkpoint import Checkpointer, export_npz
 from dp_gp_lvm_tpu_torch.train.logging import JsonlLogger
 from dp_gp_lvm_tpu_torch.train.loop import (
+    MinibatchChunks,
     NonFiniteGuard,
     TrainState,
     gp_optimizer,
     make_multi_step_fn,
-    make_step_fn,
     make_streaming_scan_fn,
+    replayed,
     time_steps,
 )
 
@@ -345,22 +346,36 @@ def _svi_chunk(device, log_every, steps, stop_after):
     return chunk
 
 
-def _resident_chunks(step_fn, key, chunk, batch, Y):
+def _resident_chunks(step_fn, key, chunk, batch, Y, eager=False,
+                     mesh=None):
     """run_chunk(done) -> (chunk,) losses of the steps done, ...,
     done + chunk - 1 on the resident Y (the tuple of aligned views for the
     MRD-SVI): step t draws its rows with `randint(fold_in(key, t),
     (batch,), 0, N)` (int32), so the sequence depends on neither the chunk
     size nor a restart; a chunk's indices are drawn on the host in one
-    call and copied once."""
+    call and copied once, and `train.loop.MinibatchChunks` runs the chunk
+    (replayed from a CUDA graph on the card unless `eager` or a `mesh`)."""
     first = Y[0] if isinstance(Y, tuple) else Y
+    chunks = MinibatchChunks(step_fn, Y, eager=eager, mesh=mesh)
 
     def run_chunk(done):
         keys = prng.fold_in(key, torch.arange(done, done + chunk))
         idx = dp_svi.minibatch_indices(keys, batch, first.shape[0]).to(
             first.device)
-        return torch.stack([step_fn(done + i, idx[i], Y)
-                            for i in range(chunk)])
+        return chunks(done, idx)
     return run_chunk
+
+
+def _say_steps(cfg, device, mesh, eager, debug_nans) -> None:
+    if device.type != "cuda":
+        return
+    if replayed(device, mesh, eager):
+        how = "captured once per step function, replayed from CUDA graphs"
+    else:
+        why = ("a mesh (no graph capture there yet)" if mesh is not None
+               else "--debug-nans" if debug_nans else "--eager")
+        how = f"eager, one PyTorch call at a time ({why})"
+    print(f"[{cfg.name}] steps: {how}", flush=True)
 
 
 def _raise_nonfinite(cfg, losses, done):
@@ -442,7 +457,7 @@ def _svi_table(cfg, params):
 def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                ngd_lr, logger, out, ckpt_every, resume, stop_after,
                inject_nonfinite_at, stream, debug_nans=False, mesh=None,
-               work_dir=None):
+               work_dir=None, eager=False):
     """The single-stage SVI loop (the SVI-GPLVM; the DP-SVI at T = 1; the
     MRD-SVI with `--staged off`, Y the tuple of its aligned views): q(u)
     by stochastic natural gradient, the rest by `gp_optimizer`, in chunks
@@ -518,7 +533,8 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
             cs = feed.enter_context(stream_lib.ChunkStream(
                 loader, batch=mcfg.batch, chunk=chunk, seed=cfg.seed + 7,
                 skip_chunks=start // chunk, device=device))
-            scan_chunk = make_streaming_scan_fn(step_fn)
+            scan_chunk = make_streaming_scan_fn(step_fn, eager=eager,
+                                                mesh=mesh)
             extra.update(streamed=True, native_loader=isinstance(
                 loader, stream_lib.StreamLoader))
 
@@ -527,7 +543,8 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
                 return scan_chunk(state, idx, y.to(Y_flat.dtype))[1]
         else:
             _, r1 = prng.split(prng.PRNGKey(cfg.seed + 100))
-            run_chunk = _resident_chunks(step_fn, r1, chunk, mcfg.batch, Y)
+            run_chunk = _resident_chunks(step_fn, r1, chunk, mcfg.batch, Y,
+                                         eager, mesh)
 
         def on_chunk_end(done):
             state.step = done
@@ -554,7 +571,7 @@ def _train_svi(cfg, Y, mcfg, p0, steps, *, device, log_every, hyper_lr,
 
 def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
                   resume, inject_nonfinite_at, debug_nans=False, mesh=None,
-                  work_dir=None, **recipe_kw):
+                  work_dir=None, eager=False, **recipe_kw):
     """A staged recipe on the resident rows: the DP-SVI at T > 1 through
     `train/dp_recipe.py` (a boundary after each stage), or the MRD-SVI, Y
     its tuple of views, through `train/mrd_recipe.py` (the phase-A
@@ -567,19 +584,25 @@ def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
     keys); on a mesh the rank's parameters."""
     work_dir = work_dir or out
     chunk = _svi_chunk(device, log_every, steps, None)
+    every_chunk = {}
 
     def drive(step_fn, state, n_steps, key, Y_cur, label=""):
-        """The recipe's drive. Its seconds a step count every chunk of the
-        stage: the stages before the last have run every kernel at its
-        shapes, so no chunk of it pays a first use (the reference skips a
-        stage's first chunk, which compiles there)."""
+        """The recipe's drive. Its seconds a step skip the stage's first
+        chunk, which captures the stage's step on the card (the
+        reference skips it too: it compiles there); a stage of one chunk
+        counts that chunk. `every_chunk` keeps the last stage's wall
+        seconds a step over all its chunks."""
         start = state.step
-        state.step, _, wall = _chunk_loop(
-            cfg, _resident_chunks(step_fn, key, chunk, mcfg.batch, Y_cur),
+        state.step, per_step, wall = _chunk_loop(
+            cfg, _resident_chunks(step_fn, key, chunk, mcfg.batch, Y_cur,
+                                  eager, mesh),
             start, n_steps, chunk, out=out, logger=logger,
             inject_nonfinite_at=inject_nonfinite_at, label=label,
             debug_nans=debug_nans)
-        return state, wall / (state.step - start), wall
+        every_chunk["per_step"] = wall / (state.step - start)
+        if per_step != per_step:               # one chunk: NaN
+            per_step = every_chunk["per_step"]
+        return state, per_step, wall
 
     mrd_views = cfg.model == "mrd_svi"
     recipe, last = ((mrd_recipe.staged_mrd_svi, "phase B") if mrd_views
@@ -589,13 +612,18 @@ def _train_staged(cfg, Y, mcfg, steps, *, device, log_every, logger, out,
         (Y[0] if mrd_views else Y).shape[0], steps=steps, chunk=chunk,
         lr=cfg.lr, drive=drive,
         mesh=mesh, resume=resume, **recipe_kw,
+        # the DP recipe's warmup runs outside the drive
+        **({} if mrd_views else {"eager": eager}),
         ckpt_dir=(os.path.join(work_dir, "stages") if work_dir is not None
                   else None))
     per_step, total = info.pop("per_step"), info.pop("seconds")
     extra = {"batch": mcfg.batch, **info,
              "rows_per_sec": _rows_per_sec(mcfg.batch, per_step)}
     print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} ms/step "
-          f"in {last}, {extra['rows_per_sec']} rows/s", flush=True)
+          f"in {last}, {extra['rows_per_sec']} rows/s (over every chunk of "
+          f"{last}: {every_chunk['per_step'] * 1e3:.3f} ms/step, "
+          f"{_rows_per_sec(mcfg.batch, every_chunk['per_step'])} rows/s)",
+          flush=True)
     params = mrd_svi.nested(state.params) if mrd_views else state.params
     return params, per_step, total, extra
 
@@ -662,7 +690,7 @@ def run(cfg, *, steps: int | None = None, device=None,
         impute_steps: int = 200, stream: bool = False,
         staged: bool | None = None, data_dir: str | None = None,
         plots: bool = False, debug_nans: bool = False,
-        mesh: str | None = None) -> dict:
+        mesh: str | None = None, eager: bool = False) -> dict:
     """Train `cfg` and return its result dict (the reference's keys).
 
     `data` replaces the config's dataset (Y before any holdout, a tuple of
@@ -694,7 +722,14 @@ def run(cfg, *, steps: int | None = None, device=None,
     (the DP-SVI's atoms over MODEL), streamed or resident, staged or not,
     with checkpoints of the full state. The metrics read the gathered
     parameters. Only rank 0 writes to `out` (`main` also keeps the other
-    ranks quiet); every rank reads the checkpoints there."""
+    ranks quiet); every rank reads the checkpoints there.
+
+    On the card every chunk of steps (full batch, SVI resident or
+    streamed, each stage of a staged recipe) is replayed from a CUDA
+    graph captured at its first step (`train.loop.StepGraph`), the
+    counterpart of the reference's jitted chunk; `eager` runs the steps
+    one PyTorch call at a time instead (debugging; a mesh and
+    `debug_nans` do too). A failed capture raises; nothing falls back."""
     if plots:
         if out is None:
             raise ValueError("--plots needs an output directory")
@@ -797,6 +832,9 @@ def run(cfg, *, steps: int | None = None, device=None,
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + (f" mesh={spec}" if mesh is not None else ""), flush=True)
+    # anomaly mode and the per-step loss check read the host: eager steps
+    eager = eager or debug_nans
+    _say_steps(cfg, device, mesh, eager, debug_nans)
     ngd_lr = cfg.ngd_lr if ngd_lr is None else ngd_lr
     # one host read per chunk; the reference's loop runs whole chunks, so
     # it runs past `steps` where the chunk does not divide it
@@ -816,7 +854,7 @@ def run(cfg, *, steps: int | None = None, device=None,
                            ard_lr=cfg.ard_lr, decay_steps=steps,
                            ngd_lr=ngd_lr, mesh=mesh, placement=placement)
         step_loss = lambda _, *d: loss(p0, *d)
-        multi_step = make_multi_step_fn(step_loss, opt, chunk)
+        multi_step = make_multi_step_fn(step_loss, opt, chunk, eager=eager)
         done = 0
         while done < steps:
             losses = multi_step(*data)
@@ -825,7 +863,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             logger.log(done - 1, elbo=elbo_now)
             print(f"  step {done - 1}{label}: elbo={elbo_now:.3f}",
                   flush=True)
-        return p0, opt, elbo_now, (step_loss, data, placement)
+        return p0, opt, elbo_now, (multi_step, data, placement)
 
     extra, restart_elbos = {}, []
     if staged_dp or staged_mrd:
@@ -833,7 +871,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             cfg, Y_train, mcfg, steps, device=device, log_every=log_every,
             logger=logger, out=out, resume=resume,
             inject_nonfinite_at=inject_nonfinite_at, debug_nans=debug_nans,
-            mesh=mesh, work_dir=work_dir,
+            mesh=mesh, work_dir=work_dir, eager=eager,
             **({"ngd_lr": ngd_lr} if staged_dp else {}))
     elif svi:
         trained, per_step, total, extra = _train_svi(
@@ -842,7 +880,7 @@ def run(cfg, *, steps: int | None = None, device=None,
             logger=logger, out=out, ckpt_every=ckpt_every, resume=resume,
             stop_after=stop_after, inject_nonfinite_at=inject_nonfinite_at,
             stream=stream, debug_nans=debug_nans, mesh=mesh,
-            work_dir=work_dir)
+            work_dir=work_dir, eager=eager)
         if cfg.model == "mrd_svi":
             trained = mrd_svi.nested(trained)
     if svi and mesh is not None:
@@ -892,8 +930,8 @@ def run(cfg, *, steps: int | None = None, device=None,
             print(f"[{cfg.name}] restart elbos: "
                   f"{[round(e, 2) for e in restart_elbos]} -> best "
                   f"{best_elbo:.2f}", flush=True)
-        step_loss, data, placement = stepping
-        per_step = time_steps(make_step_fn(step_loss, opt), data, 10)
+        multi_step, data, placement = stepping
+        per_step = time_steps(multi_step, data, 10)
         print(f"[{cfg.name}] done in {total:.1f}s; {per_step * 1e3:.2f} "
               "ms/step", flush=True)
         logger.close()
@@ -1079,6 +1117,10 @@ def main(argv=None) -> int:
     ap.add_argument("--debug-nans", action="store_true",
                     help="autograd anomaly mode and a finite check of every "
                          "step's loss: raise at the first non-finite one")
+    ap.add_argument("--eager", action="store_true",
+                    help="on the card, run every step one PyTorch call at "
+                         "a time instead of replaying the chunks from CUDA "
+                         "graphs (debugging)")
     ap.add_argument("--staged", choices=("on", "off"), default=None,
                     help="mrd_svi: the two-phase recipe of "
                          "train/mrd_recipe.py (on) or one phase at the "
@@ -1121,7 +1163,8 @@ def main(argv=None) -> int:
                      staged=(None if args.staged is None
                              else args.staged == "on"),
                      data_dir=args.data_dir, plots=args.plots,
-                     debug_nans=args.debug_nans, mesh=args.mesh)
+                     debug_nans=args.debug_nans, mesh=args.mesh,
+                     eager=args.eager)
         if not args.check:
             return 0
         failures = config_lib.evaluate_checks(cfg.name, result)

@@ -33,7 +33,7 @@ class SuffStats(NamedTuple):
 def suff_stats_from_psi(psi0, psi1, psi2, Y, weights=None):
     """Assemble SuffStats from explicit psi statistics and data Y (N, D)."""
     Yw = Y if weights is None else Y * weights[:, None]
-    n = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
+    n = (torch.full((), float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
          if weights is None else torch.sum(weights))
     return SuffStats(psi0=psi0, psi1T_y=psi1.T @ Y, psi2=psi2,
                      yty=torch.sum(Y * Yw, dim=0), n=n)

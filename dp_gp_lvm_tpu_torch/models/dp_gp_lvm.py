@@ -137,8 +137,8 @@ def per_dim_atom_bound(hyp, Y, config: Config,
         stats = SuffStats(
             psi0=p0_b, psi1T_y=p1y_b, psi2=p2_b,
             yty=torch.sum(Y * Y, dim=0),
-            n=torch.tensor(float(Y.shape[0]), dtype=Y.dtype,
-                           device=Y.device),
+            n=torch.full((), float(Y.shape[0]), dtype=Y.dtype,
+                         device=Y.device),
         )
         return collapsed_bound(kuu_b, stats, hyp["noise"], policy).per_dim
 
@@ -151,8 +151,8 @@ def elbo_terms(params, Y, config: Config,
     f_td = per_dim_atom_bound(hyp, Y, config, policy)
     phi = hyp["phi"]
     fit = torch.sum(phi * f_td.T)
-    alpha = hyp.get("alpha", torch.tensor(config.alpha, dtype=Y.dtype,
-                                          device=Y.device))
+    alpha = hyp.get("alpha", torch.full((), config.alpha, dtype=Y.dtype,
+                                        device=Y.device))
     dp = stick_breaking.dp_kl_terms(
         phi, hyp["gamma1"], hyp["gamma2"], alpha,
         logits=params["phi_logits"],
@@ -194,8 +194,8 @@ def cavi_step(params, Y, config: Config,
     if Y.device.type == "cuda":
         pin_full_f32()
     hyp = constrain(params)
-    alpha = hyp.get("alpha", torch.tensor(config.alpha, dtype=Y.dtype,
-                                          device=Y.device))
+    alpha = hyp.get("alpha", torch.full((), config.alpha, dtype=Y.dtype,
+                                        device=Y.device))
     f_td = per_dim_atom_bound(hyp, Y, config, policy)
     phi = stick_breaking.phi_cavi_update(f_td.T, hyp["gamma1"],
                                          hyp["gamma2"])

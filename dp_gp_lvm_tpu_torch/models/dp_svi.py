@@ -54,7 +54,11 @@ from dp_gp_lvm_tpu_torch.kernels.ard_rbf_vjp import psi1_weighted
 from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members, tri_solve
 from dp_gp_lvm_tpu_torch.models import amortized
 from dp_gp_lvm_tpu_torch.models.bgplvm import _log_normal_hyperprior
-from dp_gp_lvm_tpu_torch.models.svi_gplvm import _mesh_checked, batch_block
+from dp_gp_lvm_tpu_torch.models.svi_gplvm import (
+    _mesh_checked,
+    batch_block,
+    robbins_monro,
+)
 from dp_gp_lvm_tpu_torch.ops import dispatch
 from dp_gp_lvm_tpu_torch.parallel.collectives import all_gather, all_true
 from dp_gp_lvm_tpu_torch.parallel.mesh import MODEL_AXIS
@@ -470,9 +474,7 @@ def make_dp_svi_step(config: Config, n_total: int, optimizer,
     zero_keys = [k for k in params if k in blend]
     device = leaves[0].device
 
-    def rho_at(t):
-        return rho if rho_t0 is None else rho * (1.0 + t / rho_t0) ** (
-            -rho_kappa)
+    rho_at = robbins_monro(rho, rho_t0, rho_kappa)
 
     def loss_with_stats(y_b, idx):
         """(loss, a, A2, beta, f_td): the loss and, detached, what the blend

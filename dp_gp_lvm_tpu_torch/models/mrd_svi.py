@@ -339,9 +339,7 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     leaves = [flat[k] for k in grad_keys]
     device = leaves[0].device
 
-    def rho_at(t):
-        return rho if rho_t0 is None else rho * (1.0 + t / rho_t0) ** (
-            -rho_kappa)
+    rho_at = svi.robbins_monro(rho, rho_t0, rho_kappa)
 
     def one(t: int, idx, y_b):
         if mesh is not None:

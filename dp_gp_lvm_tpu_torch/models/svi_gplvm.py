@@ -157,7 +157,8 @@ def _bound_and_whitened(c, stats, kl_x, policy, kernel: str = "ard_rbf"):
     quad = torch.sum(mu * (A2 @ mu), dim=0)
     # the GP conditional-variance correction is the same for every dim
     shared = (-0.5 * stats.n * (LOG2PI + torch.log(c["noise"]))
-              - 0.5 * beta * (tr_sa2 + stats.psi0 - torch.trace(A2)))
+              - 0.5 * beta * (tr_sa2 + stats.psi0
+                             - torch.diagonal(A2).sum()))
     per_dim = shared - 0.5 * beta * (
         stats.yty - 2.0 * torch.sum(mu * a, dim=0) + quad)
     kl_u = 0.5 * torch.sum(mu * mu) + 0.5 * d * (
@@ -443,9 +444,9 @@ def natgrad_blend_qu(u_mean, ls, a, A2, beta, rho,
     rho G, S' = ls C^{-1} ls^T, re-triangularized through the QR of
     Lc^{-1} ls^T, and m' = m + rho ls C^{-1} ls^T (beta a - Bhat m).
     `trust` caps G's RMS eigenvalue and the m increment (None: the exact
-    natural gradient). C is factored unjittered, and with the jitter
-    search only where that fails: one host read of the factorization's
-    status. Returns (u_mean', raw_u_scale')."""
+    natural gradient). C is factored unjittered, and by `safe_cholesky`'s
+    ladder where that fails, the choice made on the device (no host
+    read). Returns (u_mean', raw_u_scale')."""
     m = ls.shape[0]
     eye = torch.eye(m, dtype=ls.dtype, device=ls.device)
     G = ls.T @ (ls + beta * (A2 @ ls))                 # ls^T Bhat ls
@@ -455,8 +456,7 @@ def natgrad_blend_qu(u_mean, ls, a, A2, beta, rho,
     C = (1.0 - rho) * eye + rho * G
     C = 0.5 * (C + C.T)
     Lc, info = torch.linalg.cholesky_ex(C)
-    if int(info) != 0:                                 # the host read
-        Lc, _ = safe_cholesky(C, policy)
+    Lc = torch.where(info == 0, Lc, safe_cholesky(C, policy)[0])
     X = tri_solve(Lc, ls.T)                            # Lc^{-1} ls^T
     r = torch.linalg.qr(X, mode="r")[1]                # S' = r^T r
     sign = torch.sign(torch.diagonal(r))
@@ -498,6 +498,22 @@ def batch_block(mesh, *arrays):
     if mesh is None:
         return arrays
     return tuple(shard(x, DATA_SHARDED, mesh, "batch") for x in arrays)
+
+
+def robbins_monro(rho: float, rho_t0: float | None, rho_kappa: float):
+    """rho_at(t): the blend's step length at global step t, rho (1 + t /
+    rho_t0)^-rho_kappa (rho without rho_t0). t is a host int or a 0-d
+    integer tensor, the step counter of a captured step on its device;
+    then rho_at(t) is a 0-d float64 tensor there, the same float64
+    arithmetic, read by no host."""
+    def rho_at(t):
+        if rho_t0 is None:
+            return rho
+        if torch.is_tensor(t):
+            t = t.to(torch.float64)
+        return rho * (1.0 + t / rho_t0) ** (-rho_kappa)
+
+    return rho_at
 
 
 def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
@@ -542,9 +558,7 @@ def make_svi_natgrad_step(config: Config, n_total: int, optimizer,
     keys = list(params)
     leaves = [params[k] for k in keys]
 
-    def rho_at(t):
-        return rho if rho_t0 is None else rho * (1.0 + t / rho_t0) ** (
-            -rho_kappa)
+    rho_at = robbins_monro(rho, rho_t0, rho_kappa)
 
     def loss_with_stats(y_b, idx):
         if mesh is not None:

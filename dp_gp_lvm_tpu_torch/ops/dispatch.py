@@ -92,6 +92,12 @@ def psi_stats(variance, ard, mu, s, Z, weights=None, block_n=None,
                                       block_n or 64)
 
 
+def _row_count(Y):
+    """Y's row count as a 0-d tensor on its device: a fill, never a copy
+    from the host (which would be a host sync on the card)."""
+    return torch.full((), float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
+
+
 def resolve_fused(use_fused, kernel: str, device: torch.device, M: int,
                   Q: int, D: int = 0, *, inputs=()) -> bool:
     """Fused-kernel decision for the path at M inducing points, Q latent
@@ -158,8 +164,7 @@ def dp_batched_suffstats(variance, ard, mu, s, Zs, Y, weights=None,
             psi1_weighted(variance[t], ard[t], mu, s, Zs[t], None).T @ Yw
             for t in range(Zs.shape[0])
         ])
-    n_eff = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype, device=Y.device)
-             if weights is None else torch.sum(weights))
+    n_eff = (_row_count(Y) if weights is None else torch.sum(weights))
     return p0, p1y, p2, torch.sum(Y * Yw, dim=0), n_eff
 
 
@@ -176,9 +181,7 @@ def suff_stats(variance, ard, mu, s, Z, Y, weights=None, block_n=None,
             variance[None], ard[None], mu, s, Z[None], Y, weights,
             block_n or 64)
         Yw = Y if weights is None else Y * weights[:, None]
-        n_eff = (torch.tensor(float(Y.shape[0]), dtype=Y.dtype,
-                              device=Y.device)
-                 if weights is None else torch.sum(weights))
+        n_eff = _row_count(Y) if weights is None else torch.sum(weights)
         return SuffStats(psi0=ard_rbf.psi0(variance, mu, weights),
                          psi1T_y=p1y[0], psi2=p2[0],
                          yty=torch.sum(Y * Yw, dim=0), n=n_eff)

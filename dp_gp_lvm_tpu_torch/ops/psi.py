@@ -32,8 +32,10 @@ Beside each is its plain PyTorch version (`*_reference`), blocked over N.
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel (float32 only; a shape one of its forms
 takes, see `fused_fits`) or raises. Each launch adds one to
-`LAUNCHES[<name>]`. `fused_fits` says, before any launch, whether every
-kernel of a fused path takes a shape.
+`LAUNCHES[<name>]` (on the host) and, once `count_on_card` is on, to a
+counter on the card on the launch's stream, which a captured CUDA graph
+replays with the kernel. `fused_fits` says, before any launch, whether
+every kernel of a fused path takes a shape.
 
 The differentiable ops pair them as in the reference:
 `SuffstatsBatchedFused` (K1, K2 + plain Psi1 pullback),
@@ -77,9 +79,46 @@ K6_COLS = 128         # columns of a K6 column tile, four per lane
 K6_MAX_STEP_ROWS = 8  # most rows a K6 warp prepares at once (its source's)
 
 
+# the launches counted on the card too (`count_on_card`): a 0-d int64
+# counter a wrapper, none while counting is off
+CARD_COUNTS: dict = {}
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counter in CARD_COUNTS.values():
+        counter.zero_()
+
+
+def count_on_card(device=None) -> None:
+    """Count each launch on `device` as well as on the host (None: stop).
+    A replayed CUDA graph runs no Python, so `train.loop.StepGraph` adds
+    the capture's host counts once per replay; a counter on the card is
+    bumped on the launch's stream by the graph itself, so `card_counts`
+    reads what the replays really launched, to hold the host counts
+    against. The counters are made here, never inside a capture."""
+    CARD_COUNTS.clear()
+    if device is not None:
+        for k in LAUNCHES:
+            CARD_COUNTS[k] = torch.zeros((), dtype=torch.int64,
+                                         device=device)
+
+
+def card_counts() -> dict:
+    """The launches counted on the card since `count_on_card` or the last
+    reset, keyed as LAUNCHES (one host read)."""
+    if not CARD_COUNTS:
+        return {}
+    values = torch.stack(list(CARD_COUNTS.values())).tolist()
+    return dict(zip(CARD_COUNTS, values))
+
+
+def _launched(name: str) -> None:
+    LAUNCHES[name] += 1
+    counter = CARD_COUNTS.get(name)
+    if counter is not None:
+        counter.add_(1)                 # on the launch's (current) stream
 
 
 def _ones_weights(mu, weights):
@@ -534,7 +573,7 @@ def suffstats_batched(variances, ards, mu, s, Zs, Y, weights=None,
         err = build.function("psi_suffstats")(
             *ptrs, geo.groups, geo.stage_rows, geo.rows, geo.chunks, stream)
     _raise_on(err, "suffstats_batched")
-    LAUNCHES["suffstats_batched"] += 1
+    _launched("suffstats_batched")
     return psi2, p1y
 
 
@@ -772,7 +811,7 @@ def psi2_bwd_batched(variances, ards, mu, s, Zs, G, weights=None,
         err = build.function("psi2_bwd")(
             *ptrs, geo.slice_width, geo.rows, geo.chunks, stream)
     _raise_on(err, "psi2_bwd_batched")
-    LAUNCHES["psi2_bwd_batched"] += 1
+    _launched("psi2_bwd_batched")
     return gvar_m, gard, gz, V, gmu, gs, gw
 
 
@@ -803,7 +842,7 @@ def _psi2_forward(name, variances, ards, mu, s, Zs, weights):
         err = build.function("psi_suffstats", "psi2_batched_f32")(
             *ptrs, geo.groups, geo.stage_rows, geo.rows, geo.chunks, stream)
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _launched(name)
     return out
 
 
@@ -913,7 +952,7 @@ def psi1(variance, ard, mu, s, Z, weights=None, block_n: int = 128):
         out.data_ptr(), N, M, Q, geo.step_rows, geo.row_blocks, stream,
     )
     _raise_on(err, "psi1")
-    LAUNCHES["psi1"] += 1
+    _launched("psi1")
     return out
 
 

@@ -36,7 +36,11 @@ from dp_gp_lvm_tpu_torch.core import prng
 from dp_gp_lvm_tpu_torch.models import dp_svi
 from dp_gp_lvm_tpu_torch.parallel import auto, collectives
 from dp_gp_lvm_tpu_torch.parallel.recipe import place_svi
-from dp_gp_lvm_tpu_torch.train.loop import TrainState, gp_optimizer
+from dp_gp_lvm_tpu_torch.train.loop import (
+    MinibatchChunks,
+    TrainState,
+    gp_optimizer,
+)
 
 # stage2b's freeze set: the manifold and the kernel hypers but the noise
 FROZEN_MANIFOLD = frozenset(
@@ -128,6 +132,7 @@ def staged_dp_svi(
     ckpt_dir: str | None = None,
     resume: bool = False,
     log: Callable[[str], None] = lambda s: print(s, flush=True),
+    eager: bool = False,
 ):
     """Run the staged split-init schedule on the resident Y. `key` draws
     the stage-1 init, `key_run` every stage's minibatches (keys of
@@ -140,6 +145,10 @@ def staged_dp_svi(
     `dp_svi.make_dp_svi_step` step from `state` (step t drawing its rows
     from the key `fold_in(key, t)` in the runner's drive) and returns
     (state, seconds a step, wall seconds).
+
+    The warmup's steps, which run outside `drive`, are replayed from a
+    CUDA graph on the card (`train.loop.MinibatchChunks`) unless `eager`
+    or a `mesh`.
 
     `mesh`: stage 1 and the split run whole on every rank (a T = 1 model
     has no atoms to cut); the split parameters, or those a resume loads,
@@ -189,8 +198,8 @@ def staged_dp_svi(
         warm_step = dp_svi.make_dp_svi_step(config, n_total, opt_w, rho=0.5,
                                             phi_update="frozen", mesh=mesh)
         idx = warm_step.indices(prng.split(rw, p["warm"]))
-        losses = torch.stack([warm_step(i, idx[i], Y)
-                              for i in range(p["warm"])])
+        losses = MinibatchChunks(warm_step, Y, eager=eager, mesh=mesh)(0,
+                                                                      idx)
         log(f"  [stage2 warmup] {p['warm']} frozen-phi steps, loss "
             f"{float(losses[-1]):.4g}")
         _save_boundary(ckpt_dir, STAGE_WARM, params, mesh, table)

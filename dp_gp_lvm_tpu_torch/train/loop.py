@@ -31,6 +31,7 @@ line search, as a loop of autograd evaluations.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 from typing import Callable
@@ -231,9 +232,9 @@ class GPOptimizer:
         if self._across_ranks():
             finite = collectives.all_true(finite, self.mesh)
         if self.skip_nonfinite:
-            self.notfinite_count = torch.where(
+            self.notfinite_count.copy_(torch.where(
                 finite, torch.zeros_like(self.notfinite_count),
-                self.notfinite_count + 1)
+                self.notfinite_count + 1))
             apply = finite | (self.notfinite_count > self.skip_nonfinite)
         else:
             apply = torch.ones((), dtype=torch.bool, device=finite.device)
@@ -249,11 +250,14 @@ class GPOptimizer:
             }
         updates = {}
         for group, rate_fn in self.rates.items():
-            # a group's count advances with or without members, as optax's
+            # a group's count advances with or without members, as optax's,
+            # in place (a captured step replays on the same tensors) once
+            # the group's update has read it
             count = self.count[group]
-            self.count[group] = torch.where(apply, count + 1, count)
+            advanced = torch.where(apply, count + 1, count)
             members = [k for k in keys if self.labels[k] == group]
             if not members:
+                count.copy_(advanced)
                 continue
             rate = rate_fn(count) if callable(rate_fn) else rate_fn
             if group == "ngd":
@@ -275,6 +279,7 @@ class GPOptimizer:
                 step = (-rate).to(direction[k].dtype) if torch.is_tensor(
                     rate) else -rate
                 updates[k] = step * direction[k]
+            count.copy_(advanced)
         for k, u in updates.items():
             p = self.params[k]
             p.copy_(torch.where(apply, p + u, p))
@@ -446,17 +451,207 @@ def make_step_fn(loss_fn: Callable, optimizer: GPOptimizer):
     return step
 
 
+# ---------------------------------------------------------------------------
+# chunks of steps replayed from a CUDA graph (the reference's jitted chunk)
+# ---------------------------------------------------------------------------
+
+# graphs captured and replays run since `reset_graph_counts`
+GRAPHS = {"captures": 0, "replays": 0}
+
+
+def reset_graph_counts() -> None:
+    GRAPHS["captures"] = GRAPHS["replays"] = 0
+
+
+def _host_counts():
+    """The host-side counters a step bumps, as (dict, key) pairs: the
+    training loop's STEPS and the kernel wrappers' launches."""
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    return [(STEPS, "taken")] + [(psi.LAUNCHES, k) for k in psi.LAUNCHES]
+
+
+class StepGraph:
+    """One step, `body()`, run `n` times a chunk: captured once as a CUDA
+    graph and replayed on the card, called eagerly elsewhere.
+
+    `body` takes every input from tensors whose storage stays put (the
+    parameters and optimizer state it updates in place, the chunk's
+    buffers, a step counter on the device) and writes what the chunk
+    returns into such tensors; it reads nothing back to the host. The
+    first step on the card is the warm-up: `body` eagerly on a side
+    stream (it builds the kernels, handles and workspaces, and is a real
+    step of the chunk); then one capture, and every later step is a
+    replay. A replay runs no Python, so the host counts a step bumps
+    (`STEPS`, `ops.psi.LAUNCHES`) get what the capture counted once per
+    replay, and the capture itself counts nothing (the card tests and
+    `chip_smoke.py` hold those counts against a profiler trace of the
+    replays). A failed capture or replay raises: there is no fall back to
+    the eager loop. `graphed` False (the CPU, a mesh, a debugging run)
+    calls `body` every step."""
+
+    def __init__(self, body: Callable, graphed: bool):
+        self.body = body
+        self.graphed = graphed
+        self.graph = None
+        self.delta = None
+
+    def run(self, n: int) -> None:
+        if not self.graphed:
+            for _ in range(n):
+                self.body()
+            return
+        if self.graph is None and n > 0:
+            self._capture()
+            n -= 1
+        counts = _host_counts()
+        for _ in range(n):
+            self.graph.replay()
+            for (table, key), d in zip(counts, self.delta):
+                table[key] += d
+        GRAPHS["replays"] += n
+
+    def _capture(self) -> None:
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.body()                       # the warm-up: a real step
+        stream.wait_stream(side)
+        counts = _host_counts()
+        before = [table[key] for table, key in counts]
+        graph = torch.cuda.CUDAGraph()
+        # a graph captured before that is now garbage in a reference cycle
+        # (a dropped MinibatchChunks and its StepGraph) must not be freed
+        # during this capture: destroying a CUDA graph is a call a capture
+        # forbids, and it invalidates the capture. So collect first, and
+        # do not collect while capturing.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        self.delta = [table[key] - b for (table, key), b in zip(counts,
+                                                                before)]
+        for (table, key), b in zip(counts, before):
+            table[key] = b
+        self.graph = graph
+        GRAPHS["captures"] += 1
+
+
+def replayed(device: torch.device, mesh, eager: bool) -> bool:
+    """Whether a chunked loop replays its steps from a CUDA graph: on the
+    card, off a mesh (no capture there yet), unless the caller asks for
+    eager steps. The one place this is decided."""
+    return device.type == "cuda" and mesh is None and not eager
+
+
 def make_multi_step_fn(loss_fn: Callable, optimizer: GPOptimizer,
-                       num_inner: int):
-    """`multi_step(*data) -> losses`: num_inner steps; their losses come
-    back as one (num_inner,) device tensor, so the caller reads the host
-    once per chunk."""
+                       num_inner: int, eager: bool = False):
+    """`multi_step(*data, steps=num_inner) -> losses`: `steps` (at most
+    num_inner) full-batch steps on fixed `data`; their losses come back as
+    one (steps,) device tensor, so the caller reads the host once per
+    chunk. On the card (off a mesh, unless `eager`) the step is captured
+    once (`StepGraph`) and replayed; new data objects capture it anew."""
     one = _gradient_step(loss_fn, optimizer)
+    device = next(iter(optimizer.params.values())).device
+    held = {"data": None}
+    losses = None
+    row = torch.zeros((), dtype=torch.int64, device=device)
 
-    def multi_step(*data):
-        return torch.stack([one(*data)[0] for _ in range(num_inner)])
+    def body():
+        loss = one(*held["data"])[0]
+        losses.index_copy_(0, row.view(1), loss.reshape(1))
+        row.add_(1)
 
+    graph = StepGraph(body, replayed(device, optimizer.mesh, eager))
+
+    def multi_step(*data, steps: int = num_inner):
+        nonlocal losses, graph
+        if steps > num_inner:
+            raise ValueError(f"{steps} steps do not fit a chunk of "
+                             f"{num_inner}")
+        if held["data"] is None or len(data) != len(held["data"]) or any(
+                a is not b for a, b in zip(data, held["data"])):
+            held["data"] = data
+            graph = StepGraph(body, graph.graphed)
+        if losses is None:
+            dtype = next(iter(optimizer.params.values())).dtype
+            losses = torch.zeros(num_inner, dtype=dtype, device=device)
+        row.zero_()
+        graph.run(steps)
+        return losses[:steps].clone()
+
+    multi_step.num_inner = num_inner
     return multi_step
+
+
+class MinibatchChunks:
+    """Chunks of a minibatch step on rows the host drew, one call a chunk:
+    `chunks(t0, idx) -> losses` runs steps t0, ..., t0 + n - 1 on the rows
+    idx (n, B) of the resident `data` (`step(t, idx_b, data)`), or with
+    `streaming` `chunks(t0, idx, y)` on the fed rows y (n, B, D)
+    (`step(t, (idx_b, y_b))`). The losses come back as one (n,) device
+    tensor: nothing is read back here.
+
+    The chunk's rows are copied once into fixed device buffers and step i
+    selects its row with a step counter on the device, which also hands
+    the step its global step t (a 0-d int64 tensor); the step advances
+    both. On the card (off a `mesh`, unless `eager`) the step is
+    captured once (`StepGraph`) and replayed for each step of every
+    chunk; a chunk longer than the buffers makes them anew and captures
+    again."""
+
+    def __init__(self, step_fn: Callable, data=None, *,
+                 streaming: bool = False, eager: bool = False, mesh=None):
+        self.step_fn, self.data, self.streaming = step_fn, data, streaming
+        self.eager, self.mesh = eager, mesh
+        self.idx = self.y = self.losses = self.graph = None
+
+    def _body(self):
+        row = self.row.view(1)
+        idx_b = self.idx.index_select(0, row)[0]
+        if self.streaming:
+            y_b = self.y.index_select(0, row)[0]
+            loss = self.step_fn(self.t, (idx_b, y_b))
+        else:
+            loss = self.step_fn(self.t, idx_b, self.data)
+        self.losses.index_copy_(0, row, loss.detach().reshape(1))
+        self.t.add_(1)
+        self.row.add_(1)
+
+    def _buffers(self, idx, y, dtype):
+        n = idx.shape[0]
+        if self.idx is not None and n <= self.idx.shape[0] and (
+                not self.streaming or y.shape[1:] == self.y.shape[1:]):
+            return
+        device = idx.device
+        self.idx = torch.empty(idx.shape, dtype=torch.int64, device=device)
+        self.y = (torch.empty(y.shape, dtype=y.dtype, device=device)
+                  if self.streaming else None)
+        self.losses = torch.zeros(n, dtype=dtype, device=device)
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.row = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph = StepGraph(self._body,
+                               replayed(device, self.mesh, self.eager))
+
+    def __call__(self, t0: int, idx, y=None):
+        n = idx.shape[0]
+        first = self.data[0] if isinstance(self.data, (tuple, list)) \
+            else self.data
+        dtype = y.dtype if self.streaming else first.dtype
+        self._buffers(idx, y, dtype)
+        self.idx[:n].copy_(idx)
+        if self.streaming:
+            self.y[:n].copy_(y)
+        self.t.fill_(t0)
+        self.row.zero_()
+        self.graph.run(n)
+        return self.losses[:n].clone()
 
 
 def _wait(tensor):
@@ -464,34 +659,43 @@ def _wait(tensor):
         torch.cuda.synchronize(tensor.device)
 
 
-def time_steps(step_fn, data: tuple, num_steps: int, warmup: int = 2):
-    """Wall-clock seconds per step after `warmup` steps. The steps train
-    on: the optimizer's parameters and counts advance by warmup +
-    num_steps, as the reference's state does."""
-    for _ in range(warmup):
-        m = step_fn(*data)
-    _wait(m["loss"])
+def time_steps(multi_step, data: tuple, num_steps: int,
+               warmup: int = 2) -> float:
+    """Wall-clock seconds per step of a `make_multi_step_fn` loop over
+    `num_steps` steps after `warmup`, run as the training runs them
+    (replayed on the card). The steps train on: the optimizer's
+    parameters and counts advance by warmup + num_steps, as the
+    reference's state does."""
+    def steps(n):
+        while n > 0:
+            k = min(n, multi_step.num_inner)
+            out = multi_step(*data, steps=k)
+            n -= k
+        return out
+
+    _wait(steps(warmup))
     t0 = time.perf_counter()
-    for _ in range(num_steps):
-        m = step_fn(*data)
-    _wait(m["loss"])
+    _wait(steps(num_steps))
     return (time.perf_counter() - t0) / num_steps
 
 
-def make_streaming_scan_fn(step_fn):
+def make_streaming_scan_fn(step_fn, eager: bool = False, mesh=None):
     """`scan_chunk(state, idx, y) -> (state, losses)`: one host-fed chunk
     of streamed minibatch steps, idx (chunk, B) and y (chunk, B, D) as
     `data/stream.ChunkStream.next_chunk` gives them. `step_fn(t, (idx_b,
     y_b))` is a streamed step (`svi_gplvm.make_svi_natgrad_step(...,
-    streaming=True)`), t the global step its rates read; `state` (a
-    `TrainState`) advances by the chunk. The losses stay on the device as
-    one (chunk,) tensor: nothing is read back here."""
+    streaming=True)`), t the global step its rates read (the device
+    counter of `MinibatchChunks`, which runs the chunk, replayed from a
+    CUDA graph on the card unless `eager` or a `mesh`); `state` (a
+    `TrainState`) advances by the chunk.
+    The losses stay on the device as one (chunk,) tensor: nothing is read
+    back here."""
+    chunks = MinibatchChunks(step_fn, streaming=True, eager=eager,
+                             mesh=mesh)
 
     def scan_chunk(state: TrainState, idx, y):
-        start = state.step
-        losses = torch.stack([step_fn(start + i, (idx[i], y[i]))
-                              for i in range(idx.shape[0])])
-        state.step = start + idx.shape[0]
+        losses = chunks(state.step, idx, y)
+        state.step += idx.shape[0]
         return state, losses
 
     return scan_chunk

@@ -1134,7 +1134,10 @@ def _chol_stack(card, dtype):
 def test_per_member_cholesky_on_card(card):
     """Each member's own jitter on the card, as on the CPU (1e-6, 1e-5,
     1e-3 and the last rung in f64; in f32 from 1e-4: 1e-4, 1e-4, 1e-3),
-    the same factors, and one host read a call."""
+    the same factors, and no host read in a call (the rung is chosen on
+    the device)."""
+    import warnings
+
     from dp_gp_lvm_tpu_torch.linalg import safe_cholesky_members
 
     stack = _chol_stack(card, torch.float64)
@@ -1147,14 +1150,15 @@ def test_per_member_cholesky_on_card(card):
     L32, jitter32 = safe_cholesky_members(_chol_stack(card, torch.float32))
     assert jitter32[:3].cpu().tolist() == pytest.approx([1e-4, 1e-4, 1e-3])
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with pytest.warns(UserWarning, match="synchroniz") as caught:
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
             safe_cholesky_members(stack[:1])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert len([w for w in caught if "synchroniz" in str(w.message)
-                and "prototype" not in str(w.message)]) == 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert [str(w.message) for w in caught if "synchroniz" in str(w.message)
+            and "prototype" not in str(w.message)] == []
 
 
 def _dp_svi_setup(card, dtype, n=4096):
@@ -1767,3 +1771,242 @@ def test_sharded_svi_at_world_size_one_equals_the_fused_path(
     after = flat_leaves(params)
     assert _scaled_or_zero(list(flat_leaves(local).values()),
                            list(after.values())) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# chunks replayed from CUDA graphs (train/loop.py::StepGraph)
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = ["c6", "c6_stream", "c7", "c8", "c9", "c4"]
+
+
+def _graph_case(card, name, n=4096, chunk=4):
+    """fresh(graphed) -> (go, optimizer): a fresh copy of the step the
+    runner takes for `name` at the config's widths on an n-row draw (c7:
+    stage 2c at T = 8; c9: phase B; c4: the full-batch DP-GP-LVM on its
+    1024 rows); go(t0, k) runs its steps t0, ..., t0 + k - 1 (t0 + k <=
+    chunk) as one chunk, eagerly or replayed, and returns their losses.
+    The minibatches are drawn once, so every copy steps on the same
+    rows."""
+    from dp_gp_lvm_tpu_torch.core import config as config_lib
+    from dp_gp_lvm_tpu_torch.data import synthetic
+    from dp_gp_lvm_tpu_torch.experiments import run as runner
+    from dp_gp_lvm_tpu_torch.models import dp_gp_lvm, dp_svi, mrd_svi
+    from dp_gp_lvm_tpu_torch.models import svi_gplvm
+    from dp_gp_lvm_tpu_torch.train import mrd_recipe
+    from dp_gp_lvm_tpu_torch.train.loop import (
+        MinibatchChunks,
+        gp_optimizer,
+        make_multi_step_fn,
+    )
+
+    cfg = config_lib.get({"c4": "c4_dp_mocap", "c6": "c6_svi_bigN",
+                          "c6_stream": "c6_svi_bigN", "c7": "c7_dp_svi",
+                          "c8": "c8_amortized_svi",
+                          "c9": "c9_mrd_svi_bigN"}[name])
+    key = prng.PRNGKey(cfg.seed)
+    f32 = dict(dtype=torch.float32, device=card)
+    if name == "c4":
+        Y, _ = synthetic.mocap_like(key, n=cfg.n, d=cfg.d, **f32)
+        mcfg = runner._model_config(cfg, None)
+
+        def fresh_c4(graphed):
+            params = dp_gp_lvm.init_params(key, Y, mcfg)
+            opt = gp_optimizer(params, lr=cfg.lr, ard_lr=cfg.ard_lr,
+                               decay_steps=cfg.steps, ngd_lr=cfg.ngd_lr)
+            multi = make_multi_step_fn(
+                lambda _, y: dp_gp_lvm.loss(params, y, mcfg), opt, chunk,
+                eager=not graphed)
+            return (lambda t0, k: multi(Y, steps=k)), opt
+        return fresh_c4
+    if name == "c7":
+        Y, _, _ = synthetic.grouped_dims_big(
+            key, n=n, dims_per_group=runner.grouped_dims_per_group(cfg.d),
+            q=cfg.q, **f32)
+    elif name == "c9":
+        Y = synthetic.two_view_big(key, n=n, d1=cfg.views[0],
+                                   d2=cfg.views[1], **f32)[:2]
+    else:
+        Y, _ = synthetic.mocap_like(key, n=n, d=cfg.d, **f32)
+    mcfg = runner._model_config(cfg, None)
+    first = Y[0] if name == "c9" else Y
+
+    def fresh():
+        if name == "c7":
+            params = dp_svi.init_params(key, Y, mcfg)
+            opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                               decay_steps=cfg.steps)
+            return opt, dp_svi.make_dp_svi_step(mcfg, n, opt, rho=0.3,
+                                                phi_update="frozen")
+        if name == "c9":
+            params = mrd_recipe._as_parameters(mrd_recipe.recalibrated(
+                mrd_svi.init_params(key, Y, mcfg), 0.4, 0.25))
+            opt = gp_optimizer(params, lr=cfg.lr, decay_steps=cfg.steps,
+                               freeze=mrd_recipe.FROZEN_STRUCTURE)
+            return opt, runner._svi_step(cfg, mcfg, n, opt, False)
+        params = svi_gplvm.init_params(key, Y, mcfg)
+        opt = gp_optimizer(params, lr=cfg.lr, ngd_lr=cfg.ngd_lr,
+                           decay_steps=cfg.steps,
+                           slow=frozenset({"z"}) if cfg.amortized
+                           else frozenset())
+        return opt, runner._svi_step(cfg, mcfg, n, opt,
+                                     name == "c6_stream")
+
+    idx = dp_svi.minibatch_indices(
+        prng.fold_in(prng.PRNGKey(1), torch.arange(chunk)), mcfg.batch,
+        n).to(card)
+    rows = first[idx]
+
+    def fresh_svi(graphed):
+        opt, step = fresh()
+        streamed = name == "c6_stream"
+        chunks = MinibatchChunks(step, None if streamed else Y,
+                                 streaming=streamed, eager=not graphed)
+
+        def go(t0, k):
+            return chunks(t0, idx[t0:t0 + k],
+                          rows[t0:t0 + k] if streamed else None)
+        return go, opt
+    return fresh_svi
+
+
+def _same_state(a, b):
+    """The names of the state's tensors whose bits differ."""
+    if torch.is_tensor(a):
+        return [] if torch.equal(a, b) else [""]
+    return [f"{k}.{d}".rstrip(".") for k in a for d in _same_state(a[k],
+                                                                  b[k])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_replayed_steps_are_the_eager_steps(card, name):
+    """A warm-up step, a capture and three replays against four eager
+    steps from the same state on the same minibatches: the same losses
+    and optimizer state, bit for bit, and the same launch and step
+    counts; and the hand kernels the card ran, read from a profiler
+    trace of each run (`perf.launches`) and from the counters on the card
+    (`ops.psi.count_on_card`), are those the counts say, so the counts a
+    replay adds on the host are what the graph launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dp_gp_lvm_tpu_torch.perf import launches
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    fresh = _graph_case(card, name)
+    counts = {}
+    psi.count_on_card(card)
+    try:
+        for graphed in (False, True):
+            go, opt = fresh(graphed)
+            psi.reset_launch_counts()
+            loop.reset_step_count()
+            loop.reset_graph_counts()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                losses = go(0, 4)
+                torch.cuda.synchronize()
+            counts[graphed] = (losses, opt.state_dict(), dict(psi.LAUNCHES),
+                               loop.STEPS["taken"],
+                               launches.traced_launches(prof)[0],
+                               psi.card_counts())
+    finally:
+        psi.count_on_card(None)
+    assert loop.GRAPHS == {"captures": 1, "replays": 3}
+    (l_e, s_e, n_e, t_e, k_e, c_e), (l_g, s_g, n_g, t_g, k_g, c_g) = (
+        counts[False], counts[True])
+    assert bool(torch.isfinite(l_e).all())
+    assert torch.equal(l_e, l_g)
+    assert _same_state(s_e, s_g) == []
+    assert n_e == n_g == c_e == c_g and t_e == t_g == 4
+    assert k_e == k_g == launches.families(n_e)
+    assert sum(k_g.values()) >= 8               # K1 and K2 each step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CASES)
+def test_eager_steps_make_no_host_sync(card, name):
+    """PyTorch's sync debug mode in "error" raises at any synchronizing
+    call of a chunk of eager steps after a warm-up chunk."""
+    go, _ = _graph_case(card, name)(False)
+    go(0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = go(1, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [False, True])
+def test_forced_repair_inside_a_graph_picks_the_eager_jitter(card, members):
+    """K_uu of inducing inputs with duplicated rows in f32, under a policy
+    whose first rungs sit below f32's resolution: the factor at the first
+    rungs fails, and the jitter a replay picks (and its factor) is the
+    one the eager ladder picks."""
+    from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
+    from dp_gp_lvm_tpu_torch.kernels import ard_rbf
+    from dp_gp_lvm_tpu_torch.linalg import chol
+    from dp_gp_lvm_tpu_torch.train.loop import StepGraph
+
+    policy = JitterPolicy(initial=1e-10, initial_f32=1e-10)
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn(3, 32, 4, generator=gen)
+    z[:, 16:] = z[:, :16]                      # every row twice
+    z = z.to(card)
+    variance = torch.ones(3, device=card)
+    ard = torch.ones(3, 4, device=card)
+    fn = chol.safe_cholesky_members if members else chol.safe_cholesky_spec
+
+    def factor():
+        kuu = torch.stack([ard_rbf.gram(variance[t], ard[t], z[t])
+                           for t in range(3)])
+        return fn(kuu, policy)
+
+    want_L, want_j = factor()
+    assert bool((want_j > 1e-10).all())        # the ladder repaired it
+    out = {}
+
+    def body():
+        out["L"], out["j"] = factor()
+
+    StepGraph(body, graphed=True).run(2)       # a warm-up and a replay
+    torch.cuda.synchronize()
+    assert torch.equal(out["j"], want_j)
+    assert torch.equal(out["L"], want_L)
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_an_earlier_graph_left_in_a_cycle(card):
+    """A dropped chunk loop (a MinibatchChunks and its StepGraph hold each
+    other) leaves its CUDA graph to the collector. Freeing that graph
+    inside a later capture invalidates the capture
+    (`tools/graph_capture_probe.py`), so `StepGraph` collects before it
+    captures: a body that collects inside the capture (not in its
+    warm-up) must still capture and replay."""
+    import gc
+
+    from dp_gp_lvm_tpu_torch.train.loop import MinibatchChunks, StepGraph
+
+    x = torch.zeros((), device=card)
+
+    def step(t, idx, data):
+        x.add_(1.0)
+        return x * 1.0
+
+    old = MinibatchChunks(step, torch.zeros(4, device=card))
+    old(0, torch.zeros(3, 2, dtype=torch.int64, device=card))
+    assert old.graph.graph is not None          # captured and replayed
+    del old                                     # now garbage in a cycle
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        x.add_(1.0)
+
+    StepGraph(body, graphed=True).run(3)       # a warm-up and two replays
+    torch.cuda.synchronize()
+    assert float(x) == 6.0

@@ -47,3 +47,101 @@ def test_mfu_against_the_h100_peaks():
     assert mfu(floors[binding], costs)["roofline_pct"] == pytest.approx(100)
     assert all(math.isfinite(v) for v in out.values()
                if isinstance(v, float))
+
+
+# kernel names as torch.profiler prints them on the card (the c4, c6 and
+# tiled m256 paths), with the launch family each closes, or None
+TRACE_NAMES = [
+    ("void (anonymous namespace)::reduce_chunks<true>(float const*, int, "
+     "(anonymous namespace)::Dims, float*, float*)", "suffstats_batched"),
+    ("void (anonymous namespace)::reduce_tiled<true>(float const*, "
+     "(anonymous namespace)::TiledDims, float*, float*)", "suffstats_batched"),
+    ("void (anonymous namespace)::reduce_chunks<false>(float const*, int, "
+     "(anonymous namespace)::Dims, float*, float*)", "psi2"),
+    ("void (anonymous namespace)::reduce_tiled<false>(float const*, "
+     "(anonymous namespace)::TiledDims, float*, float*)", "psi2"),
+    ("void (anonymous namespace)::finish_kernel(float const*, float const*, "
+     "float const*, float const*, (anonymous namespace)::Outputs, "
+     "(anonymous namespace)::Dims, int, int)", "psi2_bwd_batched"),
+    ("void (anonymous namespace)::finish_tiled_kernel(float const*, float "
+     "const*, float const*, float const*, (anonymous namespace)::Outputs, "
+     "(anonymous namespace)::TiledDims, int, int)", "psi2_bwd_batched"),
+    ("void (anonymous namespace)::psi1_kernel<10>(float const*, float "
+     "const*, float const*, float const*, float const*, float const*, "
+     "float*, int, int, int, int)", "psi1"),
+    ("void (anonymous namespace)::suffstats_kernel<10, 64, true>(float "
+     "const*, float const*, float const*)", None),
+    ("void (anonymous namespace)::psi2_bwd_kernel<10, 16, false>(float "
+     "const*, float const*)", None),
+    ("void (anonymous namespace)::p1y_tiled_kernel<10>(float const*)", None),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, "
+     "at::native::func_wrapper_t<float> > >(at::native::ReduceOp<float>)",
+     None),
+    ("void potrf_cta_lower_batch<float, float, 16>(int, int, int, float**, "
+     "unsigned long, int*)", None),
+    ("finish_kernel(float const*)", None),          # not one of ours
+]
+
+
+@pytest.mark.parametrize("name,family", TRACE_NAMES)
+def test_trace_names_map_to_their_launch_family(name, family):
+    from dp_gp_lvm_tpu_torch.perf import launches
+
+    assert launches.family_of(name) == family
+
+
+def test_traced_launches_fold_k4_and_k5_and_match_the_wrappers():
+    """Every wrapper key has a family; a trace of one c9-like step (K1 and
+    K2 twice) and of a Bayesian GP-LVM step (K6, K5, K2) counts as the
+    host counts fold; each closing kernel is a kernel of csrc."""
+    import pathlib
+    import re
+
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.perf import launches
+
+    assert set(launches.FAMILY) == set(psi.LAUNCHES)
+    names = dict((fam, n) for n, fam in TRACE_NAMES if fam)
+    trace = [(n, 2) for n, fam in TRACE_NAMES[:1] + TRACE_NAMES[4:5]] + [
+        (n, 7) for n, fam in TRACE_NAMES if fam is None]
+    want = dict.fromkeys(psi.LAUNCHES, 0)
+    want.update(suffstats_batched=2, psi2_bwd_batched=2)
+    assert launches.traced(trace) == launches.families(want)
+    want = dict.fromkeys(psi.LAUNCHES, 0)
+    want.update(psi1=1, psi2_single=1, psi2_batched=2, psi2_bwd_batched=1)
+    trace = [(names["psi1"], 1), (names["psi2"], 3),
+             (names["psi2_bwd_batched"], 1)]
+    assert launches.traced(trace) == launches.families(want) == {
+        "psi1": 1, "psi2": 3, "psi2_bwd_batched": 1, "suffstats_batched": 0}
+    csrc = pathlib.Path(launches.__file__).parents[1] / "csrc"
+    source = "".join(p.read_text() for p in csrc.glob("*.cu"))
+    for name, _ in launches._CLOSING:
+        assert re.search(rf"^{name}\(", source, re.M) or re.search(
+            rf"\b{name}<(true|false)><<<", source), name
+
+
+def test_launches_count_on_the_card_beside_the_host():
+    """`count_on_card` makes one counter a wrapper; a launch adds one on
+    the host and one to its counter; a reset zeroes both; off, nothing is
+    counted but on the host. (On the CPU no wrapper launches, so the
+    launch is called directly.)"""
+    from dp_gp_lvm_tpu_torch.ops import psi
+
+    psi.reset_launch_counts()
+    psi.count_on_card("cpu")
+    try:
+        assert psi.card_counts() == dict.fromkeys(psi.LAUNCHES, 0)
+        psi._launched("psi1")
+        psi._launched("suffstats_batched")
+        psi._launched("psi1")
+        assert psi.card_counts() == dict(psi.LAUNCHES) == {
+            **dict.fromkeys(psi.LAUNCHES, 0), "psi1": 2,
+            "suffstats_batched": 1}
+        psi.reset_launch_counts()
+        assert psi.card_counts() == dict(psi.LAUNCHES) == dict.fromkeys(
+            psi.LAUNCHES, 0)
+    finally:
+        psi.count_on_card(None)
+    psi._launched("psi1")
+    assert psi.card_counts() == {} and psi.LAUNCHES["psi1"] == 1
+    psi.reset_launch_counts()

@@ -133,8 +133,8 @@ def test_gp_optimizer_matches_optax(case):
 
 def test_step_fn_metrics_and_time_steps():
     """make_step_fn reports the loss, the ELBO and the unclipped gradient
-    norm as device tensors; time_steps trains on; the driver counts every
-    step it takes."""
+    norm as device tensors; time_steps trains on through a multi-step
+    loop; the driver counts every step it takes."""
     p0, a, c = _quadratic()
     tp = params_from_jax(p0, "cpu", torch.float64)
     opt = loop.gp_optimizer(tp, lr=0.05, decay_steps=10)
@@ -154,10 +154,11 @@ def test_step_fn_metrics_and_time_steps():
     assert float(m["elbo"]) == -float(m["loss"])
     np.testing.assert_allclose(float(m["grad_norm"]), g_norm, rtol=1e-12)
     assert g_norm > 100.0                        # the clip bound
-    per_step = loop.time_steps(step, (1.0,), num_steps=3, warmup=2)
+    multi = loop.make_multi_step_fn(loss_fn, opt, 4)
+    per_step = loop.time_steps(multi, (1.0,), num_steps=3, warmup=2)
     assert per_step > 0.0
     assert all(int(n) == 6 for n in opt.count.values())
-    losses = loop.make_multi_step_fn(loss_fn, opt, 4)(1.0)
+    losses = multi(1.0)
     assert losses.shape == (4,) and bool(torch.all(losses[1:] < losses[:-1]))
     assert loop.STEPS["taken"] == 1 + 5 + 4
 
