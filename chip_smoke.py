@@ -233,11 +233,30 @@ imputation servers built on them. Phases, each printing one JSON line:
          f64 on the CPU at the same jitter; also reported, not held, at
          N=500, M=30, where K_uu's condition number is near 4e4
   trace  torch.profiler traces: one eager c4_dp_mocap training step, a
-         chunk of 100 of them replayed from a CUDA graph and one
-         streamed c6 chunk of 100 replayed steps; CUDA and
+         chunk of 100 of them replayed from a CUDA graph, one
+         streamed c6 chunk of 100 replayed steps, and a batch-8 request
+         (150 inference steps) to the DP server replayed and eager; CUDA and
          CPU time of the DP loss's scopes (psi_stats, kuu_gram,
          collapsed_bound), device time by kernel, wall time and the
          card's idle share (numbers only, nothing held)
+  serve_parent  with `--parent DIR`: the eager ms a request of DIR's
+         servers, built and asked as every serving phase asked its eager
+         server, in a child process of this script that imports DIR's
+         package
+
+Every serving phase (serve_bgplvm, serve_dp, serve_mrd, the servers of
+dp_svi, amortized, mrd_svi and m256) asks each batch size of a server,
+which replays its requests from CUDA graphs, one request that captures
+them and 3 timed ones, then asks an eager=True server built alike the
+last of them (`_serve_pair`). Per batch it prints the replayed and the
+eager ms a request, the first request's ms, graphs captured, the bytes
+of the shape's graph pool (`_pool_bytes`), the host syncs of a replayed
+request (sync debug mode) and the launches a request. Held: the eager
+answers equal the replayed ones to the bit; a fixed-unroll or one-pass
+request syncs 0 times, an early-stopping one once a
+`prediction.TOL_CHUNK` steps; the first request captures 3 graphs (1 for
+the one-pass encoder imputer) and no later one captures. serve_dp and
+m256 also time batch 1 at each of TOL_CHUNKS.
 
 then a `total` line (the script's wall seconds, the build included), the
 card's name and power limit again, a `kernels` JSON line, and as its last
@@ -966,61 +985,180 @@ def _steps_from_trace(trace):
     return int(changed[-1]) + 2 if changed.numel() else 1
 
 
-def _serve(torch, seed, name, impute, infer, predict64, predict32, w64, w32,
-           d, batches):
-    """Answer requests of each batch size through `impute`; check the
-    outputs, the objective trace of the same inference, and the f32
-    predictive against f64 at a fixed q(x*); compare the posterior
-    cache's weights (`w32` through the kernels, `w64` plain)."""
+def _masked_requests(torch, seed, d):
+    """`request(b, i)`: b random rows of d dims on the card, the second
+    half of the dims masked, drawn from a generator seeded by (seed, b,
+    i)."""
+    def request(b, i):
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 100_000 + b * 10 + i)
+        y = torch.randn(b, d, generator=gen, device="cuda")
+        mask = torch.ones(b, d, device="cuda")
+        mask[:, d // 2:] = 0.0
+        return y, mask
+
+    return request
+
+
+def _serve(torch, seed, name, impute, factory, fargs, infer, predict64,
+           predict32, w64, w32, d, batches, chunks=False):
+    """Answer requests of each batch size through `impute` and an eager
+    server (`_serve_pair`); check the objective trace of the same
+    inference, and the f32 predictive against f64 at a fixed q(x*);
+    compare the posterior cache's weights (`w32` through the kernels,
+    `w64` plain)."""
     from dp_gp_lvm_tpu_torch.models import serving
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    rows = []
-    for b in batches:
-        def request():
-            y = torch.randn(b, d, generator=gen, device="cuda")
-            mask = torch.ones(b, d, device="cuda")
-            mask[:, d // 2:] = 0.0
-            return y, mask
-
-        times = []
-        for i in range(4):                       # one warm call, then 3
-            y, mask = request()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, var = impute(y, mask)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-            if not (mean.shape == var.shape == (b, d)
-                    and bool(torch.isfinite(mean).all())
-                    and bool(torch.isfinite(var).all())
-                    and bool((var > 0).all())):
-                raise AssertionError(f"{name}: bad answer at batch {b}")
+    request = _masked_requests(torch, seed + 1, d)
+    rows, failures = _serve_pair(torch, name, impute, factory, fargs,
+                                 dict(num_steps=SERVE_STEPS), request,
+                                 batches, d, chunks)
+    for row in rows:
+        b = row["batch"]
+        y, mask = request(b, SERVE_TIMED)
         tol, steps = serving._resolve("auto", SERVE_STEPS, b)
         trace = infer(y, mask, steps, tol)
         if not float(trace[-1]) > float(trace[0]):
-            raise AssertionError(f"{name}: objective fell at batch {b}: "
-                                 f"{float(trace[0])} -> {float(trace[-1])}")
-        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
-                         step_cap=steps,
-                         steps_taken=_steps_from_trace(trace),
-                         ms_per_request=statistics.median(times),
-                         objective_first=float(trace[0]),
-                         objective_last=float(trace[-1])))
+            failures.append(f"{name}: objective fell at batch {b}: "
+                            f"{float(trace[0])} -> {float(trace[-1])}")
+        row.update(step_cap=steps, steps_taken=_steps_from_trace(trace),
+                   objective_first=float(trace[0]),
+                   objective_last=float(trace[-1]))
     (m64, v64), (m32, v32) = predict64(), predict32()
     pred_err = dict(
         mean=float((m32.double() - m64).abs().max() / m64.abs().max()),
         var=float((v32.double() - v64).abs().max() / v64.abs().max()),
         cache_w=float((w32.double() - w64).abs().max() / w64.abs().max()))
-    return rows, pred_err
+    return rows, pred_err, failures
 
 
-def _check_serve(name, pred_err):
+def _check_serve(name, pred_err, failures=()):
+    if failures:
+        raise AssertionError(f"{name}: {failures}")
     if not max(pred_err["mean"], pred_err["var"]) <= TOL_PRED:
         raise AssertionError(f"{name}: f32 predictive off: {pred_err}")
     if not pred_err["cache_w"] <= TOL_CACHE_W:
         raise AssertionError(f"{name}: f32 posterior cache off: {pred_err}")
+
+
+# a server's requests at each batch: one that captures its graphs and
+# SERVE_TIMED timed ones, replayed; then SERVE_EAGER through an eager=True
+# server built alike, on the inputs of the last replayed ones, whose
+# answers must be the replayed answers to the bit (one: an eager request
+# takes 0.4-2 s of host time, and the smoke asks about 25 batch sizes)
+SERVE_TIMED = 3
+SERVE_EAGER = 1
+# `prediction.TOL_CHUNK` values batch 1's early stopping is timed at
+TOL_CHUNKS = (5, 10, 25)
+# with --parent: what the parent's eager servers are timed on
+# (`_time_serving_child`)
+PARENT_SERVE = {"dir": None, "cases": []}
+
+
+def _answers_ok(out, b, d):
+    mean, var = out
+    return (tuple(mean.shape) == tuple(var.shape) == (b, d)
+            and bool(mean.isfinite().all()) and bool(var.isfinite().all())
+            and bool((var > 0).all()))
+
+
+def _request_ms(torch, serve, args):
+    """(answer, ms) of one request, on the host's clock to a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve(*args)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _pool_bytes(torch, pool):
+    """Bytes the card holds in the CUDA graph memory pool `pool` (a
+    `torch.cuda.graph_pool_handle()`): its segments in the allocator's
+    snapshot."""
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def _serve_pair(torch, name, fast, factory, fargs, fkw, request, batches,
+                d, chunks=False):
+    """`fast`, a server from `serving.<factory>(*fargs, **fkw)`, and one
+    built with eager=True, on `request(b, i)`'s arguments at each batch
+    b: per batch the replayed ms a request (after the one that
+    captures, whose ms and graphs captured are printed too, and the
+    bytes of the shape's graph pool), the eager ms, the host syncs of a
+    replayed request (PyTorch's sync debug mode), the kernel launches a
+    request, and whether the eager answers equal the replayed ones to the
+    bit. With `chunks` batch 1's early stopping is also timed at each
+    TOL_CHUNKS value. Returns (rows, failures)."""
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+    from dp_gp_lvm_tpu_torch.ops import psi
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    slow = getattr(serving, factory)(*fargs, eager=True, **fkw)
+    rows, failures = [], []
+    for b in batches:
+        args = [request(b, i) for i in range(1 + SERVE_TIMED)]
+        launched = sum(psi.LAUNCHES.values())
+        captures = loop.GRAPHS["captures"]
+        out, first_ms = _request_ms(torch, fast, args[0])
+        captured = loop.GRAPHS["captures"] - captures
+        answers, times = [out], []
+        for a in args[1:]:
+            out, ms = _request_ms(torch, fast, a)
+            answers.append(out)
+            times.append(ms)
+        recaptured = loop.GRAPHS["captures"] - captures - captured
+        syncs, sites = _syncs_per_step(torch, fast, args[-1:])
+        shape = fast.shapes[b]
+        pool = _pool_bytes(torch, shape.predict.pool)
+        mode = ("one_pass" if shape.fit is None else
+                "unroll" if shape.fit.tol is None else "tol")
+        steps_taken = None if shape.fit is None else int(shape.fit.k)
+        eager_ms, same = [], True
+        for a, want in zip(args[-SERVE_EAGER:], answers[-SERVE_EAGER:]):
+            got, ms = _request_ms(torch, slow, a)
+            eager_ms.append(ms)
+            same = same and all(torch.equal(g, w) for g, w in zip(got, want))
+        n_requests = len(args) + 1 + SERVE_EAGER
+        row = dict(batch=b, mode=mode, steps_taken_last=steps_taken,
+                   ms_replayed=statistics.median(times),
+                   ms_first_request=first_ms,
+                   ms_eager=statistics.median(eager_ms),
+                   host_syncs_per_request=syncs, host_sync_sites=sites,
+                   graphs_captured_first_request=captured,
+                   graphs_captured_later=recaptured, pool_bytes=pool,
+                   launches_per_request=(sum(psi.LAUNCHES.values())
+                                         - launched) / n_requests,
+                   replayed_equals_eager_bitwise=same)
+        if chunks and mode == "tol":
+            default = prediction.TOL_CHUNK
+            try:
+                for c in TOL_CHUNKS:
+                    prediction.TOL_CHUNK = c
+                    row[f"ms_replayed_tol_chunk_{c}"] = statistics.median(
+                        _request_ms(torch, fast, a)[1] for a in args[1:])
+            finally:
+                prediction.TOL_CHUNK = default
+        rows.append(row)
+        if PARENT_SERVE["dir"] is not None:
+            PARENT_SERVE["cases"].append(dict(
+                name=name, factory=factory, fargs=fargs, fkw=fkw, batch=b,
+                args=args[-SERVE_EAGER:]))
+        expected_syncs = (0 if mode != "tol" else
+                          math.ceil(steps_taken / prediction.TOL_CHUNK))
+        if not all(_answers_ok(o, b, d) for o in answers):
+            failures.append(f"{name}: bad answer at batch {b}")
+        if not same:
+            failures.append(f"{name}: replayed answers differ from eager "
+                            f"ones at batch {b}")
+        if syncs != expected_syncs:
+            failures.append(f"{name}: {syncs} host syncs a request at batch "
+                            f"{b}, expected {expected_syncs}: {sites}")
+        if captured != (1 if mode == "one_pass" else 3) or recaptured:
+            failures.append(f"{name}: captured {captured} graphs, then "
+                            f"{recaptured}, at batch {b}")
+    return rows, failures
 
 
 def phase_serve_bgplvm(torch, seed, params, Y, cfg):
@@ -1052,8 +1190,9 @@ def phase_serve_bgplvm(torch, seed, params, Y, cfg):
                                        tol=tol)[2]
 
     with torch.no_grad():
-        rows, pred_err = _serve(
-            torch, seed, "serve_bgplvm", impute, infer,
+        rows, pred_err, failures = _serve(
+            torch, seed, "serve_bgplvm", impute, "make_bgplvm_imputer",
+            (params, Y, cfg), infer,
             lambda: prediction.predict_from_latent(
                 cache64, m_fix.double(), s_fix.double()),
             lambda: prediction.predict_from_latent(cache32, m_fix, s_fix),
@@ -1063,7 +1202,7 @@ def phase_serve_bgplvm(torch, seed, params, Y, cfg):
                requests=rows, predict_f32_vs_f64_scaled_err=pred_err,
                tol=TOL_PRED, tol_cache_w=TOL_CACHE_W)
     emit(row)
-    _check_serve("serve_bgplvm", pred_err)
+    _check_serve("serve_bgplvm", pred_err, failures)
     return row
 
 
@@ -1099,19 +1238,21 @@ def phase_serve_dp(torch, seed, params, Y, cfg):
                                           steps, tol=tol)[2]
 
     with torch.no_grad():
-        rows, pred_err = _serve(
-            torch, seed, "serve_dp", impute, infer,
+        rows, pred_err, failures = _serve(
+            torch, seed, "serve_dp", impute, "make_dp_imputer",
+            (params, Y, cfg), infer,
             lambda: prediction.dp_predict_from_latent(
                 caches64, phi64, m_fix.double(), s_fix.double()),
             lambda: prediction.dp_predict_from_latent(caches32, phi32,
                                                       m_fix, s_fix),
-            caches64.w, caches32.w, Y.shape[1], (1, 8, 32, 128))
+            caches64.w, caches32.w, Y.shape[1], (1, 8, 32, 128),
+            chunks=True)
     row = dict(phase="serve_dp", config="c5_dp_missing", shape=C4,
                num_steps=SERVE_STEPS, build_launches=launches,
                requests=rows, predict_f32_vs_f64_scaled_err=pred_err,
                tol=TOL_PRED, tol_cache_w=TOL_CACHE_W)
     emit(row)
-    _check_serve("serve_dp", pred_err)
+    _check_serve("serve_dp", pred_err, failures)
     return row
 
 
@@ -1177,36 +1318,26 @@ def phase_serve_mrd(torch, seed):
     same_jitter = JitterPolicy(
         initial=JitterPolicy().initial_for(torch.float32))
     caches64 = prediction.mrd_posterior(p64, Ys64, plain64, same_jitter)
-    rows = []
-    for b in MRD_BATCHES:
+    rows, failures = _serve_pair(
+        torch, "serve_mrd", predict, "make_mrd_cross_view_predictor",
+        (params, Ys, mcfg), dict(observed_view=0, target_view=1,
+                                 num_steps=SERVE_STEPS),
+        lambda b, i: (torch.roll(y_test, i, 0)[:b],), MRD_BATCHES,
+        cfg.views[1])
+    for row in rows:
+        b = row["batch"]
         y = y_test[:b]
-        times = []
-        for i in range(4):                       # one warm call, then 3
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, var = predict(y)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-        if not (mean.shape == var.shape == (b, cfg.views[1])
-                and bool(torch.isfinite(mean).all())
-                and bool(torch.isfinite(var).all())
-                and bool((var > 0).all())):
-            raise AssertionError(f"serve_mrd: bad answer at batch {b}")
         tol, steps = serving._resolve("auto", SERVE_STEPS, b)
         m0 = prediction.init_latent_from_nearest(
             params["qx_mean"], Ys[0], y, torch.ones_like(y))
         trace = prediction.mrd_infer_latent(caches32, {0: y}, m0, steps,
                                             tol=tol)[2]
         if not float(trace[-1]) > float(trace[0]):
-            raise AssertionError(f"serve_mrd: objective fell at batch {b}: "
-                                 f"{float(trace[0])} -> {float(trace[-1])}")
-        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
-                         step_cap=steps,
-                         steps_taken=_steps_from_trace(trace),
-                         ms_per_request=statistics.median(times),
-                         objective_first=float(trace[0]),
-                         objective_last=float(trace[-1])))
+            failures.append(f"objective fell at batch {b}: "
+                            f"{float(trace[0])} -> {float(trace[-1])}")
+        row.update(step_cap=steps, steps_taken=_steps_from_trace(trace),
+                   objective_first=float(trace[0]),
+                   objective_last=float(trace[-1]))
     # held: the predictive at a fixed q(x*) and the caches' weights, f32
     # through the kernels against f64 plain; reported: the whole request
     # (inference included) in f32 against f64 plain on the same rows
@@ -1246,7 +1377,7 @@ def phase_serve_mrd(torch, seed):
     if launches != expected:
         raise AssertionError(f"mrd_posterior launched {launches}, expected "
                              "K6 and K5 once per view")
-    _check_serve("serve_mrd", pred_err)
+    _check_serve("serve_mrd", pred_err, failures)
     return row
 
 
@@ -2835,28 +2966,17 @@ def phase_dp_svi(torch, seed):
     torch.cuda.synchronize()
     build_ms = 1e3 * (time.perf_counter() - t0)
     build_launches = dict(psi.LAUNCHES)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    requests = []
-    for b in C7_BATCHES:
-        times = []
-        for i in range(3):                      # one warm call, then 2
-            y = torch.randn(b, cfg.d, generator=gen, device="cuda")
-            mask = torch.zeros(b, cfg.d, device="cuda")
-            mask[:, ::2] = 1.0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, var = impute(y, mask)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-            if not (mean.shape == var.shape == (b, cfg.d)
-                    and bool(torch.isfinite(mean).all())
-                    and bool((var > 0).all())):
-                raise AssertionError(f"dp_svi: bad answer at batch {b}")
-        tol, cap = serving._resolve("auto", 150, b)
-        requests.append(dict(batch=b, mode="tol" if tol else "unroll",
-                             step_cap=cap,
-                             ms_per_request=statistics.median(times)))
+
+    def request(b, i):
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 100_000 + b * 10 + i)
+        mask = torch.zeros(b, cfg.d, device="cuda")
+        mask[:, ::2] = 1.0
+        return torch.randn(b, cfg.d, generator=gen, device="cuda"), mask
+
+    requests, serve_failures = _serve_pair(
+        torch, "dp_svi", impute, "make_dp_svi_imputer", (raw, mcfg), {},
+        request, C7_BATCHES, cfg.d)
     p32 = {k: v.cuda() for k, v in raw.items()}
     p64 = {k: v.double() for k, v in p32.items()}
     c32 = dp_svi.constrain(p32, mcfg)
@@ -2925,6 +3045,8 @@ def phase_dp_svi(torch, seed):
     if any(build_launches.values()):
         raise AssertionError(f"dp_svi: the imputer's build launched "
                              f"{build_launches}; its psi statistics are plain")
+    if serve_failures:
+        raise AssertionError(f"dp_svi: {serve_failures}")
     if not max(pred_err.values()) <= TOL_PRED_C7:
         raise AssertionError(f"dp_svi: f32 predictive off: {pred_err}")
     return row
@@ -2936,7 +3058,6 @@ C8_BATCHES = (1, 32, 256)
 # H100: mean 5.1e-7, variance 5.9e-6): the generic serving tolerance
 TOL_PRED_C8 = TOL_PRED
 C8_REFINE = (0, 150)
-C8_REQUESTS = 3      # per batch and refinement: one warm call, then timed
 # encode(Y) at init against the PCA latents it reproduces, scaled by
 # max|pca|: the readout is fit in f64 to the f32 PCA scores, so f32 keeps
 # about their own rounding (a CPU in f32: 2.5e-5 at 4096 rows, 1.0e-4 at
@@ -2966,12 +3087,21 @@ def _c8_run(torch, runner, psi, loop, cfg, out, **kw):
 def _c8_imputer(torch, psi, seed, raw, mcfg, Y_test):
     """make_encoder_imputer on the run's raw parameters: its build, and
     requests of each batch with half the dims masked, one encoder pass or
-    refined; launches counted over the build and over the requests."""
+    refined, replayed and eager (`_serve_pair`); launches counted over the
+    build and over the requests."""
     from dp_gp_lvm_tpu_torch.models import serving
 
-    rows = []
-    builds = []
-    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows, builds, failures = [], [], []
+
+    def request(b, i):
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 100_000 + b * 10 + i)
+        y = Y_test[torch.randint(0, Y_test.shape[0], (b,), generator=gen,
+                                 device="cuda")]
+        mask = torch.ones_like(y)
+        mask[:, y.shape[1] // 2:] = 0.0
+        return y, mask
+
     for refine in C8_REFINE:
         psi.reset_launch_counts()
         torch.cuda.synchronize()
@@ -2982,31 +3112,13 @@ def _c8_imputer(torch, psi, seed, raw, mcfg, Y_test):
                            build_ms=1e3 * (time.perf_counter() - t0),
                            build_launches={k: v for k, v in
                                            psi.LAUNCHES.items() if v}))
-        for b in C8_BATCHES:
-            times = []
-            psi.reset_launch_counts()
-            for i in range(C8_REQUESTS):
-                pick = torch.randint(0, Y_test.shape[0], (b,), generator=gen,
-                                     device="cuda")
-                y = Y_test[pick]
-                mask = torch.ones_like(y)
-                mask[:, y.shape[1] // 2:] = 0.0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                mean, var = impute(y, mask)
-                torch.cuda.synchronize()
-                if i:
-                    times.append(1e3 * (time.perf_counter() - t0))
-                if not (mean.shape == var.shape == y.shape
-                        and bool(torch.isfinite(mean).all())
-                        and bool((var > 0).all())):
-                    raise AssertionError(f"amortized: bad answer at batch "
-                                         f"{b}, refine {refine}")
-            rows.append(dict(batch=b, refine_steps=refine,
-                             ms_per_request=statistics.median(times),
-                             launches_per_request=sum(psi.LAUNCHES.values())
-                             / C8_REQUESTS))
-    return builds, rows
+        got, bad = _serve_pair(torch, f"amortized refine {refine}", impute,
+                               "make_encoder_imputer", (raw, mcfg),
+                               dict(refine_steps=refine), request,
+                               C8_BATCHES, Y_test.shape[1])
+        rows += [dict(r, refine_steps=refine) for r in got]
+        failures += bad
+    return builds, rows, failures
 
 
 def phase_amortized(torch, seed):
@@ -3077,7 +3189,8 @@ def phase_amortized(torch, seed):
     # the first 64 held-out rows) at the same jitter
     raw = {k: torch.as_tensor(v, device="cuda")
            for k, v in load_npz(str(out / "straight" / "params.npz")).items()}
-    builds, requests = _c8_imputer(torch, psi, seed, raw, mcfg, Y_test)
+    builds, requests, serve_failures = _c8_imputer(torch, psi, seed, raw,
+                                                   mcfg, Y_test)
     p64 = {k: v.double() for k, v in raw.items()}
     same = JitterPolicy(initial=JitterPolicy().initial_for(torch.float32))
     with torch.no_grad():
@@ -3158,12 +3271,13 @@ def phase_amortized(torch, seed):
                              f"{encode_init_err} off the PCA latents")
     if not max(pred_err.values()) <= TOL_PRED_C8:
         raise AssertionError(f"amortized: f32 predictive off: {pred_err}")
+    if serve_failures:
+        raise AssertionError(f"amortized: {serve_failures}")
     return row
 
 
 C9_STEPS = 500       # plan(500, 250): 250 steps hot, 250 recalibrating
 C9_BATCHES = (1, 32, 512)
-C9_REQUESTS = 3      # per batch: one warm call, then timed
 C9_SYNC_ROWS = 8192  # the draw the phase-B step's host syncs are read on
 C9_SAMPLES = 64      # cross_view_sample's draws
 C9_SAMPLE_ROWS = 8
@@ -3215,7 +3329,7 @@ def _c9_step_syncs(torch, cfg, n=C9_SYNC_ROWS, steps=5):
 def _c9_predictor(torch, raw, mcfg, Y_obs):
     """make_mrd_svi_predictor (view 0 -> view 1) on the run's parameters:
     its build (ms, launches) and requests of each batch from the held-out
-    rows (ms a request, launches)."""
+    rows, replayed and eager (`_serve_pair`)."""
     from dp_gp_lvm_tpu_torch.models import serving
     from dp_gp_lvm_tpu_torch.ops import psi
 
@@ -3226,30 +3340,11 @@ def _c9_predictor(torch, raw, mcfg, Y_obs):
     torch.cuda.synchronize()
     build = dict(build_ms=1e3 * (time.perf_counter() - t0),
                  build_launches={k: v for k, v in psi.LAUNCHES.items() if v})
-    rows = []
-    for b in C9_BATCHES:
-        times = []
-        psi.reset_launch_counts()
-        for i in range(C9_REQUESTS):
-            y = Y_obs[i * b:(i + 1) * b] if (i + 1) * b <= Y_obs.shape[0] \
-                else Y_obs[:b]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, var = predict(y)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-            if not (mean.shape == var.shape == (b, mcfg.view_dims[1])
-                    and bool(torch.isfinite(mean).all())
-                    and bool((var > 0).all())):
-                raise AssertionError(f"mrd_svi: bad answer at batch {b}")
-        tol, cap = serving._resolve("auto", 150, b)
-        rows.append(dict(batch=b, mode="tol" if tol else "unroll",
-                         step_cap=cap,
-                         ms_per_request=statistics.median(times),
-                         launches_per_request=sum(psi.LAUNCHES.values())
-                         / C9_REQUESTS))
-    return build, rows
+    rows, failures = _serve_pair(
+        torch, "mrd_svi", predict, "make_mrd_svi_predictor",
+        (raw, mcfg, 0, 1), {}, lambda b, i: (torch.roll(Y_obs, i * b, 0)[:b],),
+        C9_BATCHES, mcfg.view_dims[1])
+    return build, rows, failures
 
 
 def phase_mrd_svi(torch, seed):
@@ -3326,7 +3421,7 @@ def phase_mrd_svi(torch, seed):
     Y_obs, Y_tgt = (y[cfg.n:] for y in Ys)
     del Ys
     raw = _nested(a)
-    build, requests = _c9_predictor(torch, raw, mcfg, Y_obs)
+    build, requests, serve_failures = _c9_predictor(torch, raw, mcfg, Y_obs)
     p64 = {k: ([{kk: vv.double() for kk, vv in view.items()}
                 for view in v] if k == "views" else v.double())
            for k, v in raw.items()}
@@ -3426,6 +3521,8 @@ def phase_mrd_svi(torch, seed):
                              "statistics are plain")
     if not max(pred_err.values()) <= TOL_PRED_C9:
         raise AssertionError(f"mrd_svi: f32 predictive off: {pred_err}")
+    if serve_failures:
+        raise AssertionError(f"mrd_svi: {serve_failures}")
     if not (sample["shape"] == [C9_SAMPLES, C9_SAMPLE_ROWS, cfg.views[1]]
             and sample["mean_err"] <= TOL_SAMPLE_MEAN
             and SAMPLE_VAR_RATIO[0] <= sample["var_ratio"]
@@ -3918,9 +4015,10 @@ TRACE_CHUNK = 100
 
 def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
     """Profiler traces: one eager c4_dp_mocap training step, a chunk of
-    TRACE_CHUNK of them replayed from a CUDA graph, and one streamed
-    c6_svi_bigN chunk replayed (the stream phase's rows file). Numbers
-    only; nothing is held."""
+    TRACE_CHUNK of them replayed from a CUDA graph, one streamed
+    c6_svi_bigN chunk replayed (the stream phase's rows file), and one
+    request of batch 8 to the DP server on the c4 parameters, replayed
+    and eager. Numbers only; nothing is held."""
     import numpy as np
 
     from dp_gp_lvm_tpu_torch.core import config, prng
@@ -3978,9 +4076,24 @@ def phase_trace(torch, seed, dp_params, dp_Y, dp_cfg):
         one_chunk()                       # warm-up chunk
         c6_row = _profiled(torch, one_chunk)
     c6_row["wall_ms_per_step"] = c6_row["wall_ms"] / TRACE_CHUNK
+
+    # one c5 request at batch 8 (the fixed unroll of SERVE_STEPS steps),
+    # replayed after the request that captures, and eager
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    args = _masked_requests(torch, seed + 3, dp_Y.shape[1])(8, 0)
+    requests = {}
+    for how, eager in (("replayed", False), ("eager", True)):
+        impute = serving.make_dp_imputer(dp_params, dp_Y, dp_cfg,
+                                         num_steps=SERVE_STEPS, eager=eager)
+        impute(*args)
+        r = requests[how] = _profiled(torch, lambda: impute(*args))
+        r["kernel_launches_per_inference_step"] = (r["kernel_launches"]
+                                                   / SERVE_STEPS)
     row = dict(phase="trace", c4_step=c4_row, c4_replayed_chunk=c4_chunk,
                **_step_fields("c4"),
-               c6_streamed_chunk=dict(steps=TRACE_CHUNK, **c6_row))
+               c6_streamed_chunk=dict(steps=TRACE_CHUNK, **c6_row),
+               c5_request_batch_8=requests)
     emit(row)
     return row
 
@@ -4146,7 +4259,7 @@ def _m256_model(torch, psi, model, params, Y, cfg, lr, ngd_lr, step,
 
 def _m256_serve(torch, seed, params, Y, cfg):
     """make_dp_imputer at M = 256: the build's launches, batches 1 and 32
-    (ms a request, finite answers), and the f32 predictive at a fixed
+    replayed and eager (`_serve_pair`), and the f32 predictive at a fixed
     q(x*) against the plain f32 and f64 caches (printed)."""
     from dp_gp_lvm_tpu_torch.core.types import JitterPolicy
     from dp_gp_lvm_tpu_torch.models import prediction, serving
@@ -4158,27 +4271,11 @@ def _m256_serve(torch, seed, params, Y, cfg):
     torch.cuda.synchronize()
     build_ms = 1e3 * (time.perf_counter() - t0)
     launches = dict(psi.LAUNCHES)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     d = Y.shape[1]
-    requests, failures = [], []
-    for b in (1, 32):
-        times = []
-        for i in range(4):                       # one warm call, then 3
-            y = torch.randn(b, d, generator=gen, device="cuda")
-            mask = torch.ones(b, d, device="cuda")
-            mask[:, d // 2:] = 0.0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mean, var = impute(y, mask)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-        ok = (mean.shape == var.shape == (b, d)
-              and bool(torch.isfinite(mean).all())
-              and bool((var > 0).all()))
-        if not ok:
-            failures.append(f"bad answer at batch {b}")
-        requests.append(dict(batch=b, ms_per_request=statistics.median(times)))
+    requests, failures = _serve_pair(
+        torch, "m256_serve_dp", impute, "make_dp_imputer", (params, Y, cfg),
+        dict(num_steps=SERVE_STEPS), _masked_requests(torch, seed + 2, d),
+        (1, 32), d, chunks=True)
     plain = cfg._replace(use_fused=False, psi2_block=M256_PLAIN_BLOCK)
     same_jitter = JitterPolicy(initial=JitterPolicy().initial_for(
         torch.float32))
@@ -4355,6 +4452,46 @@ def _time_inputs(torch, parent, path) -> int:
                            torch, launches=M256_LAUNCHES,
                            replays=M256_REPLAYS)
           for name, args in calls.items()})
+    return 0
+
+
+def _parent_serve_ms(torch, parent):
+    """The eager ms a request of the parent checkout's servers, built as
+    `_serve_pair` built this checkout's and asked the same eager requests
+    (`PARENT_SERVE`), timed in a child process of this script that imports
+    the parent's package (`--time-serving`): {name: {batch: ms}}."""
+    path = ROOT / "build" / "serve_requests.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(PARENT_SERVE["cases"], path)
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parent",
+         str(parent), "--time-serving", str(path)],
+        capture_output=True, text=True, check=True, timeout=900).stdout
+    return json.loads(out.splitlines()[-1])
+
+
+def _time_serving_child(torch, parent, path) -> int:
+    """`--time-serving`: build each server of the package in `parent` from
+    the cases saved at `path` once, warm it with one request, time the
+    saved requests (the median ms) and print {name: {batch: ms}} as the
+    last line."""
+    sys.path.insert(0, str(parent.resolve()))
+    from dp_gp_lvm_tpu_torch.core.types import pin_full_f32
+    from dp_gp_lvm_tpu_torch.models import serving
+
+    pin_full_f32()
+    servers, out = {}, {}
+    with torch.no_grad():
+        for case in torch.load(path, weights_only=False):
+            name = case["name"]
+            if name not in servers:
+                servers[name] = getattr(serving, case["factory"])(
+                    *case["fargs"], **case["fkw"])
+                servers[name](*case["args"][0])
+            out.setdefault(name, {})[case["batch"]] = statistics.median(
+                _request_ms(torch, servers[name], a)[1]
+                for a in case["args"])
+    emit(out)
     return 0
 
 
@@ -4546,6 +4683,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # the --parent child's mode
     ap.add_argument("--time-steps", action="store_true",
                     help=argparse.SUPPRESS)   # the --parent child's mode
+    ap.add_argument("--time-serving", type=pathlib.Path, default=None,
+                    help=argparse.SUPPRESS)   # the --parent child's mode
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4558,6 +4697,8 @@ def main(argv=None) -> int:
         return _time_inputs(torch, args.parent, args.time_inputs)
     if args.time_steps:
         return _time_steps_child(torch, args.parent, args.seed)
+    if args.time_serving:
+        return _time_serving_child(torch, args.parent, args.time_serving)
     if not (ROOT / "dp_gp_lvm_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the dp_gp_lvm_tpu_torch package is missing",
               file=sys.stderr)
@@ -4590,6 +4731,7 @@ def main(argv=None) -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas))
 
     phase_steps(torch, args.seed, args.parent, card.splitlines()[0])
+    PARENT_SERVE["dir"] = args.parent
     # from here every launch is counted on the card as well, so that the
     # replayed steps' host counts are held against the card's
     psi.count_on_card("cuda")
@@ -4626,6 +4768,9 @@ def main(argv=None) -> int:
                                              card.splitlines()[0], svi, dp)
     phase_sgpr(torch, args.seed)
     phase_trace(torch, args.seed, dp_params, dp_Y, dp_cfg)
+    if args.parent is not None:
+        emit(dict(phase="serve_parent", card=card.splitlines()[0],
+                  parent_ms_eager=_parent_serve_ms(torch, args.parent)))
 
     # `launches` of a kernel is its count over the path named in
     # `launches_of`; `launches_by_phase` lists every driven path, the

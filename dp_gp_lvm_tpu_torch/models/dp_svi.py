@@ -708,18 +708,14 @@ def predict_from_latent(params, x_mean, x_var, config: Config,
         return _mixture(_predictive(params, config, policy), x_mean, x_var)
 
 
-def _infer(pred: _Predictive, y_star, mask, m_init, num_steps, lr, tol):
-    from dp_gp_lvm_tpu_torch.models.prediction import _fit_variational
-
+def _objective(pred: _Predictive, y_star, mask):
+    """The negative test-time ELBO of q(x*) under the phi-weighted mixture
+    of the per-atom q(u | t), given the rows `y_star` observed where
+    `mask` is 1."""
     c = pred.c
     phi, noise = c["phi"], c["noise"][:, None, None]
     log_norm = -0.5 * (LOG2PI + torch.log(noise))
     beta = 1.0 / noise
-    var_params = {
-        "m": m_init.to(y_star.dtype),
-        "raw_s": positive_inverse(0.1 * torch.ones_like(m_init)).to(
-            y_star.dtype),
-    }
     w = phi.T[:, None, :]
 
     def objective(vp):
@@ -731,7 +727,18 @@ def _infer(pred: _Predictive, y_star, mask, m_init, num_steps, lr, tol):
         ell = torch.sum(mask[None] * w * (log_norm - 0.5 * beta * sq))
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
-    vp, trace, _ = _fit_variational(objective, var_params, num_steps, lr, tol)
+    return objective
+
+
+def _infer(pred: _Predictive, y_star, mask, m_init, num_steps, lr, tol):
+    from dp_gp_lvm_tpu_torch.models.prediction import (
+        _fit_variational,
+        _latent_var_params,
+    )
+
+    vp, trace, _ = _fit_variational(
+        _objective(pred, y_star, mask),
+        _latent_var_params(m_init, y_star.dtype), num_steps, lr, tol)
     return vp["m"], positive_variational_var(vp["raw_s"]), -trace
 
 

@@ -403,18 +403,11 @@ def predict_view(params, x_mean, x_var, view: int, config: Config,
                                    policy or JitterPolicy())
 
 
-def _infer(caches, m_init, config: Config, num_steps: int, lr: float,
-           tol: float | None):
-    """Fit q(x*) against the summed expected log-likelihoods of the
-    observed views: `caches` is a list of (view cache, rows (N*, D_v))."""
-    from dp_gp_lvm_tpu_torch.models.prediction import _fit_variational
-
+def _objective(caches, config: Config):
+    """The negative test-time ELBO of the shared q(x*) against the summed
+    expected log-likelihoods of the observed views: `caches` is a list of
+    (view cache, rows (N*, D_v))."""
     scfg = _svi_config(config)
-    dtype = caches[0][1].dtype
-    var_params = {
-        "m": m_init.to(dtype),
-        "raw_s": positive_inverse(0.1 * torch.ones_like(m_init)).to(dtype),
-    }
 
     def objective(vp):
         s = positive_variational_var(vp["raw_s"])
@@ -428,8 +421,21 @@ def _infer(caches, m_init, config: Config, num_steps: int, lr: float,
                                   - 0.5 * (1.0 / c["noise"]) * sq)
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
-    vp, trace, _ = _fit_variational(objective, var_params, num_steps, lr,
-                                    tol)
+    return objective
+
+
+def _infer(caches, m_init, config: Config, num_steps: int, lr: float,
+           tol: float | None):
+    """Fit q(x*) against the summed expected log-likelihoods of the
+    observed views: `caches` is a list of (view cache, rows (N*, D_v))."""
+    from dp_gp_lvm_tpu_torch.models.prediction import (
+        _fit_variational,
+        _latent_var_params,
+    )
+
+    vp, trace, _ = _fit_variational(
+        _objective(caches, config),
+        _latent_var_params(m_init, caches[0][1].dtype), num_steps, lr, tol)
     return vp["m"], positive_variational_var(vp["raw_s"]), -trace
 
 

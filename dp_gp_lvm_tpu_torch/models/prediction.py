@@ -50,6 +50,7 @@ from dp_gp_lvm_tpu_torch.models.bound import (
     suff_stats_from_psi,
 )
 from dp_gp_lvm_tpu_torch.ops import dispatch
+from dp_gp_lvm_tpu_torch.train.loop import StepGraph, replayed
 
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam defaults
 
@@ -172,57 +173,151 @@ def init_latent_from_nearest(qx_mean, Y, y_star, mask):
     return qx_mean[torch.argmin(d2, dim=-1)]
 
 
+# steps a tol-mode fit replays between two reads of its converged flag
+# (`VariationalFit.run`). A read costs tens of µs; each step replayed
+# after convergence costs a whole step (0.5-1.4 ms at batch 1 on an
+# H100), so the chunk is short: at batch 1 of the c5 and M = 256 DP
+# servers 5 measured from 0.3% slower to 2.2% faster than 10 and 2.5-6.9%
+# faster than 25 (`chip_smoke.py`, serve_dp and m256, two runs).
+TOL_CHUNK = 5
+
+
+class VariationalFit:
+    """Adam (optax's, no clip) on a test-time variational objective, the
+    reference's scan (`dp_gp_lvm_tpu/models/prediction.py::
+    _fit_variational`) with its whole carry in device tensors that stay put
+    from one fit to the next: the variational parameters, Adam's mu and nu,
+    a step counter t, the objective trace (num_steps,) and, in tol mode,
+    the previous value, the streak, the converged flag and the count k of
+    active steps. `load` starts a fit, `run` takes its steps; one step is
+    a `StepGraph` body (captured once and replayed where `graphed`), and
+    no step reads anything back to the host.
+
+    tol=None: exactly num_steps steps.
+    tol=r: early stopping once the relative objective change stays <= r
+    for `patience` CONSECUTIVE steps. A step is the reference's
+    `lax.cond(done, frozen, active)`: the active update is computed and
+    every carry leaf, and the trace entry, is selected by the converged
+    flag, so a frozen step passes the carry through to the bit. `run`
+    reads the flag once every TOL_CHUNK steps and stops at the first
+    chunk boundary after convergence; the trace repeats the last value
+    from there, as the reference's does.
+
+    anneal=True: cosine-decay the rate lr -> 0 over num_steps. The rate
+    and Adam's bias corrections are computed in float64 from k (the
+    reference's optax count, which frozen steps do not advance) and cast
+    to the parameters' dtype."""
+
+    def __init__(self, objective, num_steps: int, lr: float, tol=None,
+                 patience: int = 5, anneal: bool = False,
+                 graphed: bool = False, pool=None):
+        self.objective, self.num_steps, self.lr = objective, num_steps, lr
+        self.tol, self.patience, self.anneal = tol, patience, anneal
+        self.vp = None
+        self.graph = StepGraph(self._step, graphed, pool)
+
+    def load(self, var_params) -> None:
+        """Starts a fit at (a copy of) `var_params`. The first load
+        allocates the carry; later ones write into it."""
+        with torch.no_grad():
+            if self.vp is None:
+                self.vp = {k: v.detach().clone().requires_grad_()
+                           for k, v in var_params.items()}
+                any_p = next(iter(self.vp.values()))
+                dev = any_p.device
+                self.mu = {k: torch.zeros_like(v) for k, v in self.vp.items()}
+                self.nu = {k: torch.zeros_like(v) for k, v in self.vp.items()}
+                self.t = torch.zeros((), dtype=torch.int64, device=dev)
+                self.k = self.t if self.tol is None else torch.zeros_like(
+                    self.t)
+                self.trace = torch.zeros(self.num_steps, dtype=any_p.dtype,
+                                         device=dev)
+                self.prev = torch.zeros((), dtype=any_p.dtype, device=dev)
+                self.streak = torch.zeros_like(self.t)
+                self.done = torch.zeros((), dtype=torch.bool, device=dev)
+            for key, v in var_params.items():
+                self.vp[key].copy_(v)
+                self.mu[key].zero_()
+                self.nu[key].zero_()
+            for counter in (self.t, self.k, self.streak):
+                counter.zero_()
+            self.prev.fill_(math.inf)
+            self.done.fill_(False)
+
+    def _step(self) -> None:
+        vp = self.vp
+        keys = list(vp)
+        with torch.enable_grad():
+            val = self.objective(vp)
+            grads = torch.autograd.grad(val, [vp[key] for key in keys])
+        with torch.no_grad():
+            # the trace keeps the parameters' dtype, whatever the
+            # objective's (a request in another dtype than the model's)
+            val = val.detach().to(self.trace.dtype)
+            dtype = val.dtype
+            count = self.k.to(torch.float64)
+            rate = self.lr
+            if self.anneal:
+                rate = (self.lr * 0.5 * (1.0 + torch.cos(
+                    math.pi * count / max(self.num_steps, 1)))).to(dtype)
+            bc1 = (1.0 - B1 ** (count + 1.0)).to(dtype)
+            bc2 = (1.0 - B2 ** (count + 1.0)).to(dtype)
+            new = {}
+            for key, g in zip(keys, grads):
+                mu = (1.0 - B1) * g + B1 * self.mu[key]
+                nu = (1.0 - B2) * (g * g) + B2 * self.nu[key]
+                new[key] = (vp[key] - rate * (mu / bc1) / (
+                    torch.sqrt(nu / bc2) + EPS), mu, nu)
+            if self.tol is None:
+                for key, (p, mu, nu) in new.items():
+                    vp[key].copy_(p)
+                    self.mu[key].copy_(mu)
+                    self.nu[key].copy_(nu)
+                self.trace.index_copy_(0, self.t.view(1), val.reshape(1))
+                self.t.add_(1)
+                return
+            done, prev = self.done, self.prev
+            small = torch.abs(prev - val) <= self.tol * (torch.abs(prev) + 1.0)
+            streak = torch.where(small, self.streak + 1, 0)
+            for key, (p, mu, nu) in new.items():
+                vp[key].copy_(torch.where(done, vp[key], p))
+                self.mu[key].copy_(torch.where(done, self.mu[key], mu))
+                self.nu[key].copy_(torch.where(done, self.nu[key], nu))
+            val = torch.where(done, prev, val)
+            self.trace.index_copy_(0, self.t.view(1), val.reshape(1))
+            self.prev.copy_(val)
+            self.streak.copy_(torch.where(done, self.streak, streak))
+            self.k.add_((~done).to(self.k.dtype))
+            self.done.copy_(done | (streak >= self.patience))
+            self.t.add_(1)
+
+    def run(self) -> None:
+        """The loaded fit's steps: num_steps of them, or in tol mode chunks
+        of TOL_CHUNK with one read of the converged flag after each, until
+        it is set or the cap is reached."""
+        if self.tol is None:
+            self.graph.run(self.num_steps)
+            return
+        ran = 0
+        while ran < self.num_steps:
+            n = min(TOL_CHUNK, self.num_steps - ran)
+            self.graph.run(n)
+            ran += n
+            if bool(self.done):                  # the chunk's host read
+                break
+        with torch.no_grad():
+            self.trace[ran:].copy_(self.prev.expand(self.num_steps - ran))
+
+
 def _fit_variational(objective, var_params, num_steps, lr, tol=None,
                      patience: int = 5, anneal: bool = False):
-    """Adam (optax's, no clip) on a test-time variational objective.
-
-    tol=None: exactly num_steps steps, no host sync.
-    tol=r: early stopping once the relative objective change stays <= r
-    for `patience` CONSECUTIVE steps. The reference freezes the state
-    under `lax.cond`; this loop leaves instead, and reading the converged
-    flag is ONE HOST SYNC PER STEP. What it returns is the reference's:
-    the trace repeats the last value after convergence.
-
-    anneal=True: cosine-decay the rate lr -> 0 over num_steps.
-
-    Returns (fitted_params, objective_trace (num_steps,), steps_taken).
-    """
-    keys = list(var_params)
-    vp = {k: v.detach().clone().requires_grad_() for k, v in var_params.items()}
-    mu = {k: torch.zeros_like(v) for k, v in vp.items()}
-    nu = {k: torch.zeros_like(v) for k, v in vp.items()}
-    any_p = vp[keys[0]]
-    prev = torch.full((), math.inf, dtype=any_p.dtype, device=any_p.device)
-    trace, streak, k = [], 0, 0
-    for step in range(num_steps):
-        with torch.enable_grad():
-            val = objective(vp)
-            grads = torch.autograd.grad(val, [vp[key] for key in keys])
-        val = val.detach()
-        rate = lr
-        if anneal:
-            rate = lr * 0.5 * (1.0 + math.cos(
-                math.pi * step / max(num_steps, 1)))
-        bc1, bc2 = 1.0 - B1 ** (step + 1), 1.0 - B2 ** (step + 1)
-        with torch.no_grad():
-            for key, g in zip(keys, grads):
-                mu[key] = (1.0 - B1) * g + B1 * mu[key]
-                nu[key] = (1.0 - B2) * (g * g) + B2 * nu[key]
-                vp[key] -= rate * (mu[key] / bc1) / (
-                    torch.sqrt(nu[key] / bc2) + EPS)
-        trace.append(val)
-        k += 1
-        if tol is not None:
-            small = torch.abs(prev - val) <= tol * (torch.abs(prev) + 1.0)
-            streak = streak + 1 if bool(small) else 0   # the host sync
-            prev = val
-            if streak >= patience:
-                break
-    if trace:
-        trace_t = torch.stack(trace + [trace[-1]] * (num_steps - len(trace)))
-    else:
-        trace_t = torch.zeros(0, dtype=any_p.dtype, device=any_p.device)
-    return {key: v.detach() for key, v in vp.items()}, trace_t, k
+    """One `VariationalFit` from `var_params`, run eagerly (see there for
+    tol, patience and anneal). Returns (fitted_params, objective_trace
+    (num_steps,), steps_taken as a 0-d device tensor)."""
+    fit = VariationalFit(objective, num_steps, lr, tol, patience, anneal)
+    fit.load(var_params)
+    fit.run()
+    return {key: v.detach() for key, v in fit.vp.items()}, fit.trace, fit.k
 
 
 def _latent_var_params(m_init, dtype):
@@ -232,21 +327,27 @@ def _latent_var_params(m_init, dtype):
     }
 
 
-def infer_latent(cache: PosteriorCache, y_star, mask, m_init,
-                 num_steps: int = 200, lr: float = 0.05,
-                 kernel: str = "ard_rbf", tol: float | None = None):
-    """Optimize q(x*) = N(m*, diag(s*)) by Adam; `tol` enables early
-    stopping on the relative objective change, num_steps stays the cap.
-    Returns (m*, s*, objective trace)."""
+def _latent_objective(cache: PosteriorCache, y_star, mask, kernel):
+    """The negative test-time ELBO of q(x*) given the rows `y_star`
+    observed where `mask` is 1."""
 
     def objective(vp):
         s = positive(vp["raw_s"])
         ell = _expected_loglik(cache, y_star, mask, vp["m"], s, kernel)
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
+    return objective
+
+
+def infer_latent(cache: PosteriorCache, y_star, mask, m_init,
+                 num_steps: int = 200, lr: float = 0.05,
+                 kernel: str = "ard_rbf", tol: float | None = None):
+    """Optimize q(x*) = N(m*, diag(s*)) by Adam; `tol` enables early
+    stopping on the relative objective change, num_steps stays the cap.
+    Returns (m*, s*, objective trace)."""
     vp, trace, _ = _fit_variational(
-        objective, _latent_var_params(m_init, y_star.dtype), num_steps, lr,
-        tol)
+        _latent_objective(cache, y_star, mask, kernel),
+        _latent_var_params(m_init, y_star.dtype), num_steps, lr, tol)
     return vp["m"], positive(vp["raw_s"]), -trace
 
 
@@ -304,11 +405,9 @@ def dp_predict_from_latent(caches: PosteriorCache, phi, m_star, s_star,
                              min=1e-12)
 
 
-def dp_infer_latent(caches: PosteriorCache, phi, y_star, mask, m_init,
-                    num_steps: int = 200, lr: float = 0.05,
-                    kernel: str = "ard_rbf", tol: float | None = None):
-    """q(x*) inference under the DP mixture: phi-weighted expected
-    log-likelihood. Returns (m*, s*, objective trace)."""
+def _dp_objective(caches: PosteriorCache, phi, y_star, mask, kernel):
+    """The negative test-time ELBO under the DP mixture: the
+    phi-weighted expected log-likelihood of the observed dims."""
     phi_t = phi.T[:, None, :]
 
     def objective(vp):
@@ -317,9 +416,17 @@ def dp_infer_latent(caches: PosteriorCache, phi, y_star, mask, m_init,
         ell = torch.sum(torch.sum(ll_t * phi_t, dim=0) * mask)
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
+    return objective
+
+
+def dp_infer_latent(caches: PosteriorCache, phi, y_star, mask, m_init,
+                    num_steps: int = 200, lr: float = 0.05,
+                    kernel: str = "ard_rbf", tol: float | None = None):
+    """q(x*) inference under the DP mixture: phi-weighted expected
+    log-likelihood. Returns (m*, s*, objective trace)."""
     vp, trace, _ = _fit_variational(
-        objective, _latent_var_params(m_init, m_init.dtype), num_steps, lr,
-        tol)
+        _dp_objective(caches, phi, y_star, mask, kernel),
+        _latent_var_params(m_init, m_init.dtype), num_steps, lr, tol)
     return vp["m"], positive(vp["raw_s"]), -trace
 
 
@@ -388,11 +495,9 @@ def mrd_posterior(params, Ys, config: mrd.Config,
     return caches
 
 
-def mrd_infer_latent(caches, observed: dict, m_init, num_steps: int = 200,
-                     lr: float = 0.05, kernel: str = "ard_rbf",
-                     tol: float | None = None, anneal: bool = False):
-    """Fit q(x*) from the observed views (`observed`: view index ->
-    (N*, D_v)). Returns (m*, s*, objective trace)."""
+def _mrd_objective(caches, observed: dict, kernel):
+    """The negative test-time ELBO of the shared q(x*) given the observed
+    views (`observed`: view index -> (N*, D_v))."""
     items = sorted(observed.items())
 
     def objective(vp):
@@ -404,9 +509,18 @@ def mrd_infer_latent(caches, observed: dict, m_init, num_steps: int = 200,
                                          kernel)
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
+    return objective
+
+
+def mrd_infer_latent(caches, observed: dict, m_init, num_steps: int = 200,
+                     lr: float = 0.05, kernel: str = "ard_rbf",
+                     tol: float | None = None, anneal: bool = False):
+    """Fit q(x*) from the observed views (`observed`: view index ->
+    (N*, D_v)). Returns (m*, s*, objective trace)."""
     vp, trace, _ = _fit_variational(
-        objective, _latent_var_params(m_init, m_init.dtype), num_steps, lr,
-        tol, anneal=anneal)
+        _mrd_objective(caches, observed, kernel),
+        _latent_var_params(m_init, m_init.dtype), num_steps, lr, tol,
+        anneal=anneal)
     return vp["m"], positive(vp["raw_s"]), -trace
 
 
@@ -428,14 +542,19 @@ def mrd_infer_latent_restarts(caches, observed: dict, m_inits,
                               anneal: bool = False):
     """Latent inference from each of the (K, N*, Q) `m_inits`, the best
     restart kept per point by its own test-time ELBO (the joint objective
-    is separable over points). Returns (m (N*, Q), s (N*, Q),
-    per-point objective (N*,))."""
+    is separable over points). The restarts share one `VariationalFit`:
+    on the card its step is captured once and replayed for every restart.
+    Returns (m (N*, Q), s (N*, Q), per-point objective (N*,))."""
     items = sorted(observed.items())
+    fit = VariationalFit(_mrd_objective(caches, observed, kernel), num_steps,
+                         lr, tol, anneal=anneal,
+                         graphed=replayed(m_inits.device, None, False))
     ms, ss, objs = [], [], []
     for k in range(m_inits.shape[0]):
-        m_k, s_k, _ = mrd_infer_latent(caches, observed, m_inits[k],
-                                       num_steps, lr, kernel, tol,
-                                       anneal=anneal)
+        fit.load(_latent_var_params(m_inits[k], m_inits.dtype))
+        fit.run()
+        m_k = fit.vp["m"].detach().clone()
+        s_k = positive(fit.vp["raw_s"].detach())
         with torch.no_grad():
             objs.append(_per_point_objective(caches, items, m_k, s_k,
                                              kernel))

@@ -357,19 +357,12 @@ def infer_latent(params, y_star, mask, m_init, config: Config,
                   config, num_steps, lr, tol)
 
 
-def _infer(c, L, y_star, mask, m_init, config: Config, num_steps: int,
-           lr: float, tol: float | None):
-    """`infer_latent` from the detached constrained parameters `c` and the
-    factor L of their K_uu."""
-    from dp_gp_lvm_tpu_torch.models.prediction import _fit_variational
-
+def _objective(c, L, y_star, mask, config: Config):
+    """The negative test-time ELBO of q(x*) under the explicit q(u) of the
+    detached constrained parameters `c` (L = chol of their K_uu), given
+    the rows `y_star` observed where `mask` is 1."""
     mu_u, noise = c["u_mean"], c["noise"]
     beta = 1.0 / noise
-    dtype = y_star.dtype
-    var_params = {
-        "m": m_init.to(dtype),
-        "raw_s": positive_inverse(0.1 * torch.ones_like(m_init)).to(dtype),
-    }
 
     def objective(vp):
         s = positive_variational_var(vp["raw_s"])
@@ -381,8 +374,21 @@ def _infer(c, L, y_star, mask, m_init, config: Config, num_steps: int,
                                 - 0.5 * beta * sq))
         return -(ell - gaussian.kl_to_standard_normal(vp["m"], s))
 
-    vp, trace, _ = _fit_variational(objective, var_params, num_steps, lr,
-                                    tol)
+    return objective
+
+
+def _infer(c, L, y_star, mask, m_init, config: Config, num_steps: int,
+           lr: float, tol: float | None):
+    """`infer_latent` from the detached constrained parameters `c` and the
+    factor L of their K_uu."""
+    from dp_gp_lvm_tpu_torch.models.prediction import (
+        _fit_variational,
+        _latent_var_params,
+    )
+
+    vp, trace, _ = _fit_variational(
+        _objective(c, L, y_star, mask, config),
+        _latent_var_params(m_init, y_star.dtype), num_steps, lr, tol)
     return vp["m"], positive_variational_var(vp["raw_s"]), -trace
 
 

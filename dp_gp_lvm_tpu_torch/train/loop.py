@@ -488,11 +488,14 @@ class StepGraph:
     `chip_smoke.py` hold those counts against a profiler trace of the
     replays). A failed capture or replay raises: there is no fall back to
     the eager loop. `graphed` False (the CPU, a mesh, a debugging run)
-    calls `body` every step."""
+    calls `body` every step. Graphs given one `pool` (a
+    `torch.cuda.graph_pool_handle()`) share their memory, so they must be
+    replayed one after another, as a request replays its graphs."""
 
-    def __init__(self, body: Callable, graphed: bool):
+    def __init__(self, body: Callable, graphed: bool, pool=None):
         self.body = body
         self.graphed = graphed
+        self.pool = pool
         self.graph = None
         self.delta = None
 
@@ -530,7 +533,7 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=self.pool):
                 self.body()
         finally:
             if collecting:

@@ -2010,3 +2010,181 @@ def test_a_capture_survives_an_earlier_graph_left_in_a_cycle(card):
     StepGraph(body, graphed=True).run(3)       # a warm-up and two replays
     torch.cuda.synchronize()
     assert float(x) == 6.0
+
+
+# ---------------------------------------------------------------------------
+# the servers: each batch size's requests replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+SERVERS = ["bgplvm", "dp", "dp_svi", "encoder", "encoder_refined", "mrd",
+           "mrd_svi"]
+SERVE_STEPS = 20
+
+
+def _server_case(card, name):
+    """(build(eager) -> a server of `name` on one model, request(batch,
+    seed) -> its arguments on the card)."""
+    from dp_gp_lvm_tpu_torch.data.synthetic import mocap_like
+    from dp_gp_lvm_tpu_torch.models import bgplvm, serving
+
+    if name == "bgplvm":
+        Y, _ = mocap_like(prng.PRNGKey(0), n=512, d=12, dtype=torch.float32,
+                          device=card)
+        cfg = bgplvm.Config(num_latent=4, num_inducing=20)
+        params = bgplvm.init_params(prng.PRNGKey(0), Y, cfg)
+
+        def build(eager):
+            return serving.make_bgplvm_imputer(params, Y, cfg, SERVE_STEPS,
+                                               eager=eager)
+    elif name == "dp":
+        Y, params, cfg = _c4_dp(card, torch.float32)
+
+        def build(eager):
+            return serving.make_dp_imputer(params, Y, cfg, SERVE_STEPS,
+                                           eager=eager)
+    elif name == "dp_svi":
+        Y, cfg, params = _dp_svi_setup(card, torch.float32, n=2048)
+
+        def build(eager):
+            return serving.make_dp_svi_imputer(params, cfg, SERVE_STEPS,
+                                               eager=eager)
+    elif name.startswith("encoder"):
+        Y, cfg, params = _c8_setup(card)
+        refine = 5 if name == "encoder_refined" else 0
+
+        def build(eager):
+            return serving.make_encoder_imputer(params, cfg,
+                                                refine_steps=refine,
+                                                eager=eager)
+    elif name == "mrd":
+        Ys, params, cfg = _mrd_setup(card, torch.float32)
+
+        def build(eager):
+            return serving.make_mrd_cross_view_predictor(
+                params, Ys, cfg, 0, 1, SERVE_STEPS, eager=eager)
+    else:
+        Ys, cfg, params = _c9_setup(card, n=2048)
+
+        def build(eager):
+            return serving.make_mrd_svi_predictor(params, cfg, 0, 1,
+                                                  SERVE_STEPS, eager=eager)
+    d = {"mrd": C3["D"], "mrd_svi": 32}.get(name, None)
+
+    def request(batch, seed):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        if d is not None:
+            return (torch.randn(batch, d, generator=gen, device=card),)
+        width = Y.shape[1]
+        mask = torch.ones(batch, width, device=card)
+        mask[:, width // 2:] = 0.0
+        return torch.randn(batch, width, generator=gen, device=card), mask
+
+    return build, request
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVERS)
+def test_replayed_requests_are_the_eager_requests(card, name):
+    """At batch 1 (early stopping, but for the encoder imputers) and 8
+    (the fixed unroll), a request replayed from the server's graphs gives
+    the bits of an eager=True server's answer on the same inputs; each
+    batch size captures its own graphs once, and batch 1 still replays
+    after batch 8 captured."""
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    build, request = _server_case(card, name)
+    fast, slow = build(False), build(True)
+    loop.reset_graph_counts()
+    seeds = iter(range(100))
+    for batch in (1, 8, 1):
+        for _ in range(2):
+            args = request(batch, next(seeds))
+            got, want = fast(*args), slow(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), batch
+            assert bool(torch.isfinite(got[0]).all())
+            assert bool((got[1] > 0).all())
+    per_shape = 1 if name == "encoder" else 3
+    assert loop.GRAPHS["captures"] == 2 * per_shape
+    assert sorted(fast.shapes) == [1, 8] and not slow.shapes[1].init.graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVERS)
+def test_an_unroll_request_makes_no_host_sync(card, name):
+    """PyTorch's sync debug mode in "error" raises at any synchronizing
+    call of a replayed batch-8 request (the fixed unroll) after the one
+    that captured its graphs; the request's rows are on the card."""
+    build, request = _server_case(card, name)
+    serve = build(False)
+    serve(*request(8, 0))
+    args = request(8, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mean, var = serve(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+@pytest.mark.cuda
+def test_a_server_capture_survives_a_dropped_server(card):
+    """A dropped server leaves its graphs to the collector (its `_Shape`s
+    and their `StepGraph`s hold each other). A new server whose latent
+    init collects inside its capture (not in its warm-up) must still
+    capture and answer as an eager server does: `StepGraph` collects
+    before it captures."""
+    import gc
+
+    from dp_gp_lvm_tpu_torch.models import prediction, serving
+
+    build, request = _server_case(card, "bgplvm")
+    old = build(False)
+    old(*request(8, 0))
+    assert old.shapes[8].predict.graph is not None
+    del old                                     # now garbage in a cycle
+    Y, params, cfg = _c4_dp(card, torch.float32)
+    caches, phi = prediction.dp_posterior(params, Y, cfg)
+
+    def plan(y, mask):
+        def init():
+            if torch.cuda.is_current_stream_capturing():
+                gc.collect()
+            return prediction.init_latent_from_nearest(params["qx_mean"], Y,
+                                                       y, mask)
+
+        return serving._Plan(
+            init, prediction._dp_objective(caches, phi, y, mask, cfg.kernel),
+            lambda m, s: prediction.dp_predict_from_latent(caches, phi, m,
+                                                           s))
+
+    new = serving._server(plan, card, None, 5, 0.05, eager=False)
+    slow = serving._server(plan, card, None, 5, 0.05, eager=True)
+    y = torch.randn(8, Y.shape[1], device=card)
+    mask = torch.ones_like(y)
+    for _ in range(2):
+        got, want = new(y, mask), slow(y, mask)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_replayed_restarts_are_the_eager_fits(card):
+    """MRD's restarts share one fit, replayed for each restart on the
+    card: each restart's latent is the eager `mrd_infer_latent` fit's to
+    the bit, and the best per point is kept."""
+    from dp_gp_lvm_tpu_torch.models import prediction
+    from dp_gp_lvm_tpu_torch.train import loop
+
+    Ys, params, cfg = _mrd_setup(card, torch.float32)
+    caches = prediction.mrd_posterior(params, Ys, cfg)
+    y = Ys[0][:8]
+    m_inits = prediction.init_latent_knn(params["qx_mean"].detach(), Ys[0],
+                                         y, torch.ones_like(y), 3)
+    loop.reset_graph_counts()
+    m, s, obj = prediction.mrd_infer_latent_restarts(caches, {0: y},
+                                                     m_inits, 30)
+    assert loop.GRAPHS == {"captures": 1, "replays": 3 * 30 - 1}
+    fits = [prediction.mrd_infer_latent(caches, {0: y}, m_k, 30)
+            for m_k in m_inits]
+    picked = torch.stack([f[0] for f in fits]) == m[None]
+    assert bool(picked.all(dim=-1).any(dim=0).all())

@@ -1,25 +1,21 @@
 """The training step without host reads, on the CPU in float64: the
 device-side Cholesky repair (`linalg/chol.py`) and the natural-gradient
 blend's factor of C against the JAX package, the device step counter's
-rho against the host formula, and a guard that fails where a c6-, c7-,
-c8- or c9-shaped minibatch step or a full-batch DP-GP-LVM step reads a
-tensor back to the host, copies host data to a device, or calls an aten
-op whose CUDA kernel reads a value or a size back (forward or backward:
-torch.trace's backward did) — each a host sync, or a copy a CUDA graph
-cannot capture, on the card.
+rho against the host formula, and the guard of `tests/torch_sync_guard.py`
+on c6-, c7-, c8- and c9-shaped minibatch steps and a full-batch DP-GP-LVM
+step: it fails where a step reads a tensor back to the host, copies host
+data to a device, or calls an aten op whose CUDA kernel reads a value or
+a size back (forward or backward: torch.trace's backward did) — each a
+host sync, or a copy a CUDA graph cannot capture, on the card.
 
 The JAX oracles are jitted once per module at small f64 shapes; the
 stacks are a healthy one, one whose first factor fails and which the
 ladder repairs at rungs 2 and 3, and one that fails at every rung."""
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from dp_gp_lvm_tpu.linalg import chol as jchol
 from dp_gp_lvm_tpu.models import svi_gplvm as jsvi
@@ -37,6 +33,12 @@ from dp_gp_lvm_tpu_torch.train.loop import (
     MinibatchChunks,
     gp_optimizer,
     make_multi_step_fn,
+)
+from torch_sync_guard import (
+    HostReadError,
+    NoHostReads,
+    NoSyncingOps,
+    guarded as _guarded,
 )
 
 M = 6
@@ -195,65 +197,6 @@ def test_device_rho_is_the_host_formula():
 # ---------------------------------------------------------------------------
 # the host-read guard
 # ---------------------------------------------------------------------------
-
-
-class HostReadError(AssertionError):
-    pass
-
-
-_READS = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__int__,
-          torch.Tensor.__float__, torch.Tensor.__index__,
-          torch.Tensor.tolist, torch.Tensor.numpy, torch.Tensor.cpu}
-
-
-def _zero_d_int_index(index):
-    parts = index if isinstance(index, tuple) else (index,)
-    return any(torch.is_tensor(i) and i.ndim == 0 and not i.is_floating_point()
-               for i in parts)
-
-
-class NoHostReads(TorchFunctionMode):
-    """Raises on every call that reads a tensor back to the host, copies
-    one there, or copies host data to a device: `item`, truth, int,
-    float and index conversions, `tolist`, `numpy`, `cpu`, `torch.tensor`
-    or `torch.as_tensor` of host data onto a device, and indexing by a
-    0-d integer tensor (which PyTorch reads as a Python int)."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func in _READS:
-            raise HostReadError(f"host read: {func.__name__}")
-        if func in (torch.tensor, torch.as_tensor) and "device" in kwargs \
-                and not torch.is_tensor(args[0]):
-            raise HostReadError(f"tensor from host data: {func.__name__}")
-        if func is torch.Tensor.__getitem__ and _zero_d_int_index(args[1]):
-            raise HostReadError("indexed by a 0-d tensor")
-        return func(*args, **kwargs)
-
-
-# aten ops whose CUDA kernels read a value or a size back to the host,
-# seen where autograd's backward calls them too (trace's backward fills
-# with a 0-d tensor through index_fill, whose value it reads)
-_SYNCING_OPS = {"aten._local_scalar_dense.default",
-                "aten.index_fill.int_Tensor", "aten.index_fill_.int_Tensor",
-                "aten.nonzero.default", "aten.masked_select.default"}
-
-
-class NoSyncingOps(TorchDispatchMode):
-    """Raises on every aten op in `_SYNCING_OPS`, forward or backward."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if str(func) in _SYNCING_OPS:
-            raise HostReadError(f"syncing op: {func}")
-        return func(*args, **(kwargs or {}))
-
-
-def _guarded():
-    """Both guards at once."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(NoHostReads())
-    stack.enter_context(NoSyncingOps())
-    return stack
 
 
 def test_the_guard_sees_each_read():
